@@ -1,0 +1,82 @@
+// Shared launch shape and block reductions of the port's CUDA kernels.
+//
+// Every kernel runs one thread per output cell of a canonical 3D field
+// (x slowest, z fastest): threadIdx.x walks z so that a warp reads
+// consecutive addresses, threadIdx.y walks y, and blockIdx.z is the x
+// plane. The block reductions run once per block and are off the hot
+// path (the Poisson kernel reduces only on check iterations, one in nchk).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace ns3d {
+
+constexpr int kBlockX = 32;
+constexpr int kBlockY = 8;
+constexpr int kBlockThreads = kBlockX * kBlockY;
+
+// Grid covering an (n0, n1, n2) index space with (x, y, z) = (z-index,
+// y-index, x-plane).
+inline dim3 grid_for(int n0, int n1, int n2) {
+  return dim3((n2 + kBlockX - 1) / kBlockX, (n1 + kBlockY - 1) / kBlockY,
+              n0);
+}
+
+inline dim3 block_shape() { return dim3(kBlockX, kBlockY, 1); }
+
+__device__ inline int thread_rank() {
+  return threadIdx.x + blockDim.x * threadIdx.y;
+}
+
+constexpr int kWarps = kBlockThreads / 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Block reductions: a warp-shuffle reduction within each warp, the warp
+// results through shared memory, a shuffle reduction of those in warp 0,
+// then ONE atomic per block into the device scalar (which the caller
+// zeroes). Every thread of the block must call them: the shuffles use the
+// full warp mask.
+
+__device__ inline unsigned int warp_max(unsigned int v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned int u = __shfl_down_sync(kFullMask, v, o);
+    v = v > u ? v : u;
+  }
+  return v;
+}
+
+__device__ inline int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFullMask, v, o);
+  return v;
+}
+
+// Max of `v` over the block into *out. For the bit patterns of
+// non-negative floats the unsigned order is the float order, and a
+// positive NaN sorts above +inf, so a NaN propagates as jnp.max
+// propagates it.
+__device__ inline void block_max_to(unsigned int v, unsigned int* out) {
+  __shared__ unsigned int per_warp[kWarps];
+  const int t = thread_rank();
+  v = warp_max(v);
+  if ((t & 31) == 0) per_warp[t >> 5] = v;
+  __syncthreads();
+  if (t < 32) {
+    v = warp_max(t < kWarps ? per_warp[t] : 0u);
+    if (t == 0 && v != 0u) atomicMax(out, v);
+  }
+}
+
+// Sum of `v` over the block into *out.
+__device__ inline void block_sum_to(int v, int* out) {
+  __shared__ int per_warp[kWarps];
+  const int t = thread_rank();
+  v = warp_sum(v);
+  if ((t & 31) == 0) per_warp[t >> 5] = v;
+  __syncthreads();
+  if (t < 32) {
+    v = warp_sum(t < kWarps ? per_warp[t] : 0);
+    if (t == 0 && v != 0) atomicAdd(out, v);
+  }
+}
+
+}  // namespace ns3d

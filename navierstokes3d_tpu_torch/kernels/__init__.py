@@ -1,0 +1,48 @@
+"""Hand-written CUDA kernels of the solver's main path, each beside its
+plain PyTorch version.
+
+Every wrapper launches its kernel for CUDA tensors (building the library
+on first use, kernels/_build.py) and runs the plain version for CPU
+tensors. Each wrapper counts its launches (`wrapper.launches`) and each
+plain version its calls (`plain.calls`), so a run can show which path it
+took.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from . import advect, fused_step, poisson
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    name: str
+    source: str        # CUDA source, relative to the repository root
+    replaces: str      # the Pallas call site it replaces
+    wrapper: Callable  # carries .launches
+    plain: Callable    # carries .calls
+
+
+KERNELS = (
+    Kernel("K1 poisson_iter", "navierstokes3d_tpu_torch/csrc/poisson.cu",
+           "navierstokes3d_tpu/kernels/poisson.py:914",
+           poisson.poisson_iter, poisson.poisson_iter_plain),
+    Kernel("K3 predict", "navierstokes3d_tpu_torch/csrc/fused_step.cu",
+           "navierstokes3d_tpu/kernels/fused_step.py:440",
+           fused_step.predict, fused_step.predict_plain),
+    Kernel("K4 correct", "navierstokes3d_tpu_torch/csrc/fused_step.cu",
+           "navierstokes3d_tpu/kernels/fused_step.py:632",
+           fused_step.correct, fused_step.correct_plain),
+    Kernel("K5 advect", "navierstokes3d_tpu_torch/csrc/advect.cu",
+           "navierstokes3d_tpu/kernels/advect.py:537",
+           advect.advect_branch, advect.advect_branch_plain),
+)
+
+
+def reset_counts() -> None:
+    """Set every launch and plain-call count to 0."""
+    for k in KERNELS:
+        k.wrapper.launches = 0
+        k.plain.calls = 0

@@ -1,0 +1,166 @@
+"""Build and bind the hand-written CUDA kernels (csrc/*.cu).
+
+nvcc compiles the package's own CUDA sources, and nothing else, into ONE
+shared library with a plain C interface, loaded with ctypes. The library
+lands in the package's `_build/` directory (listed in .gitignore) under a
+name keyed by a hash of the sources and flags, so an edited source is
+rebuilt and a stale library is never loaded. Nothing here runs at import:
+the first kernel launch calls `load()`, which builds if needed.
+
+Flags: sm_90a (Hopper), and --fmad=false so that `a*b + c` is not
+contracted into an FMA — the kernels then round exactly as the JAX
+expressions and the plain PyTorch versions do (whether to allow FMAs is a
+later, measured decision).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argtypes (every one returns cudaGetLastError())
+SIGNATURES = {
+    # pr, pr_out, dpr, rhs, wyp, wym, wzp, wzm, inv_dx2, dtau, decay,
+    # nx, ny, nz, err_bits (nullable), stream
+    "ns3d_poisson_iter": (_P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F,
+                          _I, _I, _I, _P, _P),
+    # vx, vy, vz, mask_vx, mask_vy, mask_vz, vx_out, vy_out, vz_out,
+    # divv, dx, dy, dz, mu, two_mu, three, dt_rho, rho_g, nx, ny, nz,
+    # stream
+    "ns3d_predict": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F,
+                     _F, _F, _F, _F, _F, _I, _I, _I, _P),
+    # vx, vy, vz, pr, mask_vx, mask_vy, mask_vz, vx_out, vy_out, vz_out,
+    # dx, dy, dz, minus_dt_rho, nx, ny, nz, stream
+    "ns3d_correct": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F,
+                     _F, _I, _I, _I, _P),
+    # branch, a, vx, vy, vz, out, n_clamped, dt, dx, dy, dz, k, nx, ny,
+    # nz, stream
+    "ns3d_advect": (_I, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _I, _I,
+                    _I, _I, _P),
+}
+
+
+def sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def build_key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME or put "
+                           "nvcc on PATH) to build the CUDA kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+@dataclasses.dataclass
+class BuildResult:
+    path: Path           # the keyed library
+    compiled: bool       # False when an up-to-date library existed
+    seconds: float       # nvcc wall time (0 when not compiled)
+    log: str             # nvcc output: the per-kernel register report
+
+
+def build() -> BuildResult:
+    """Compile csrc/*.cu into the keyed library unless it exists. The
+    library is written under a temporary name and renamed, so a
+    concurrent or interrupted build never leaves a partial file."""
+    key = build_key()
+    lib = BUILD_DIR / f"libns3d_kernels_{key}.so"
+    if lib.exists():
+        return BuildResult(lib, False, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR),
+                               "-o", tmp, *cu],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return BuildResult(lib, True, time.perf_counter() - t0,
+                       proc.stdout + proc.stderr)
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Build (if needed) and bind the kernel library, once per process."""
+    lib = ctypes.CDLL(str(build().path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error (its return value is
+    cudaGetLastError() right after the launch)."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def require(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    """Validate a kernel operand before its pointer is passed on."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def on_cuda(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel or plain version for device "
+                     f"{t.device}")

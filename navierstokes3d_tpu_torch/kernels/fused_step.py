@@ -1,0 +1,148 @@
+"""K3 (predict) and K4 (correct): the fused non-Poisson chain of the step.
+
+`predict` launches the CUDA kernel of csrc/fused_step.cu for CUDA tensors
+and runs `predict_plain` for CPU tensors; `correct` / `correct_plain`
+likewise. They replace the Pallas kernels of navierstokes3d_tpu/kernels/
+fused_step.py (`build_predict` :440 and `build_correct` :632):
+
+  predict: stress -> predictor V* = V + dt/rho div(tau) (g_eff = 0 under
+           the hydrostatic split) -> cylinder mask -> div(V*);
+  correct: V** = V* - dt/rho grad(p) -> cylinder mask -> the gpu
+           variant's velocity BC stack.
+
+The plain versions ARE the ops/physics.py + ops/cylinder.py + bc.py chain,
+in the JAX functions' expression order. Constants reach the kernels
+pre-rounded to float32 exactly as jnp's weak-type promotion rounds them
+(the JAX kernels' `_f`, fused_step.py:62). The tracer's mask set
+(c = where(mask_c, 1, c)) stays outside both kernels, as in the JAX
+package's chained step.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import physics as ph
+from ..ops.cylinder import CylinderMasks, mask_velocities
+from . import _build
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConsts:
+    """Physical and grid constants of the step chain (Python floats)."""
+    dt: float
+    dx: float
+    dy: float
+    dz: float
+    mu: float
+    rho: float
+    g_eff: float   # 0 under the hydrostatic split
+
+
+def _f32(x: float) -> ctypes.c_float:
+    """A Python constant rounded to float32 as jnp's weak typing rounds it."""
+    return ctypes.c_float(float(np.float32(x)))
+
+
+def _check_velocities(vx, vy, vz, nx, ny, nz, dev):
+    _build.require("vx", vx, (nx + 1, ny, nz), torch.float32, dev)
+    _build.require("vy", vy, (nx, ny + 1, nz), torch.float32, dev)
+    _build.require("vz", vz, (nx, ny, nz + 1), torch.float32, dev)
+
+
+def _check_masks(masks: CylinderMasks, nx, ny, dev):
+    _build.require("mask_vx", masks.mask_vx, (nx + 1, ny), torch.bool, dev)
+    _build.require("mask_vy", masks.mask_vy, (nx, ny + 1), torch.bool, dev)
+    _build.require("mask_vz", masks.mask_vz, (nx, ny), torch.bool, dev)
+
+
+# ---- K3 ----
+
+def predict_plain(vx, vy, vz, masks: CylinderMasks, k: StepConsts
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of K3: (vx*, vy*, vz*, divv)."""
+    predict_plain.calls += 1
+    taus = ph.update_tau(vx, vy, vz, k.mu, k.dx, k.dy, k.dz)
+    vx, vy, vz = ph.predict_v(vx, vy, vz, *taus, k.rho, k.g_eff, k.dt,
+                              k.dx, k.dy, k.dz)
+    vx, vy, vz = mask_velocities(vx, vy, vz, masks)
+    return vx, vy, vz, ph.update_divv(vx, vy, vz, k.dx, k.dy, k.dz)
+
+
+predict_plain.calls = 0
+
+
+def predict(vx, vy, vz, masks: CylinderMasks, k: StepConsts
+            ) -> Tuple[torch.Tensor, ...]:
+    """Fused stress + predictor + cylinder mask + divergence. Returns new
+    tensors (vx*, vy*, vz*, divv); the inputs are read only."""
+    if not _build.on_cuda(vx, "predict"):
+        return predict_plain(vx, vy, vz, masks, k)
+    nx, ny, nz = vx.shape[0] - 1, vx.shape[1], vx.shape[2]
+    dev = vx.device
+    _check_velocities(vx, vy, vz, nx, ny, nz, dev)
+    _check_masks(masks, nx, ny, dev)
+    outs = (torch.empty_like(vx), torch.empty_like(vy), torch.empty_like(vz),
+            torch.empty((nx, ny, nz), dtype=vx.dtype, device=dev))
+    lib = _build.load()
+    rc = lib.ns3d_predict(
+        vx.data_ptr(), vy.data_ptr(), vz.data_ptr(),
+        masks.mask_vx.data_ptr(), masks.mask_vy.data_ptr(),
+        masks.mask_vz.data_ptr(), *(o.data_ptr() for o in outs),
+        _f32(k.dx), _f32(k.dy), _f32(k.dz), _f32(k.mu), _f32(2.0 * k.mu),
+        _f32(3.0), _f32(k.dt / k.rho), _f32(k.rho * k.g_eff),
+        nx, ny, nz, _build.stream_of(vx))
+    _build.check(rc, "predict")
+    predict.launches += 1
+    return outs
+
+
+predict.launches = 0
+
+
+# ---- K4 ----
+
+def correct_plain(vx, vy, vz, pr, masks: CylinderMasks, k: StepConsts,
+                  set_bc_vel: Callable) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of K4: correct_v + cylinder mask + BCs."""
+    correct_plain.calls += 1
+    vx, vy, vz = ph.correct_v(vx, vy, vz, pr, k.dt, k.rho, k.dx, k.dy, k.dz)
+    vx, vy, vz = mask_velocities(vx, vy, vz, masks)
+    return set_bc_vel(vx, vy, vz)
+
+
+correct_plain.calls = 0
+
+
+def correct(vx, vy, vz, pr, masks: CylinderMasks, k: StepConsts,
+            set_bc_vel: Callable) -> Tuple[torch.Tensor, ...]:
+    """Fused pressure correction + cylinder mask + the gpu variant's
+    velocity BC stack (set_bc_vel, which the kernel implements as its
+    separable clamped read; the plain version calls it). Returns new
+    tensors; the inputs are read only."""
+    if not _build.on_cuda(vx, "correct"):
+        return correct_plain(vx, vy, vz, pr, masks, k, set_bc_vel)
+    nx, ny, nz = pr.shape
+    dev = vx.device
+    _check_velocities(vx, vy, vz, nx, ny, nz, dev)
+    _build.require("pr", pr, (nx, ny, nz), torch.float32, dev)
+    _check_masks(masks, nx, ny, dev)
+    outs = (torch.empty_like(vx), torch.empty_like(vy), torch.empty_like(vz))
+    lib = _build.load()
+    rc = lib.ns3d_correct(
+        vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), pr.data_ptr(),
+        masks.mask_vx.data_ptr(), masks.mask_vy.data_ptr(),
+        masks.mask_vz.data_ptr(), *(o.data_ptr() for o in outs),
+        _f32(k.dx), _f32(k.dy), _f32(k.dz), _f32(-k.dt / k.rho),
+        nx, ny, nz, _build.stream_of(vx))
+    _build.check(rc, "correct")
+    correct.launches += 1
+    return outs
+
+
+correct.launches = 0

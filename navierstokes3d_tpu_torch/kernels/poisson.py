@@ -1,0 +1,197 @@
+"""K1, the folded-BC pseudo-transient Poisson iteration, and the residual
+evaluations of the Poisson solve.
+
+`poisson_iter` launches the CUDA kernel of csrc/poisson.cu for CUDA tensors
+and runs `poisson_iter_plain`, its plain PyTorch version, for CPU tensors.
+Both compute the Pallas kernel's iteration (navierstokes3d_tpu/kernels/
+poisson.py:914, `compute_slab_folded` :305) on the canonical 3D layout:
+
+  lap   = (xp + xm)*inv_dx2 + (yp*wyp + ym*wym) + (zp*wzp + zm*wzm)
+  resid = lap - rhs;   dpr <- dpr*decay + dtau*resid   (interior, in place)
+  pr'   = pr + dtau*dpr                                 (written to pr_out)
+
+with neighbor differences (p+ - pc) and the weight rows mask/h^2 of the
+folded boundary conditions. The caller's protocol is the JAX package's
+(its docstring at kernels/poisson.py:130-142): one exact first iteration
+plus set_bc_pr, the affine-z constants hoisted into the RHS, and the
+boundary planes materialized at the end.
+
+`compensated_residual` (kernels/poisson.py:1311-1395) and `residual_max`
+(`residual_flat`, :1287-1309) stay torch ops, as XLA computes them in the
+JAX package; both run once per restart or check, not per iteration.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import ds
+from ..ops.stencil import div
+from . import _build
+
+
+@dataclasses.dataclass(frozen=True)
+class PoissonOperator:
+    """The folded Poisson operator's constants on one device and dtype.
+
+    inv_dx2/dtau/decay are Python floats already rounded to the dtype (as
+    the JAX kernel pre-rounds them); wyp..wzm are the kernel's weight rows
+    over the full y (ny,) and z (nz,) index ranges; masks are the six
+    interior coefficient masks of folded_lap, broadcast-shaped (order xm,
+    xp, ym, yp, zm, zp); quads their (w_hi, w_lo, w1, w2) weight quads
+    (mask/h^2 split from float64) for the compensated residuals."""
+    dx: float
+    dy: float
+    dz: float
+    inv_dx2: float
+    dtau: float
+    decay: float
+    wyp: torch.Tensor
+    wym: torch.Tensor
+    wzp: torch.Tensor
+    wzm: torch.Tensor
+    masks: Tuple[torch.Tensor, ...]
+    quads: Dict[str, tuple]
+
+
+def make_operator(masks1d: Dict[str, np.ndarray], grid, dtype: torch.dtype,
+                  device) -> PoissonOperator:
+    """Build the operator from bc.folded_masks and the grid."""
+    npdt = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    rnd = lambda v: float(npdt(v))  # noqa: E731
+
+    def row(mask, h):
+        # full-length row, interior entries from the mask (the JAX rows
+        # are (mask != 0) * f32(1/h/h); the ring entries are never read)
+        full = np.ones(len(mask) + 2, np.float64)
+        full[1:-1] = mask
+        inv_h2 = npdt(1.0 / h / h)
+        return torch.tensor((full * inv_h2).astype(npdt), device=device)
+
+    shapes = {"x": (-1, 1, 1), "y": (1, -1, 1), "z": (1, 1, -1)}
+    hs = {"x": grid.dx, "y": grid.dy, "z": grid.dz}
+    keys = ("xm", "xp", "ym", "yp", "zm", "zp")
+    masks = tuple(torch.tensor(masks1d[k].astype(npdt), device=device)
+                  .reshape(shapes[k[0]]) for k in keys)
+    quads = {k: tuple(q.reshape(shapes[k[0]]) for q in ds.weight_quad(
+        masks1d[k] / hs[k[0]] / hs[k[0]], device=device)) for k in keys}
+    return PoissonOperator(
+        dx=grid.dx, dy=grid.dy, dz=grid.dz,
+        inv_dx2=rnd(1.0 / grid.dx / grid.dx), dtau=rnd(grid.dtau),
+        decay=rnd(1.0 - grid.damp),
+        wyp=row(masks1d["yp"], grid.dy), wym=row(masks1d["ym"], grid.dy),
+        wzp=row(masks1d["zp"], grid.dz), wzm=row(masks1d["zm"], grid.dz),
+        masks=masks, quads=quads)
+
+
+# ---- K1: the iteration ----
+
+def poisson_iter_plain(pr, pr_out, dpr, rhs, op: PoissonOperator,
+                       check: bool) -> Optional[torch.Tensor]:
+    """Plain PyTorch version of K1 (same arguments and effects as
+    poisson_iter)."""
+    poisson_iter_plain.calls += 1
+    inner = (slice(1, -1),) * 3
+    pc = pr[inner]
+    xp = pr[2:, 1:-1, 1:-1] - pc
+    xm = pr[:-2, 1:-1, 1:-1] - pc
+    lap = (xp + xm) * op.inv_dx2
+    lap = lap + ((pr[1:-1, 2:, 1:-1] - pc) * op.wyp[1:-1, None]
+                 + (pr[1:-1, :-2, 1:-1] - pc) * op.wym[1:-1, None])
+    lap = lap + ((pr[1:-1, 1:-1, 2:] - pc) * op.wzp[1:-1]
+                 + (pr[1:-1, 1:-1, :-2] - pc) * op.wzm[1:-1])
+    resid = lap - rhs[inner]
+    d = dpr[inner] * op.decay + op.dtau * resid
+    # boundary and frozen cells: dpr = 0, pr' = pr (as the kernel writes)
+    dpr.zero_()
+    dpr[inner] = d
+    pr_out.copy_(pr)
+    pr_out[inner] = pc + op.dtau * d
+    return torch.max(torch.abs(resid)) if check else None
+
+
+poisson_iter_plain.calls = 0
+
+
+def poisson_iter(pr, pr_out, dpr, rhs, op: PoissonOperator,
+                 check: bool) -> Optional[torch.Tensor]:
+    """One folded PT iteration: reads pr and rhs, updates dpr in place and
+    writes every cell of pr_out (which must not alias pr). With check=True
+    returns the max |resid| over interior cells (a 0-dim tensor on the
+    device; the residual of the state ENTERING the iteration), else None.
+    CUDA tensors launch the kernel (or raise); CPU tensors run the plain
+    version."""
+    if not _build.on_cuda(pr, "poisson_iter"):
+        return poisson_iter_plain(pr, pr_out, dpr, rhs, op, check)
+    shape, dev = pr.shape, pr.device
+    for name, t in (("pr", pr), ("pr_out", pr_out), ("dpr", dpr),
+                    ("rhs", rhs)):
+        _build.require(name, t, shape, torch.float32, dev)
+    nx, ny, nz = shape
+    for name, t, n in (("wyp", op.wyp, ny), ("wym", op.wym, ny),
+                       ("wzp", op.wzp, nz), ("wzm", op.wzm, nz)):
+        _build.require(name, t, (n,), torch.float32, dev)
+    if pr_out.data_ptr() == pr.data_ptr():
+        raise ValueError("poisson_iter: pr_out must not alias pr (Jacobi)")
+    err = torch.zeros((1,), dtype=torch.int32, device=dev) if check else None
+    lib = _build.load()
+    rc = lib.ns3d_poisson_iter(
+        pr.data_ptr(), pr_out.data_ptr(), dpr.data_ptr(), rhs.data_ptr(),
+        op.wyp.data_ptr(), op.wym.data_ptr(), op.wzp.data_ptr(),
+        op.wzm.data_ptr(), ctypes.c_float(op.inv_dx2),
+        ctypes.c_float(op.dtau), ctypes.c_float(op.decay), nx, ny, nz,
+        _build.ptr(err), _build.stream_of(pr))
+    _build.check(rc, "poisson_iter")
+    poisson_iter.launches += 1
+    return err.view(torch.float32)[0] if check else None
+
+
+poisson_iter.launches = 0
+
+
+# ---- residual evaluations (torch ops, as XLA computes them in JAX) ----
+
+def folded_lap(p, op: PoissonOperator):
+    """Interior Laplacian with the boundary conditions folded in, in the
+    JAX package's jnp form (models/chorin.py _folded_lap_fn: masked
+    neighbor differences, then the two successive divisions)."""
+    axm, axp, aym, ayp, azm, azp = op.masks
+    pc = p[1:-1, 1:-1, 1:-1]
+    return (div(div(axp * (p[2:, 1:-1, 1:-1] - pc)
+                    + axm * (p[:-2, 1:-1, 1:-1] - pc), op.dx), op.dx)
+            + div(div(ayp * (p[1:-1, 2:, 1:-1] - pc)
+                      + aym * (p[1:-1, :-2, 1:-1] - pc), op.dy), op.dy)
+            + div(div(azp * (p[1:-1, 1:-1, 2:] - pc)
+                      + azm * (p[1:-1, 1:-1, :-2] - pc), op.dz), op.dz))
+
+
+def residual_max(p, rhs, op: PoissonOperator) -> torch.Tensor:
+    """max |folded_lap(p) - rhs| over interior cells: a plain (single
+    rounding per operation) evaluation, the 3D form of residual_flat."""
+    return torch.max(torch.abs(folded_lap(p, op) - rhs[1:-1, 1:-1, 1:-1]))
+
+
+def compensated_residual(p, rhs_hi, rhs_lo, op: PoissonOperator):
+    """Compensated folded residual of a single field p against an (hi, lo)
+    RHS pair, in the Pallas path's term order (x+, x-, y+, y-, z+, z-,
+    then -rhs): two_sum neighbor differences, Dekker products against
+    f64-split weights, compensated accumulation — error ~eps*|resid|
+    instead of eps*|rhs|. Returns (r, max|r|) with r full-shape and zero
+    on the boundary ring (the defect-correction RHS is -r)."""
+    q = op.quads
+    pc = p[1:-1, 1:-1, 1:-1]
+    nbs = ((p[2:, 1:-1, 1:-1], q["xp"]), (p[:-2, 1:-1, 1:-1], q["xm"]),
+           (p[1:-1, 2:, 1:-1], q["yp"]), (p[1:-1, :-2, 1:-1], q["ym"]),
+           (p[1:-1, 1:-1, 2:], q["zp"]), (p[1:-1, 1:-1, :-2], q["zm"]))
+    pairs = [ds.weighted_term(*ds.two_sum(nb, -pc), quad)
+             for nb, quad in nbs]
+    pairs.append((-rhs_hi[1:-1, 1:-1, 1:-1], -rhs_lo[1:-1, 1:-1, 1:-1]))
+    s, c = ds.accumulate(pairs)
+    r = torch.zeros_like(p)
+    r[1:-1, 1:-1, 1:-1] = s + c
+    return r, torch.max(torch.abs(r))

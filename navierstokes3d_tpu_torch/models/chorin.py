@@ -1,0 +1,387 @@
+"""Chorin projection solver, single device (torch port of
+navierstokes3d_tpu/models/chorin.py for the gpu preset's main path).
+
+Step structure (the JAX package's `_step_chained`, chorin.py:1843-1884;
+reference time loop NavierStokes3D_gpu.jl:119-171):
+
+  1. fused predictor (K3): stress -> V* -> cylinder mask -> div V*;
+     the tracer's seed ring is set outside the kernel
+  2. pseudo-transient Poisson solve (K1 in a host-driven loop):
+     exact first iteration + set_bc_pr; phase 1 on the folded kernel
+     with an early hand-off at 1000*eps_it; one compensated-residual
+     restart; phase 2 restarted defect correction with the same kernel;
+     the stored-state guarantee; the stored (hi, lo) pressure pair
+  3. fused corrector + cylinder mask + velocity BCs (K4)
+  4. four semi-Lagrangian advection branches (K5)
+
+float32 runs that path on any device (CUDA tensors launch the kernels,
+CPU tensors run their plain versions). float64 runs on the CPU only, with
+the plain folded solve and no accuracy phase, as the JAX package does when
+its extended precision is off (chorin.py:1041-1067).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..bc import folded_masks, make_bc_fns, make_bc_pr_pair
+from ..config import SimConfig
+from ..grid import Grid, make_grid
+from ..kernels import advect as k_advect
+from ..kernels import fused_step as k_step
+from ..kernels import poisson as k_poisson
+from ..ops import ds
+from ..ops import physics as ph
+from ..ops.cylinder import CylinderMasks, build_masks, mask_tracer
+from ..ptloop import host_scalar, np_float, pt_loop_fused
+from ..state import FlowState, StepStats, zeros_state
+
+INNER = (slice(1, -1),) * 3
+
+
+def _two_sum(a, b):
+    """Knuth two_sum: s = fl(a + b), e such that a + b = s + e exactly."""
+    s = a + b
+    ap = s - b
+    bp = s - ap
+    return s, (a - ap) + (b - bp)
+
+
+class ChorinSolver:
+    """Owns the config-derived constants, masks and BC closures of one
+    device; exposes `init_state`, `step`, `run`, `poisson_solve`,
+    `predictor_divv` and `stored_residual_err`."""
+
+    def __init__(self, cfg: SimConfig, device: torch.device | str = "cpu"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but CUDA is not "
+                               "available")
+        if cfg.compat:
+            raise NotImplementedError(
+                "compat mode is not ported yet (ROADMAP queue 1, item 10; "
+                "queue 2, K7)")
+        if cfg.numerics.poisson_backend != "pt":
+            raise NotImplementedError(
+                "the fdm Poisson backend is not ported yet (ROADMAP queue "
+                "1, item 8)")
+        self.grid: Grid = make_grid(cfg)
+        self.dtype = cfg.numerics.torch_dtype
+        if self.dtype == torch.float64 and self.device.type != "cpu":
+            raise ValueError("float64 runs on the CPU only: the CUDA "
+                             "kernels are float32")
+        self._init_split()
+        grid, phys = self.grid, cfg.physics
+        self.set_bc_vel, self.set_bc_pr = make_bc_fns(
+            cfg, grid, pressure_split=self.pressure_split)
+        self.set_bc_pr_pair = make_bc_pr_pair(
+            cfg, grid, pressure_split=self.pressure_split)
+        self.masks: CylinderMasks = build_masks(cfg, grid, self.device)
+        self._op = k_poisson.make_operator(
+            folded_masks(cfg, grid, self.pressure_split), grid, self.dtype,
+            self.device)
+        self._consts = k_step.StepConsts(
+            dt=grid.dt, dx=grid.dx, dy=grid.dy, dz=grid.dz, mu=phys.mu,
+            rho=phys.rho, g_eff=0.0 if self.pressure_split else phys.g)
+        # stall exit: None = auto, which is on outside compat mode
+        self._stall = ((cfg.numerics.stall_ratio, cfg.numerics.stall_checks)
+                       if cfg.numerics.stall_exit is not False else None)
+        # select-shift window: k=2 is a 2x margin over the CFL_adv=1
+        # displacement bound, clamp-counted beyond (ops/advect.py)
+        self.advect_k = 2
+        # use_pallas=False runs the plain PyTorch versions on every
+        # device; otherwise the wrappers launch the hand-written kernels
+        # for CUDA tensors (CPU tensors always take the plain versions)
+        self.plain = cfg.use_pallas is False
+        if self.plain:
+            self._poisson_iter = k_poisson.poisson_iter_plain
+            self._predict = k_step.predict_plain
+            self._correct = k_step.correct_plain
+        else:
+            self._poisson_iter = k_poisson.poisson_iter
+            self._predict = k_step.predict
+            self._correct = k_step.correct
+
+    def _init_split(self):
+        """Hydrostatic pressure split and the float32 accuracy policy
+        (the JAX package's _init_split, chorin.py:186-272, for the gpu
+        variant): state.pr stores p' = Pr - P_static(z) with P_static the
+        exact linear init/BC profile rho*g*(nz-iz+0.5)*dz; float32 carries
+        the stored (hi, lo) pair and runs restarted defect correction as
+        the accuracy phase."""
+        cfg, phys, grid, num = self.cfg, self.cfg.physics, self.grid, \
+            self.cfg.numerics
+        want = num.pressure_split
+        if want is None:
+            want = cfg.variant == "gpu" and not cfg.compat and phys.g != 0.0
+        self.pressure_split = bool(want)
+        ext = num.extended_precision
+        if ext is None:
+            ext = self.dtype == torch.float32 and not cfg.compat
+        self.extended = bool(ext)
+        acc = num.accuracy
+        if acc not in (None, "defect", "extended", "none"):
+            raise ValueError(f"accuracy must be defect/extended/none, "
+                             f"got {acc!r}")
+        if not self.extended or acc == "none":
+            self.acc = "none"
+        elif acc == "extended" or (acc is None and not self.pressure_split):
+            self.acc = "extended"
+        else:
+            self.acc = "defect"
+        if self.dtype == torch.float32 and self.acc != "defect":
+            raise NotImplementedError(
+                f"float32 accuracy phase {self.acc!r} is not ported yet "
+                "(the extended phase is ROADMAP queue 2, K2); the port runs "
+                "'defect'")
+        # folded-BC RHS hoist: the affine-z BC of the split field drops a
+        # CONSTANT -+rho*g*dz neighbor term at the z-adjacent interior
+        # planes; rhs_folded = rhs - hoist
+        zh = np.zeros(grid.nz)
+        if self.pressure_split:
+            rho_g_dz = phys.rho * phys.g * grid.dz
+            zh[1] = -rho_g_dz / grid.dz / grid.dz
+            zh[grid.nz - 2] = +rho_g_dz / grid.dz / grid.dz
+        self._z_hoist = zh
+
+    # ---- initialization ----
+
+    def init_state(self) -> FlowState:
+        """gpu variant (NavierStokes3D_gpu.jl:84-88): 1/6-power-law Vx
+        profile (evaluated in numpy float64, then cast) and hydrostatic
+        pressure, which under the split is p' = 0 exactly."""
+        cfg, grid = self.cfg, self.grid
+        st = zeros_state(grid, self.dtype, self.device)
+        zc = grid.zc()
+        prof = cfg.physics.vin * (7.0 / 6.0) * (
+            (zc + grid.lz / 2) / grid.lz) ** (1.0 / 6.0)
+        vx = np.broadcast_to(prof[None, None, :], grid.shape_vx)
+        vx = torch.tensor(np.ascontiguousarray(vx), dtype=self.dtype,
+                          device=self.device)
+        return st.replace(vx=vx)
+
+    # ---- Poisson solve ----
+
+    def poisson_solve(self, pr, dprdtau, divv
+                      ) -> Tuple[torch.Tensor, torch.Tensor, StepStats]:
+        if self.dtype == torch.float64:
+            return self._poisson_solve_folded(pr, dprdtau, divv)
+        return self._poisson_solve_defect(pr, dprdtau, divv)
+
+    def _budget(self):
+        grid = self.grid
+        nchunks = grid.niter // grid.nchk
+        return nchunks, grid.niter - nchunks * grid.nchk
+
+    def _err_scale(self) -> float:
+        return (self.grid.ly * self.grid.ly) / self.cfg.physics.psc
+
+    def _first_iteration(self, pr, dprdtau, divv):
+        """The folded protocol's global iteration 1 in exact form (it reads
+        the incoming boundary planes as the reference does), then the
+        Dirichlet planes are frozen via set_bc_pr."""
+        grid, phys = self.grid, self.cfg.physics
+        pr, dpr = ph.poisson_iter(pr, dprdtau, divv, phys.rho, grid.dt,
+                                  grid.dtau, grid.damp, grid.dx, grid.dy,
+                                  grid.dz)
+        return self.set_bc_pr(pr), dpr
+
+    def _poisson_solve_folded(self, pr, dprdtau, divv):
+        """Plain folded solve (JAX `_poisson_solve_jnp_folded` with the
+        extended pair off): zero-gradient faces are dropped neighbor terms,
+        Dirichlet planes are frozen, the affine-z constants are hoisted
+        into the RHS."""
+        grid, phys, num = self.grid, self.cfg.physics, self.cfg.numerics
+        nchunks, rem = self._budget()
+        dtau, damp, nchk = grid.dtau, grid.damp, grid.nchk
+        err_scale = self._err_scale()
+        zh = torch.tensor(self._z_hoist[1:-1], dtype=self.dtype,
+                          device=self.device)
+        rhs = (phys.rho / grid.dt) * divv[INNER] - zh
+        op = self._op
+
+        def step_fn(carry, it):
+            p, dpr = carry
+            resid = k_poisson.folded_lap(p, op) - rhs
+            dpr = dpr.clone()
+            dpr[INNER] = dpr[INNER] * (1.0 - damp) + dtau * resid
+            p = p + dtau * dpr
+            e = (torch.max(torch.abs(resid)) * err_scale
+                 if (it + 1) % nchk == 0 else None)
+            return (p, dpr), e, 1
+
+        carry = self._first_iteration(pr, dprdtau, divv)
+        (pr, dprdtau), it1, err1, hist1 = pt_loop_fused(
+            step_fn, carry, 1, nchunks * nchk + rem, nchk, nchunks,
+            num.eps_it, self.dtype, stall=self._stall)
+        return self.set_bc_pr(pr), dprdtau, StepStats(
+            iters=it1, err=err1, err_hist=hist1)
+
+    def _kernel_chain(self, rhs, err_scale) -> Callable:
+        """Loop body of one K1 iteration on a ping-pong carry (p_in, p_out,
+        dpr); the reduction runs only on iterations the loop checks."""
+        op, nchk, k1 = self._op, self.grid.nchk, self._poisson_iter
+
+        def step(carry, it):
+            p_in, p_out, dpr = carry
+            ec = k1(p_in, p_out, dpr, rhs, op, (it + 1) % nchk == 0)
+            return ((p_out, p_in, dpr),
+                    None if ec is None else ec * err_scale, 1)
+        return step
+
+    def _poisson_solve_defect(self, pr, dprdtau, divv):
+        """The folded + defect branch of the JAX package's
+        `_poisson_solve_pallas` (chorin.py:1127-1462), 1x loop body."""
+        grid, phys, num = self.grid, self.cfg.physics, self.cfg.numerics
+        nchunks, rem = self._budget()
+        nchk, eps_it = grid.nchk, num.eps_it
+        ft = np_float(self.dtype)
+        err_scale = self._err_scale()
+        # (hi, lo) RHS pair: hi is bit-identical to the plain computation
+        # (same hot-loop trajectory); lo feeds the compensated residuals
+        rhs3d, rhs_lo3d = ds.rhs_pair(divv, phys.rho / grid.dt,
+                                      self._z_hoist)
+        pr, dpr = self._first_iteration(pr, dprdtau, divv)
+
+        # ---- phase 1: the folded kernel, handing off EARLY at
+        # 1000*eps_it (the correction phase continues the same PT
+        # trajectory with better arithmetic); a stall detector always
+        # runs here, and the trailing partial chunk belongs to phase 2
+        stall1 = self._stall or (num.stall_ratio, num.stall_checks)
+        (p1, _, dpr), it1, _, hist1 = pt_loop_fused(
+            self._kernel_chain(rhs3d, err_scale),
+            (pr, torch.empty_like(pr), dpr), 1, nchunks * nchk, nchk,
+            nchunks, eps_it * 1000.0, self.dtype, stall=stall1)
+
+        # ---- phase 2: restarted defect correction. r0 is evaluated ONCE
+        # with compensated arithmetic (error ~eps*|r0|), then lap(delta) =
+        # -r0 is solved with the SAME kernel; delta starts at 0 and dpr
+        # CARRIES OVER (by linearity the correction continues phase 1's
+        # trajectory). Seeding err0 makes the loop a no-op when phase 1
+        # already converged.
+        r0, emax = k_poisson.compensated_residual(p1, rhs3d, rhs_lo3d,
+                                                  self._op)
+        errh = host_scalar(emax * err_scale, ft)
+        n2 = nchunks * nchk + rem
+        chain2 = self._kernel_chain(-r0, err_scale)
+        carry, it2, err, hist2 = pt_loop_fused(
+            chain2, (torch.zeros_like(p1), torch.empty_like(p1), dpr), 0,
+            n2, nchk, nchunks, eps_it, self.dtype, stall=self._stall,
+            err0=errh)
+        hist = np.where(np.isnan(hist1), np.roll(hist2, it1 // nchk), hist1)
+
+        rhs_hi_in, rhs_lo_in = rhs3d[INNER], rhs_lo3d[INNER]
+
+        def pair_of(dl):
+            return self.set_bc_pr_pair(*_two_sum(p1, dl))
+
+        def true_err(dl):
+            hi, lo = pair_of(dl)
+            emax = self._comp_residual(hi, lo, rhs_hi_in, rhs_lo_in)[1]
+            return host_scalar(emax * err_scale, ft)
+
+        # ---- stored-state guarantee (chorin.py:1412-1458): on a MARGINAL
+        # exit (check just under eps_it) the returned pair's true residual
+        # can land above eps_it; re-evaluate it with the compensated
+        # residual and keep iterating in nchk chunks until the STORED state
+        # meets eps_it or the phase-2 budget runs out.
+        if ft(0.85 * eps_it) <= err < ft(eps_it) and it2 > 0:
+            while true_err(carry[0]) >= ft(eps_it) and it2 + nchk <= n2:
+                for _ in range(nchk):
+                    carry = chain2(carry, 0)[0]   # it=0: no check flag
+                it2 += nchk
+            err = true_err(carry[0])
+        hi, lo = pair_of(carry[0])
+        return hi, carry[2], StepStats(iters=it1 + it2, err=err,
+                                       err_hist=hist, iters_ext=it2,
+                                       pr_lo=lo)
+
+    def _comp_residual(self, hi, lo, rhs_hi, rhs_lo):
+        """Compensated folded residual of a (hi, lo) pressure pair against
+        a (hi, lo) RHS pair (the JAX package's _comp_residual_fn,
+        chorin.py:909, term order x-, x+, y-, y+, z-, z+). Returns (r, max|r|)
+        on the interior."""
+        q = self._op.quads
+        hic, loc = hi[INNER], lo[INNER]
+        nbs = ((hi[:-2, 1:-1, 1:-1], lo[:-2, 1:-1, 1:-1], q["xm"]),
+               (hi[2:, 1:-1, 1:-1], lo[2:, 1:-1, 1:-1], q["xp"]),
+               (hi[1:-1, :-2, 1:-1], lo[1:-1, :-2, 1:-1], q["ym"]),
+               (hi[1:-1, 2:, 1:-1], lo[1:-1, 2:, 1:-1], q["yp"]),
+               (hi[1:-1, 1:-1, :-2], lo[1:-1, 1:-1, :-2], q["zm"]),
+               (hi[1:-1, 1:-1, 2:], lo[1:-1, 1:-1, 2:], q["zp"]))
+        pairs = []
+        for nb_hi, nb_lo, quad in nbs:
+            dh, dl = ds.two_sum(nb_hi, -hic)
+            dl = dl + (nb_lo - loc)
+            pairs.append(ds.weighted_term(dh, dl, quad))
+        pairs.append((-rhs_hi, -rhs_lo))
+        s, c = ds.accumulate(pairs)
+        r = s + c
+        return r, torch.max(torch.abs(r))
+
+    # ---- full step ----
+
+    def predictor_divv(self, state: FlowState) -> torch.Tensor:
+        """The predictor-velocity divergence a step taken FROM `state`
+        hands to its Poisson solve (the step's own prelude); snapshot it
+        before stepping to feed stored_residual_err."""
+        return self._predict(state.vx, state.vy, state.vz, self.masks,
+                             self._consts)[3]
+
+    def stored_residual_err(self, state_after: FlowState, *,
+                            state_before: Optional[FlowState] = None,
+                            divv: Optional[torch.Tensor] = None):
+        """The reference's convergence criterion re-evaluated on the STORED
+        pressure pair of `state_after`: max |lap(pr (+) pr_lo) - rhs| *
+        ly^2/psc in compensated arithmetic, with rhs rebuilt from the
+        pre-step predictor divergence (pass `state_before` or its
+        `predictor_divv`). Returns a numpy scalar of the solver's dtype."""
+        if divv is None:
+            divv = self.predictor_divv(state_before)
+        grid, phys = self.grid, self.cfg.physics
+        zh = self._z_hoist[1:-1] if self.pressure_split else None
+        rhs_hi, rhs_lo = ds.rhs_pair(divv[INNER], phys.rho / grid.dt, zh)
+        lo = (state_after.pr_lo if state_after.pr_lo is not None
+              else torch.zeros_like(state_after.pr))
+        _, emax = self._comp_residual(state_after.pr, lo, rhs_hi, rhs_lo)
+        ft = np_float(self.dtype)
+        # (emax * ly^2) / psc, in the JAX expression's order
+        return ft(host_scalar(emax, ft) * ft(grid.ly * grid.ly)) \
+            / ft(phys.psc)
+
+    def step(self, state: FlowState) -> Tuple[FlowState, StepStats]:
+        k = self._consts
+        vx, vy, vz, divv = self._predict(state.vx, state.vy, state.vz,
+                                         self.masks, k)
+        c = mask_tracer(state.c, self.masks)
+        pr, dprdtau, stats = self.poisson_solve(state.pr, state.dprdtau,
+                                                divv)
+        # pop the stored-pair low word out of the stats channel into the
+        # state (the corrector and the next solve use hi only)
+        pr_lo, stats.pr_lo = stats.pr_lo, None
+        vx, vy, vz = self._correct(vx, vy, vz, pr, self.masks, k,
+                                   self.set_bc_vel)
+        vx, vy, vz, c, n_clamped = k_advect.advect(
+            vx, vy, vz, c, k, self.advect_k, plain=self.plain)
+        stats.advect_clamped = int(n_clamped.item())
+        return (FlowState(pr=pr, vx=vx, vy=vy, vz=vz, c=c, dprdtau=dprdtau,
+                          pr_lo=pr_lo), stats)
+
+    def run(self, nt: Optional[int] = None,
+            state: Optional[FlowState] = None,
+            callback=None) -> Tuple[FlowState, List[StepStats]]:
+        """Host loop over nt steps (default cfg.numerics.nt);
+        callback(it, state, stats) runs after each step."""
+        nt = self.cfg.numerics.nt if nt is None else nt
+        state = self.init_state() if state is None else state
+        all_stats = []
+        for it in range(1, nt + 1):
+            state, stats = self.step(state)
+            all_stats.append(stats)
+            if callback is not None:
+                callback(it, state, stats)
+        return state, all_stats

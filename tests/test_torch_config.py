@@ -1,0 +1,145 @@
+"""The PyTorch port's configuration, grid and package boundary.
+
+The port mirrors the JAX package's config dataclasses field for field (it
+cannot import them: navierstokes3d_tpu/config.py imports jax), so these
+tests hold the two copies equal in names and defaults, and check that the
+port imports without jax, refuses a missing CUDA device, and never hands a
+CPU tensor to the kernel loader.
+"""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import navierstokes3d_tpu.config as jcfg
+import navierstokes3d_tpu.grid as jgrid
+import navierstokes3d_tpu_torch as nt
+import navierstokes3d_tpu_torch.config as tcfg
+import navierstokes3d_tpu_torch.grid as tgrid
+from navierstokes3d_tpu_torch import kernels
+from navierstokes3d_tpu_torch.kernels import _build
+
+torch.set_num_threads(2)
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _fields_and_defaults(cls):
+    out = []
+    for f in dataclasses.fields(cls):
+        if f.default is not dataclasses.MISSING:
+            default = f.default
+        elif f.default_factory is not dataclasses.MISSING:
+            default = dataclasses.asdict(f.default_factory())
+        else:
+            default = dataclasses.MISSING
+        out.append((f.name, default))
+    return out
+
+
+@pytest.mark.parametrize("name", ["PhysicsConfig", "NumericsConfig",
+                                  "IOConfig", "ParallelConfig", "SimConfig"])
+def test_dataclass_fields_and_defaults_match(name):
+    assert (_fields_and_defaults(getattr(tcfg, name))
+            == _fields_and_defaults(getattr(jcfg, name)))
+
+
+@pytest.mark.parametrize("preset", ["preset_gpu", "preset_multi"])
+@pytest.mark.parametrize("kw", [{}, {"nx": 31, "nt": 3, "compat": False,
+                                     "dtype": "float32"}])
+def test_presets_match(preset, kw):
+    a = dataclasses.asdict(getattr(tcfg, preset)(**kw))
+    b = dataclasses.asdict(getattr(jcfg, preset)(**kw))
+    assert a == b
+
+
+@pytest.mark.parametrize("preset", ["preset_gpu", "preset_multi"])
+@pytest.mark.parametrize("nx", [15, 17, 24, 63, 255])
+def test_make_grid_matches(preset, nx):
+    a = tgrid.make_grid(getattr(tcfg, preset)(nx=nx))
+    b = jgrid.make_grid(getattr(jcfg, preset)(nx=nx))
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    for fn in ("xc", "yc", "zc", "xv", "yv", "zv"):
+        np.testing.assert_array_equal(getattr(a, fn)(), getattr(b, fn)())
+    assert a.field_shapes() == b.field_shapes()
+
+
+def test_torch_dtype():
+    assert tcfg.NumericsConfig(dtype="float32").torch_dtype == torch.float32
+    assert tcfg.NumericsConfig().torch_dtype == torch.float64
+
+
+def test_port_imports_without_jax():
+    code = ("import sys\n"
+            "import navierstokes3d_tpu_torch\n"
+            "import navierstokes3d_tpu_torch.run\n"
+            "import navierstokes3d_tpu_torch.kernels\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'navierstokes3d_tpu.', 'flax')) or "
+            "m == 'navierstokes3d_tpu')\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cuda_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = nt.preset_gpu(nx=15, compat=False, dtype="float32")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nt.ChorinSolver(cfg, device="cuda")
+
+
+def test_unported_configs_raise():
+    with pytest.raises(NotImplementedError, match="K2"):
+        nt.ChorinSolver(nt.preset_multi(nx=15, compat=False,
+                                        dtype="float32"))
+    with pytest.raises(NotImplementedError, match="compat"):
+        nt.ChorinSolver(nt.preset_gpu(nx=15, dtype="float32"))
+    with pytest.raises(ValueError, match="CPU only"):
+        nt.ChorinSolver(nt.preset_gpu(nx=15, compat=False), device="meta")
+
+
+def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
+    def refuse():
+        raise AssertionError("kernel loader called for CPU tensors")
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    kernels.reset_counts()
+    cfg = nt.preset_gpu(nx=15, compat=False, dtype="float32")
+    s = nt.ChorinSolver(cfg)
+    state, stats = s.step(s.init_state())
+    assert stats.iters > 0
+    for k in kernels.KERNELS:
+        assert k.wrapper.launches == 0, k.name
+        assert k.plain.calls > 0, k.name
+    kernels.reset_counts()
+
+
+def test_use_pallas_false_runs_plain_versions():
+    """use_pallas=False: the solver calls the plain versions directly
+    (the switch of the hand kernels), with the same results on the CPU."""
+    cfg = nt.preset_gpu(nx=15, compat=False, dtype="float32")
+    a = nt.ChorinSolver(cfg)
+    b = nt.ChorinSolver(cfg.replace(use_pallas=False))
+    assert b.plain and not a.plain
+    sa, ta = a.step(a.init_state())
+    sb, tb = b.step(b.init_state())
+    assert (ta.iters, ta.iters_ext) == (tb.iters, tb.iters_ext)
+    assert torch.equal(sa.pr, sb.pr) and torch.equal(sa.vx, sb.vx)
+
+
+def test_build_sources_and_key():
+    names = sorted(p.name for p in _build.sources())
+    assert names == ["advect.cu", "common.cuh", "fused_step.cu",
+                     "poisson.cu"]
+    assert _build.build_key() == _build.build_key()
+    assert "--fmad=false" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert set(_build.SIGNATURES) == {"ns3d_poisson_iter", "ns3d_predict",
+                                      "ns3d_correct", "ns3d_advect"}
