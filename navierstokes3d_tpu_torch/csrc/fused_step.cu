@@ -9,10 +9,14 @@
 //
 // K4 replaces the Pallas kernel of navierstokes3d_tpu/kernels/fused_step.py:632
 // (build_correct: `kernel` :563, `body` :500): V** = V* - dt/rho * grad p
-// -> cylinder mask -> the gpu variant's velocity BC stack (zero-gradient
-// x/y, no-slip bottom, free-slip top; NavierStokes3D_gpu.jl:264-279). The
-// BC stack is a separable clamped read (fused_step.py:40-48):
-//   out(x,y,z) = 0 if z == 0, else q(cx(x), cy(y), cz(z)),
+// -> cylinder mask -> the variant's velocity BC stack. The BC stack is a
+// separable clamped read (fused_step.py:40-48, `bc` :547-561):
+//   gpu   (zero-gradient x/y, no-slip bottom, free-slip top;
+//          NavierStokes3D_gpu.jl:264-279):
+//         out(x,y,z) = 0 if z == 0, else q(cx(x), cy(y), cz_top(z));
+//   multi (zero-gradient on all faces, then the inlet plane Vx = vin;
+//          NavierStokes3D_multi_gpu.jl:156-166):
+//         out(x,y,z) = q(cx(x), cy(y), cz(z)), and vx(0,y,z) = vin last,
 // with q the CORRECTED AND MASKED value, so each thread recomputes the
 // correction at its clamped source index (a read of the uncorrected input
 // there would be wrong).
@@ -241,7 +245,18 @@ __device__ inline int clamp_in(int i, int n) {
 
 __device__ inline int clamp_top(int i, int n) { return i == n - 1 ? n - 2 : i; }
 
+// variant codes of ns3d_correct (kernels/fused_step.py VARIANTS)
+constexpr int kGpu = 0;
+constexpr int kMulti = 1;
+
+// z source index of the BC stack: gpu clamps the top only (its floor is
+// the no-slip 0 the caller writes), multi clamps both ends
+__device__ inline int clamp_z(int variant, int z, int n) {
+  return variant == kMulti ? clamp_in(z, n) : clamp_top(z, n);
+}
+
 __global__ void correct_kernel(Vel v, Masks m, Pressure p, CorrectConsts c,
+                               int variant, float vin,
                                float* __restrict__ vx_out,
                                float* __restrict__ vy_out,
                                float* __restrict__ vz_out) {
@@ -249,23 +264,30 @@ __global__ void correct_kernel(Vel v, Masks m, Pressure p, CorrectConsts c,
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int x = blockIdx.z;
   const int nx = v.nx, ny = v.ny, nz = v.nz;
+  const bool noslip_floor = variant == kGpu && z == 0;
   if (x <= nx && y < ny && z < nz) {
-    vx_out[(static_cast<long>(x) * ny + y) * nz + z] =
-        z == 0 ? 0.0f
-               : vx_corr(v, m, p, c, clamp_in(x, nx + 1), clamp_in(y, ny),
-                         clamp_top(z, nz));
+    float q;
+    if (variant == kMulti && x == 0) {
+      q = vin;  // the inlet plane overrides last
+    } else if (noslip_floor) {
+      q = 0.0f;
+    } else {
+      q = vx_corr(v, m, p, c, clamp_in(x, nx + 1), clamp_in(y, ny),
+                  clamp_z(variant, z, nz));
+    }
+    vx_out[(static_cast<long>(x) * ny + y) * nz + z] = q;
   }
   if (x < nx && y <= ny && z < nz) {
     vy_out[(static_cast<long>(x) * (ny + 1) + y) * nz + z] =
-        z == 0 ? 0.0f
-               : vy_corr(v, m, p, c, clamp_in(x, nx), clamp_in(y, ny + 1),
-                         clamp_top(z, nz));
+        noslip_floor ? 0.0f
+                     : vy_corr(v, m, p, c, clamp_in(x, nx),
+                               clamp_in(y, ny + 1), clamp_z(variant, z, nz));
   }
   if (x < nx && y < ny && z <= nz) {
     vz_out[(static_cast<long>(x) * ny + y) * (nz + 1) + z] =
-        z == 0 ? 0.0f
-               : vz_corr(v, m, p, c, clamp_in(x, nx), clamp_in(y, ny),
-                         clamp_top(z, nz + 1));
+        noslip_floor ? 0.0f
+                     : vz_corr(v, m, p, c, clamp_in(x, nx), clamp_in(y, ny),
+                               clamp_z(variant, z, nz + 1));
   }
 }
 
@@ -294,14 +316,18 @@ extern "C" int ns3d_correct(const float* vx, const float* vy, const float* vz,
                             const unsigned char* mask_vy,
                             const unsigned char* mask_vz, float* vx_out,
                             float* vy_out, float* vz_out, float dx, float dy,
-                            float dz, float minus_dt_rho, int nx, int ny,
-                            int nz, cudaStream_t stream) {
+                            float dz, float minus_dt_rho, int variant,
+                            float vin, int nx, int ny, int nz,
+                            cudaStream_t stream) {
+  if (variant != kGpu && variant != kMulti) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Vel v{vx, vy, vz, nx, ny, nz};
   const Masks m{mask_vx, mask_vy, mask_vz};
   const Pressure p{pr, ny, nz};
   const CorrectConsts c{dx, dy, dz, minus_dt_rho};
   const dim3 grid = ns3d::grid_for(nx + 1, ny + 1, nz + 1);
   const dim3 block = ns3d::block_shape();
-  correct_kernel<<<grid, block, 0, stream>>>(v, m, p, c, vx_out, vy_out, vz_out);
+  correct_kernel<<<grid, block, 0, stream>>>(v, m, p, c, variant, vin, vx_out, vy_out, vz_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,6 +29,9 @@ KERNELS = (
     Kernel("K1 poisson_iter", "navierstokes3d_tpu_torch/csrc/poisson.cu",
            "navierstokes3d_tpu/kernels/poisson.py:914",
            poisson.poisson_iter, poisson.poisson_iter_plain),
+    Kernel("K2 poisson_iter_ext", "navierstokes3d_tpu_torch/csrc/poisson.cu",
+           "navierstokes3d_tpu/kernels/poisson.py:1230",
+           poisson.poisson_iter_ext, poisson.poisson_iter_ext_plain),
     Kernel("K3 predict", "navierstokes3d_tpu_torch/csrc/fused_step.cu",
            "navierstokes3d_tpu/kernels/fused_step.py:440",
            fused_step.predict, fused_step.predict_plain),

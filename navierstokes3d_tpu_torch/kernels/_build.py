@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
 nvcc compiles the package's own CUDA sources, and nothing else, into ONE
-shared library with a plain C interface, loaded with ctypes. The library
+shared library with a plain C interface, loaded with ctypes: one nvcc
+process per source, all started together, then one link. The library
 lands in the package's `_build/` directory (listed in .gitignore) under a
 name keyed by a hash of the sources and flags, so an edited source is
 rebuilt and a stale library is never loaded. Nothing here runs at import:
@@ -9,8 +10,9 @@ the first kernel launch calls `load()`, which builds if needed.
 
 Flags: sm_90a (Hopper), and --fmad=false so that `a*b + c` is not
 contracted into an FMA — the kernels then round exactly as the JAX
-expressions and the plain PyTorch versions do (whether to allow FMAs is a
-later, measured decision).
+expressions and the plain PyTorch versions do, and K2's two_sum stays an
+error-free transform (whether to allow FMAs elsewhere is a later,
+measured decision).
 """
 
 from __future__ import annotations
@@ -30,9 +32,9 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,18 +42,22 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes (every one returns cudaGetLastError())
 SIGNATURES = {
     # pr, pr_out, dpr, rhs, wyp, wym, wzp, wzm, inv_dx2, dtau, decay,
-    # nx, ny, nz, err_bits (nullable), stream
+    # zero_grad_x, nx, ny, nz, err_bits (nullable), stream
     "ns3d_poisson_iter": (_P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F,
-                          _I, _I, _I, _P, _P),
+                          _I, _I, _I, _I, _P, _P),
+    # hi, lo, hi_out, lo_out, dpr, rhs, wyp, wym, wzp, wzm, inv_dx2, dtau,
+    # decay, zero_grad_x, nx, ny, nz, err_bits (nullable), stream
+    "ns3d_poisson_iter_ext": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
+                              _F, _F, _I, _I, _I, _I, _P, _P),
     # vx, vy, vz, mask_vx, mask_vy, mask_vz, vx_out, vy_out, vz_out,
     # divv, dx, dy, dz, mu, two_mu, three, dt_rho, rho_g, nx, ny, nz,
     # stream
     "ns3d_predict": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F,
                      _F, _F, _F, _F, _F, _I, _I, _I, _P),
     # vx, vy, vz, pr, mask_vx, mask_vy, mask_vz, vx_out, vy_out, vz_out,
-    # dx, dy, dz, minus_dt_rho, nx, ny, nz, stream
+    # dx, dy, dz, minus_dt_rho, variant, vin, nx, ny, nz, stream
     "ns3d_correct": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F,
-                     _F, _I, _I, _I, _P),
+                     _F, _I, _F, _I, _I, _I, _P),
     # branch, a, vx, vy, vz, out, n_clamped, dt, dx, dy, dz, k, nx, ny,
     # nz, stream
     "ns3d_advect": (_I, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _I, _I,
@@ -88,31 +94,38 @@ class BuildResult:
 
 
 def build() -> BuildResult:
-    """Compile csrc/*.cu into the keyed library unless it exists. The
-    library is written under a temporary name and renamed, so a
-    concurrent or interrupted build never leaves a partial file."""
+    """Compile csrc/*.cu into the keyed library unless it exists: one nvcc
+    per source in parallel into a private temporary directory, then one
+    link, written under a temporary name and renamed, so a concurrent or
+    interrupted build never leaves a partial file."""
     key = build_key()
     lib = BUILD_DIR / f"libns3d_kernels_{key}.so"
     if lib.exists():
         return BuildResult(lib, False, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR),
-                               "-o", tmp, *cu],
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sorted(SRC_DIR.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o", obj,
+                 str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        so = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc(), *ARCH, "-shared", "-o", so, *objs],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        os.replace(so, lib)
     return BuildResult(lib, True, time.perf_counter() - t0,
-                       proc.stdout + proc.stderr)
+                       log + proc.stdout + proc.stderr)
 
 
 @functools.cache

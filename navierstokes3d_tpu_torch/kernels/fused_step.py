@@ -6,9 +6,11 @@ likewise. They replace the Pallas kernels of navierstokes3d_tpu/kernels/
 fused_step.py (`build_predict` :440 and `build_correct` :632):
 
   predict: stress -> predictor V* = V + dt/rho div(tau) (g_eff = 0 under
-           the hydrostatic split) -> cylinder mask -> div(V*);
-  correct: V** = V* - dt/rho grad(p) -> cylinder mask -> the gpu
-           variant's velocity BC stack.
+           the hydrostatic split and for the multi preset, whose g is 0)
+           -> cylinder mask -> div(V*);
+  correct: V** = V* - dt/rho grad(p) -> cylinder mask -> the velocity BC
+           stack of StepConsts.variant ('gpu' or 'multi'; the kernel
+           raises ValueError for any other).
 
 The plain versions ARE the ops/physics.py + ops/cylinder.py + bc.py chain,
 in the JAX functions' expression order. Constants reach the kernels
@@ -22,19 +24,25 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
+from ..bc import velocity_bc
 from ..ops import physics as ph
 from ..ops.cylinder import CylinderMasks, mask_velocities
 from . import _build
 
+# K4's variant codes (csrc/fused_step.cu ns3d_correct)
+VARIANTS = {"gpu": 0, "multi": 1}
+
 
 @dataclasses.dataclass(frozen=True)
 class StepConsts:
-    """Physical and grid constants of the step chain (Python floats)."""
+    """Physical and grid constants of the step chain (Python floats), and
+    the variant whose velocity BC stack K4 applies (with its inlet
+    velocity vin, used by the multi variant)."""
     dt: float
     dx: float
     dy: float
@@ -42,6 +50,8 @@ class StepConsts:
     mu: float
     rho: float
     g_eff: float   # 0 under the hydrostatic split
+    variant: str
+    vin: float
 
 
 def _f32(x: float) -> ctypes.c_float:
@@ -107,10 +117,12 @@ predict.launches = 0
 
 # ---- K4 ----
 
-def correct_plain(vx, vy, vz, pr, masks: CylinderMasks, k: StepConsts,
-                  set_bc_vel: Callable) -> Tuple[torch.Tensor, ...]:
-    """Plain PyTorch version of K4: correct_v + cylinder mask + BCs."""
+def correct_plain(vx, vy, vz, pr, masks: CylinderMasks, k: StepConsts
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of K4: correct_v + cylinder mask + the
+    variant's BCs (bc.velocity_bc)."""
     correct_plain.calls += 1
+    set_bc_vel = velocity_bc(k.variant, k.vin)
     vx, vy, vz = ph.correct_v(vx, vy, vz, pr, k.dt, k.rho, k.dx, k.dy, k.dz)
     vx, vy, vz = mask_velocities(vx, vy, vz, masks)
     return set_bc_vel(vx, vy, vz)
@@ -119,14 +131,16 @@ def correct_plain(vx, vy, vz, pr, masks: CylinderMasks, k: StepConsts,
 correct_plain.calls = 0
 
 
-def correct(vx, vy, vz, pr, masks: CylinderMasks, k: StepConsts,
-            set_bc_vel: Callable) -> Tuple[torch.Tensor, ...]:
-    """Fused pressure correction + cylinder mask + the gpu variant's
-    velocity BC stack (set_bc_vel, which the kernel implements as its
-    separable clamped read; the plain version calls it). Returns new
-    tensors; the inputs are read only."""
+def correct(vx, vy, vz, pr, masks: CylinderMasks, k: StepConsts
+            ) -> Tuple[torch.Tensor, ...]:
+    """Fused pressure correction + cylinder mask + the velocity BC stack of
+    k.variant, which the kernel implements as a separable clamped read
+    (gpu: no-slip floor; multi: zero-gradient floor, then the inlet plane
+    vx = vin). Returns new tensors; the inputs are read only."""
     if not _build.on_cuda(vx, "correct"):
-        return correct_plain(vx, vy, vz, pr, masks, k, set_bc_vel)
+        return correct_plain(vx, vy, vz, pr, masks, k)
+    if k.variant not in VARIANTS:
+        raise ValueError(f"correct: no kernel for variant {k.variant!r}")
     nx, ny, nz = pr.shape
     dev = vx.device
     _check_velocities(vx, vy, vz, nx, ny, nz, dev)
@@ -139,7 +153,7 @@ def correct(vx, vy, vz, pr, masks: CylinderMasks, k: StepConsts,
         masks.mask_vx.data_ptr(), masks.mask_vy.data_ptr(),
         masks.mask_vz.data_ptr(), *(o.data_ptr() for o in outs),
         _f32(k.dx), _f32(k.dy), _f32(k.dz), _f32(-k.dt / k.rho),
-        nx, ny, nz, _build.stream_of(vx))
+        VARIANTS[k.variant], _f32(k.vin), nx, ny, nz, _build.stream_of(vx))
     _build.check(rc, "correct")
     correct.launches += 1
     return outs

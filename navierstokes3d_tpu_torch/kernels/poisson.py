@@ -1,20 +1,30 @@
-"""K1, the folded-BC pseudo-transient Poisson iteration, and the residual
-evaluations of the Poisson solve.
+"""K1, the folded-BC pseudo-transient Poisson iteration, K2, its
+double-single (hi, lo) form, and the residual evaluations of the Poisson
+solve.
 
-`poisson_iter` launches the CUDA kernel of csrc/poisson.cu for CUDA tensors
-and runs `poisson_iter_plain`, its plain PyTorch version, for CPU tensors.
-Both compute the Pallas kernel's iteration (navierstokes3d_tpu/kernels/
+`poisson_iter` and `poisson_iter_ext` launch the CUDA kernels of
+csrc/poisson.cu for CUDA tensors and run `poisson_iter_plain` and
+`poisson_iter_ext_plain`, their plain PyTorch versions, for CPU tensors.
+K1 computes the Pallas kernel's iteration (navierstokes3d_tpu/kernels/
 poisson.py:914, `compute_slab_folded` :305) on the canonical 3D layout:
 
   lap   = (xp + xm)*inv_dx2 + (yp*wyp + ym*wym) + (zp*wzp + zm*wzm)
   resid = lap - rhs;   dpr <- dpr*decay + dtau*resid   (interior, in place)
   pr'   = pr + dtau*dpr                                 (written to pr_out)
 
-with neighbor differences (p+ - pc) and the weight rows mask/h^2 of the
-folded boundary conditions. The caller's protocol is the JAX package's
-(its docstring at kernels/poisson.py:130-142): one exact first iteration
-plus set_bc_pr, the affine-z constants hoisted into the RHS, and the
-boundary planes materialized at the end.
+with neighbor differences (p+ - pc), the weight rows mask/h^2 of the
+folded boundary conditions, and xm replaced by 0 at x == 1 where x-lo is
+zero-gradient (the multi variant; `lap_of_rows_folded` :281). K2 (:1230,
+`compute_slab_ext_folded` :317) iterates the pair (hi, lo) whose sum is
+the pressure:
+
+  resid = (lap(hi) - rhs) + lap(lo);   dpr as K1
+  u = lo + dtau*dpr;   (hi', lo') = two_sum(hi, u)       (every cell)
+
+The caller's protocol is the JAX package's (its docstring at
+kernels/poisson.py:130-142): one exact first iteration plus set_bc_pr,
+the affine-z constants hoisted into the RHS, and the boundary planes
+materialized at the end.
 
 `compensated_residual` (kernels/poisson.py:1311-1395) and `residual_max`
 (`residual_flat`, :1287-1309) stay torch ops, as XLA computes them in the
@@ -44,7 +54,9 @@ class PoissonOperator:
     over the full y (ny,) and z (nz,) index ranges; masks are the six
     interior coefficient masks of folded_lap, broadcast-shaped (order xm,
     xp, ym, yp, zm, zp); quads their (w_hi, w_lo, w1, w2) weight quads
-    (mask/h^2 split from float64) for the compensated residuals."""
+    (mask/h^2 split from float64) for the compensated residuals;
+    zero_grad_x drops the x-1 neighbor of the first interior plane (x-lo
+    zero-gradient, the multi variant)."""
     dx: float
     dy: float
     dz: float
@@ -57,6 +69,7 @@ class PoissonOperator:
     wzm: torch.Tensor
     masks: Tuple[torch.Tensor, ...]
     quads: Dict[str, tuple]
+    zero_grad_x: bool
 
 
 def make_operator(masks1d: Dict[str, np.ndarray], grid, dtype: torch.dtype,
@@ -86,7 +99,45 @@ def make_operator(masks1d: Dict[str, np.ndarray], grid, dtype: torch.dtype,
         decay=rnd(1.0 - grid.damp),
         wyp=row(masks1d["yp"], grid.dy), wym=row(masks1d["ym"], grid.dy),
         wzp=row(masks1d["zp"], grid.dz), wzm=row(masks1d["zm"], grid.dz),
-        masks=masks, quads=quads)
+        masks=masks, quads=quads, zero_grad_x=bool(masks1d["xm"][0] == 0))
+
+
+INNER = (slice(1, -1),) * 3
+
+
+def _lap_folded(p, op: PoissonOperator):
+    """The kernels' interior Laplacian in `lap_of_rows_folded`'s order
+    (kernels/poisson.py:281-296): (lap, pc)."""
+    pc = p[INNER]
+    xp = p[2:, 1:-1, 1:-1] - pc
+    xm = p[:-2, 1:-1, 1:-1] - pc
+    if op.zero_grad_x:
+        # a select, as the kernels do: x == 1 reads no x-1 neighbor
+        xm = torch.cat((torch.zeros_like(xm[:1]), xm[1:]))
+    lap = (xp + xm) * op.inv_dx2
+    lap = lap + ((p[1:-1, 2:, 1:-1] - pc) * op.wyp[1:-1, None]
+                 + (p[1:-1, :-2, 1:-1] - pc) * op.wym[1:-1, None])
+    lap = lap + ((p[1:-1, 1:-1, 2:] - pc) * op.wzp[1:-1]
+                 + (p[1:-1, 1:-1, :-2] - pc) * op.wzm[1:-1])
+    return lap, pc
+
+
+def _update_dpr(dpr, resid, op: PoissonOperator):
+    """dpr <- dpr*decay + dtau*resid on the interior, 0 on the ring (as
+    the kernels write it); returns the interior update."""
+    d = dpr[INNER] * op.decay + op.dtau * resid
+    dpr.zero_()
+    dpr[INNER] = d
+    return d
+
+
+def _check_operands(op: PoissonOperator, shape, dev, **fields):
+    for fname, t in fields.items():
+        _build.require(fname, t, shape, torch.float32, dev)
+    nx, ny, nz = shape
+    for fname, t, n in (("wyp", op.wyp, ny), ("wym", op.wym, ny),
+                        ("wzp", op.wzp, nz), ("wzm", op.wzm, nz)):
+        _build.require(fname, t, (n,), torch.float32, dev)
 
 
 # ---- K1: the iteration ----
@@ -96,22 +147,12 @@ def poisson_iter_plain(pr, pr_out, dpr, rhs, op: PoissonOperator,
     """Plain PyTorch version of K1 (same arguments and effects as
     poisson_iter)."""
     poisson_iter_plain.calls += 1
-    inner = (slice(1, -1),) * 3
-    pc = pr[inner]
-    xp = pr[2:, 1:-1, 1:-1] - pc
-    xm = pr[:-2, 1:-1, 1:-1] - pc
-    lap = (xp + xm) * op.inv_dx2
-    lap = lap + ((pr[1:-1, 2:, 1:-1] - pc) * op.wyp[1:-1, None]
-                 + (pr[1:-1, :-2, 1:-1] - pc) * op.wym[1:-1, None])
-    lap = lap + ((pr[1:-1, 1:-1, 2:] - pc) * op.wzp[1:-1]
-                 + (pr[1:-1, 1:-1, :-2] - pc) * op.wzm[1:-1])
-    resid = lap - rhs[inner]
-    d = dpr[inner] * op.decay + op.dtau * resid
-    # boundary and frozen cells: dpr = 0, pr' = pr (as the kernel writes)
-    dpr.zero_()
-    dpr[inner] = d
+    lap, pc = _lap_folded(pr, op)
+    resid = lap - rhs[INNER]
+    d = _update_dpr(dpr, resid, op)
+    # boundary and frozen cells: pr' = pr (as the kernel writes)
     pr_out.copy_(pr)
-    pr_out[inner] = pc + op.dtau * d
+    pr_out[INNER] = pc + op.dtau * d
     return torch.max(torch.abs(resid)) if check else None
 
 
@@ -128,30 +169,91 @@ def poisson_iter(pr, pr_out, dpr, rhs, op: PoissonOperator,
     version."""
     if not _build.on_cuda(pr, "poisson_iter"):
         return poisson_iter_plain(pr, pr_out, dpr, rhs, op, check)
-    shape, dev = pr.shape, pr.device
-    for name, t in (("pr", pr), ("pr_out", pr_out), ("dpr", dpr),
-                    ("rhs", rhs)):
-        _build.require(name, t, shape, torch.float32, dev)
-    nx, ny, nz = shape
-    for name, t, n in (("wyp", op.wyp, ny), ("wym", op.wym, ny),
-                       ("wzp", op.wzp, nz), ("wzm", op.wzm, nz)):
-        _build.require(name, t, (n,), torch.float32, dev)
+    dev = pr.device
+    _check_operands(op, pr.shape, dev, pr=pr, pr_out=pr_out,
+                    dpr=dpr, rhs=rhs)
     if pr_out.data_ptr() == pr.data_ptr():
         raise ValueError("poisson_iter: pr_out must not alias pr (Jacobi)")
     err = torch.zeros((1,), dtype=torch.int32, device=dev) if check else None
+    nx, ny, nz = pr.shape
     lib = _build.load()
     rc = lib.ns3d_poisson_iter(
         pr.data_ptr(), pr_out.data_ptr(), dpr.data_ptr(), rhs.data_ptr(),
         op.wyp.data_ptr(), op.wym.data_ptr(), op.wzp.data_ptr(),
         op.wzm.data_ptr(), ctypes.c_float(op.inv_dx2),
-        ctypes.c_float(op.dtau), ctypes.c_float(op.decay), nx, ny, nz,
-        _build.ptr(err), _build.stream_of(pr))
+        ctypes.c_float(op.dtau), ctypes.c_float(op.decay),
+        int(op.zero_grad_x), nx, ny, nz, _build.ptr(err),
+        _build.stream_of(pr))
     _build.check(rc, "poisson_iter")
     poisson_iter.launches += 1
     return err.view(torch.float32)[0] if check else None
 
 
 poisson_iter.launches = 0
+
+
+# ---- K2: the double-single iteration ----
+
+def poisson_iter_ext_plain(hi, lo, hi_out, lo_out, dpr, rhs,
+                           op: PoissonOperator,
+                           check: bool) -> Optional[torch.Tensor]:
+    """Plain PyTorch version of K2 (same arguments and effects as
+    poisson_iter_ext)."""
+    poisson_iter_ext_plain.calls += 1
+    lap_h, _ = _lap_folded(hi, op)
+    lap_l, _ = _lap_folded(lo, op)
+    resid = (lap_h - rhs[INNER]) + lap_l
+    _update_dpr(dpr, resid, op)
+    # every cell: u = lo + dtau*dpr (dpr = 0 off the interior, so there
+    # the two_sum renormalizes the pair: hi absorbs lo)
+    u = lo + op.dtau * dpr
+    s = hi + u
+    ap = s - u
+    bp = s - ap
+    hi_out.copy_(s)
+    lo_out.copy_((hi - ap) + (u - bp))
+    return torch.max(torch.abs(resid)) if check else None
+
+
+poisson_iter_ext_plain.calls = 0
+
+
+def poisson_iter_ext(hi, lo, hi_out, lo_out, dpr, rhs, op: PoissonOperator,
+                     check: bool) -> Optional[torch.Tensor]:
+    """One folded PT iteration of the (hi, lo) pressure pair: reads hi, lo
+    and rhs, updates dpr in place and writes every cell of hi_out and
+    lo_out (which must alias neither input). The residual is
+    (lap(hi) - rhs) + lap(lo) and the update an exact two_sum, so the
+    pair carries ~48 bits where K1's single word carries 24. With
+    check=True returns the max |resid| over interior cells (a 0-dim
+    tensor on the device), else None. CUDA tensors launch the kernel (or
+    raise); CPU tensors run the plain version."""
+    if not _build.on_cuda(hi, "poisson_iter_ext"):
+        return poisson_iter_ext_plain(hi, lo, hi_out, lo_out, dpr, rhs, op,
+                                      check)
+    dev = hi.device
+    _check_operands(op, hi.shape, dev, hi=hi, lo=lo,
+                    hi_out=hi_out, lo_out=lo_out, dpr=dpr, rhs=rhs)
+    outs = {hi_out.data_ptr(), lo_out.data_ptr()}
+    if len(outs) != 2 or outs & {hi.data_ptr(), lo.data_ptr()}:
+        raise ValueError("poisson_iter_ext: hi_out and lo_out must be "
+                         "distinct and alias neither input (Jacobi)")
+    err = torch.zeros((1,), dtype=torch.int32, device=dev) if check else None
+    nx, ny, nz = hi.shape
+    lib = _build.load()
+    rc = lib.ns3d_poisson_iter_ext(
+        hi.data_ptr(), lo.data_ptr(), hi_out.data_ptr(), lo_out.data_ptr(),
+        dpr.data_ptr(), rhs.data_ptr(), op.wyp.data_ptr(), op.wym.data_ptr(),
+        op.wzp.data_ptr(), op.wzm.data_ptr(), ctypes.c_float(op.inv_dx2),
+        ctypes.c_float(op.dtau), ctypes.c_float(op.decay),
+        int(op.zero_grad_x), nx, ny, nz, _build.ptr(err),
+        _build.stream_of(hi))
+    _build.check(rc, "poisson_iter_ext")
+    poisson_iter_ext.launches += 1
+    return err.view(torch.float32)[0] if check else None
+
+
+poisson_iter_ext.launches = 0
 
 
 # ---- residual evaluations (torch ops, as XLA computes them in JAX) ----

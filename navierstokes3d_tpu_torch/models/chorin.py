@@ -1,17 +1,25 @@
 """Chorin projection solver, single device (torch port of
-navierstokes3d_tpu/models/chorin.py for the gpu preset's main path).
+navierstokes3d_tpu/models/chorin.py for the gpu and multi presets'
+main paths, compat=False).
 
 Step structure (the JAX package's `_step_chained`, chorin.py:1843-1884;
-reference time loop NavierStokes3D_gpu.jl:119-171):
+reference time loops NavierStokes3D_gpu.jl:119-171 and
+NavierStokes3D_multi_gpu.jl:383-444):
 
   1. fused predictor (K3): stress -> V* -> cylinder mask -> div V*;
      the tracer's seed ring is set outside the kernel
-  2. pseudo-transient Poisson solve (K1 in a host-driven loop):
-     exact first iteration + set_bc_pr; phase 1 on the folded kernel
-     with an early hand-off at 1000*eps_it; one compensated-residual
-     restart; phase 2 restarted defect correction with the same kernel;
-     the stored-state guarantee; the stored (hi, lo) pressure pair
-  3. fused corrector + cylinder mask + velocity BCs (K4)
+  2. pseudo-transient Poisson solve in a host-driven loop: exact first
+     iteration + set_bc_pr, phase 1 on the folded kernel (K1), then the
+     float32 accuracy phase the config selects (`_init_split`):
+       'defect'   (gpu, under the hydrostatic split): hand-off at
+                  1000*eps_it, one compensated-residual restart, restarted
+                  defect correction with K1;
+       'extended' (multi, no split): phase 1 to eps_it or its stall, then
+                  the double-single (hi, lo) iteration (K2) from lo = 0;
+       'none':    K1 alone over the whole budget;
+     the first two end with the stored-state guarantee and the stored
+     (hi, lo) pressure pair
+  3. fused corrector + cylinder mask + the variant's velocity BCs (K4)
   4. four semi-Lagrangian advection branches (K5)
 
 float32 runs that path on any device (CUDA tensors launch the kernels,
@@ -35,7 +43,8 @@ from ..kernels import fused_step as k_step
 from ..kernels import poisson as k_poisson
 from ..ops import ds
 from ..ops import physics as ph
-from ..ops.cylinder import CylinderMasks, build_masks, mask_tracer
+from ..ops.cylinder import (CylinderMasks, apply_cylinder, build_masks,
+                            mask_tracer)
 from ..ptloop import host_scalar, np_float, pt_loop_fused
 from ..state import FlowState, StepStats, zeros_state
 
@@ -53,9 +62,10 @@ def _two_sum(a, b):
 class ChorinSolver:
     """Owns the config-derived constants, masks and BC closures of one
     device; exposes `init_state`, `step`, `run`, `poisson_solve`,
-    `predictor_divv` and `stored_residual_err`."""
+    `predictor_divv` and `stored_residual_err`. The solver runs on the
+    card unless the caller passes device="cpu"."""
 
-    def __init__(self, cfg: SimConfig, device: torch.device | str = "cpu"):
+    def __init__(self, cfg: SimConfig, device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -86,7 +96,8 @@ class ChorinSolver:
             self.device)
         self._consts = k_step.StepConsts(
             dt=grid.dt, dx=grid.dx, dy=grid.dy, dz=grid.dz, mu=phys.mu,
-            rho=phys.rho, g_eff=0.0 if self.pressure_split else phys.g)
+            rho=phys.rho, g_eff=0.0 if self.pressure_split else phys.g,
+            variant=cfg.variant, vin=phys.vin)
         # stall exit: None = auto, which is on outside compat mode
         self._stall = ((cfg.numerics.stall_ratio, cfg.numerics.stall_checks)
                        if cfg.numerics.stall_exit is not False else None)
@@ -99,20 +110,24 @@ class ChorinSolver:
         self.plain = cfg.use_pallas is False
         if self.plain:
             self._poisson_iter = k_poisson.poisson_iter_plain
+            self._poisson_iter_ext = k_poisson.poisson_iter_ext_plain
             self._predict = k_step.predict_plain
             self._correct = k_step.correct_plain
         else:
             self._poisson_iter = k_poisson.poisson_iter
+            self._poisson_iter_ext = k_poisson.poisson_iter_ext
             self._predict = k_step.predict
             self._correct = k_step.correct
 
     def _init_split(self):
         """Hydrostatic pressure split and the float32 accuracy policy
-        (the JAX package's _init_split, chorin.py:186-272, for the gpu
-        variant): state.pr stores p' = Pr - P_static(z) with P_static the
-        exact linear init/BC profile rho*g*(nz-iz+0.5)*dz; float32 carries
-        the stored (hi, lo) pair and runs restarted defect correction as
-        the accuracy phase."""
+        (the JAX package's _init_split, chorin.py:186-272, its Pallas
+        policy): under the split (gpu variant) state.pr stores p' = Pr -
+        P_static(z) with P_static the exact linear init/BC profile
+        rho*g*(nz-iz+0.5)*dz. float32 carries the stored (hi, lo) pair;
+        the accuracy phase defaults to restarted defect correction under
+        the split and to the extended pair kernel without it (the multi
+        variant, whose correction solve would stall above eps_it)."""
         cfg, phys, grid, num = self.cfg, self.cfg.physics, self.grid, \
             self.cfg.numerics
         want = num.pressure_split
@@ -133,11 +148,6 @@ class ChorinSolver:
             self.acc = "extended"
         else:
             self.acc = "defect"
-        if self.dtype == torch.float32 and self.acc != "defect":
-            raise NotImplementedError(
-                f"float32 accuracy phase {self.acc!r} is not ported yet "
-                "(the extended phase is ROADMAP queue 2, K2); the port runs "
-                "'defect'")
         # folded-BC RHS hoist: the affine-z BC of the split field drops a
         # CONSTANT -+rho*g*dz neighbor term at the z-adjacent interior
         # planes; rhs_folded = rhs - hoist
@@ -151,11 +161,28 @@ class ChorinSolver:
     # ---- initialization ----
 
     def init_state(self) -> FlowState:
-        """gpu variant (NavierStokes3D_gpu.jl:84-88): 1/6-power-law Vx
-        profile (evaluated in numpy float64, then cast) and hydrostatic
-        pressure, which under the split is p' = 0 exactly."""
+        """Initial conditions per variant (profiles evaluated in numpy
+        float64, then cast).
+
+        multi (NavierStokes3D_multi_gpu.jl:368-373): inflow plane Vx = vin,
+        hydrostatic pressure from global z (zero when g = 0), then the
+        cylinder mask.
+        gpu (NavierStokes3D_gpu.jl:84-88): 1/6-power-law Vx profile and
+        hydrostatic pressure, which under the split is p' = 0 exactly."""
         cfg, grid = self.cfg, self.grid
         st = zeros_state(grid, self.dtype, self.device)
+        if cfg.variant == "multi":
+            phys = cfg.physics
+            vx = st.vx.clone()
+            vx[0] = phys.vin
+            # Pr(iz) = -(z_g(iz) - dz/2) rho g with z_g(iz) = (iz-1) dz
+            iz = np.arange(1, grid.nz + 1)
+            prof = -(((iz - 1) * grid.dz) - grid.dz / 2) * phys.rho * phys.g
+            pr = torch.tensor(prof, dtype=self.dtype, device=self.device)
+            pr = pr.expand(grid.shape_c).contiguous()
+            c, vx, vy, vz = apply_cylinder(st.c, vx, st.vy, st.vz,
+                                           self.masks)
+            return st.replace(pr=pr, vx=vx, vy=vy, vz=vz, c=c)
         zc = grid.zc()
         prof = cfg.physics.vin * (7.0 / 6.0) * (
             (zc + grid.lz / 2) / grid.lz) ** (1.0 / 6.0)
@@ -168,9 +195,14 @@ class ChorinSolver:
 
     def poisson_solve(self, pr, dprdtau, divv
                       ) -> Tuple[torch.Tensor, torch.Tensor, StepStats]:
+        """(pr, dprdtau, stats); stats.pr_lo carries the stored pair's low
+        word on the float32 accuracy paths."""
         if self.dtype == torch.float64:
             return self._poisson_solve_folded(pr, dprdtau, divv)
-        return self._poisson_solve_defect(pr, dprdtau, divv)
+        return {"defect": self._poisson_solve_defect,
+                "extended": self._poisson_solve_extended,
+                "none": self._poisson_solve_plain}[self.acc](
+                    pr, dprdtau, divv)
 
     def _budget(self):
         grid = self.grid
@@ -179,6 +211,12 @@ class ChorinSolver:
 
     def _err_scale(self) -> float:
         return (self.grid.ly * self.grid.ly) / self.cfg.physics.psc
+
+    def _rhs3d(self, divv):
+        """The folded Poisson RHS (rho/dt)*divv - z_hoist, full shape, in
+        the solver's dtype (the hi word of ds.rhs_pair)."""
+        zh = torch.tensor(self._z_hoist, dtype=self.dtype, device=self.device)
+        return (self.cfg.physics.rho / self.grid.dt) * divv - zh
 
     def _first_iteration(self, pr, dprdtau, divv):
         """The folded protocol's global iteration 1 in exact form (it reads
@@ -195,13 +233,11 @@ class ChorinSolver:
         extended pair off): zero-gradient faces are dropped neighbor terms,
         Dirichlet planes are frozen, the affine-z constants are hoisted
         into the RHS."""
-        grid, phys, num = self.grid, self.cfg.physics, self.cfg.numerics
+        grid, num = self.grid, self.cfg.numerics
         nchunks, rem = self._budget()
         dtau, damp, nchk = grid.dtau, grid.damp, grid.nchk
         err_scale = self._err_scale()
-        zh = torch.tensor(self._z_hoist[1:-1], dtype=self.dtype,
-                          device=self.device)
-        rhs = (phys.rho / grid.dt) * divv[INNER] - zh
+        rhs = self._rhs3d(divv)[INNER]
         op = self._op
 
         def step_fn(carry, it):
@@ -274,31 +310,125 @@ class ChorinSolver:
             err0=errh)
         hist = np.where(np.isnan(hist1), np.roll(hist2, it1 // nchk), hist1)
 
-        rhs_hi_in, rhs_lo_in = rhs3d[INNER], rhs_lo3d[INNER]
+        def pair_of(carry):
+            return self.set_bc_pr_pair(*_two_sum(p1, carry[0]))
 
-        def pair_of(dl):
-            return self.set_bc_pr_pair(*_two_sum(p1, dl))
-
-        def true_err(dl):
-            hi, lo = pair_of(dl)
-            emax = self._comp_residual(hi, lo, rhs_hi_in, rhs_lo_in)[1]
-            return host_scalar(emax * err_scale, ft)
-
-        # ---- stored-state guarantee (chorin.py:1412-1458): on a MARGINAL
-        # exit (check just under eps_it) the returned pair's true residual
-        # can land above eps_it; re-evaluate it with the compensated
-        # residual and keep iterating in nchk chunks until the STORED state
-        # meets eps_it or the phase-2 budget runs out.
-        if ft(0.85 * eps_it) <= err < ft(eps_it) and it2 > 0:
-            while true_err(carry[0]) >= ft(eps_it) and it2 + nchk <= n2:
-                for _ in range(nchk):
-                    carry = chain2(carry, 0)[0]   # it=0: no check flag
-                it2 += nchk
-            err = true_err(carry[0])
-        hi, lo = pair_of(carry[0])
+        if self._marginal(err) and it2 > 0:
+            carry, it2, err = self._stored_state_guarantee(
+                carry, chain2, it2, n2, pair_of, (rhs3d, rhs_lo3d))
+        hi, lo = pair_of(carry)
         return hi, carry[2], StepStats(iters=it1 + it2, err=err,
                                        err_hist=hist, iters_ext=it2,
                                        pr_lo=lo)
+
+    def _ext_chain(self, rhs, err_scale) -> Callable:
+        """Loop body of one K2 iteration on a ping-pong carry (hi, lo,
+        hi_out, lo_out, dpr)."""
+        op, nchk, k2 = self._op, self.grid.nchk, self._poisson_iter_ext
+
+        def step(carry, it):
+            hi, lo, hi_out, lo_out, dpr = carry
+            ec = k2(hi, lo, hi_out, lo_out, dpr, rhs, op,
+                    (it + 1) % nchk == 0)
+            return ((hi_out, lo_out, hi, lo, dpr),
+                    None if ec is None else ec * err_scale, 1)
+        return step
+
+    def _poisson_solve_extended(self, pr, dprdtau, divv):
+        """The folded + extended hybrid branch of the JAX package's
+        `_poisson_solve_pallas` (chorin.py:1127-1298 phase 1,
+        :1464-1607 phase 2), 1x loop bodies."""
+        num, nchk = self.cfg.numerics, self.grid.nchk
+        eps_it = num.eps_it
+        nchunks, rem = self._budget()
+        ft = np_float(self.dtype)
+        err_scale = self._err_scale()
+        rhs3d = self._rhs3d(divv)
+        pr, dpr = self._first_iteration(pr, dprdtau, divv)
+
+        # ---- phase 1: the folded kernel down to eps_it or its float32
+        # noise floor, where the stall detector (always on here) hands
+        # off; the trailing partial chunk belongs to phase 2
+        stall1 = self._stall or (num.stall_ratio, num.stall_checks)
+        (p1, _, dpr), it1, err1, hist1 = pt_loop_fused(
+            self._kernel_chain(rhs3d, err_scale),
+            (pr, torch.empty_like(pr), dpr), 1, nchunks * nchk, nchk,
+            nchunks, eps_it, self.dtype, stall=stall1)
+        if not (err1 >= ft(eps_it) and np.isfinite(err1)):
+            # phase 1 converged (or failed): the pair is (pr1, 0)
+            hi, lo = self.set_bc_pr_pair(p1, torch.zeros_like(p1))
+            return hi, dpr, StepStats(iters=it1, err=err1, err_hist=hist1,
+                                      iters_ext=0, pr_lo=lo)
+
+        # ---- phase 2: the double-single kernel from the warm start
+        # (hi, lo) = (pr1, 0), dpr carried over; the pair carries ~48
+        # bits, so the iteration keeps converging below phase 1's floor
+        n2 = nchunks * nchk + rem
+        chain2 = self._ext_chain(rhs3d, err_scale)
+        carry = (p1, torch.zeros_like(p1), torch.empty_like(p1),
+                 torch.empty_like(p1), dpr)
+        carry, it2, err, hist2 = pt_loop_fused(
+            chain2, carry, 0, n2, nchk, nchunks, eps_it, self.dtype,
+            stall=self._stall)
+
+        def pair_of(carry):
+            return self.set_bc_pr_pair(carry[0], carry[1])
+
+        if self._marginal(err):
+            carry, it2, err = self._stored_state_guarantee(
+                carry, chain2, it2, n2, pair_of,
+                ds.rhs_pair(divv, self.cfg.physics.rho / self.grid.dt,
+                            self._z_hoist))
+        hist = np.where(np.isnan(hist1), np.roll(hist2, it1 // nchk), hist1)
+        hi, lo = pair_of(carry)
+        return hi, carry[4], StepStats(iters=it1 + it2, err=err,
+                                       err_hist=hist, iters_ext=it2,
+                                       pr_lo=lo)
+
+    def _poisson_solve_plain(self, pr, dprdtau, divv):
+        """The folded non-hybrid branch of the JAX package's
+        `_poisson_solve_pallas` (chorin.py:1290-1295; accuracy='none'):
+        K1 over the whole budget, trailing partial chunk included, then
+        the boundary planes; no stored pair."""
+        nchunks, rem = self._budget()
+        nchk = self.grid.nchk
+        pr, dpr = self._first_iteration(pr, dprdtau, divv)
+        (p, _, dpr), it, err, hist = pt_loop_fused(
+            self._kernel_chain(self._rhs3d(divv), self._err_scale()),
+            (pr, torch.empty_like(pr), dpr), 1, nchunks * nchk + rem, nchk,
+            nchunks, self.cfg.numerics.eps_it, self.dtype, stall=self._stall)
+        return self.set_bc_pr(p), dpr, StepStats(iters=it, err=err,
+                                                 err_hist=hist)
+
+    def _marginal(self, err) -> bool:
+        """A loop exit just under eps_it (0.85*eps_it <= err < eps_it),
+        where the stored pair's true residual can land above eps_it."""
+        ft = np_float(self.dtype)
+        eps_it = self.cfg.numerics.eps_it
+        return bool(ft(0.85 * eps_it) <= err < ft(eps_it))
+
+    def _stored_state_guarantee(self, carry, chain, it, budget, pair_of,
+                                rhs_pair):
+        """The stored-state guarantee (chorin.py:1412-1458, :1502-1555):
+        the loop's exit check is one iteration stale and float32-evaluated,
+        so on a marginal exit re-evaluate the STORED pair pair_of(carry)
+        with the compensated residual and keep iterating in nchk chunks
+        until it meets eps_it or the budget runs out. Returns (carry, it,
+        err) with err the stored pair's compensated residual."""
+        ft = np_float(self.dtype)
+        eps, nchk = ft(self.cfg.numerics.eps_it), self.grid.nchk
+        err_scale = self._err_scale()
+        rhs_hi, rhs_lo = rhs_pair[0][INNER], rhs_pair[1][INNER]
+
+        def true_err(c):
+            emax = self._comp_residual(*pair_of(c), rhs_hi, rhs_lo)[1]
+            return host_scalar(emax * err_scale, ft)
+
+        while true_err(carry) >= eps and it + nchk <= budget:
+            for _ in range(nchk):
+                carry = chain(carry, 0)[0]   # it=0: no check flag
+            it += nchk
+        return carry, it, true_err(carry)
 
     def _comp_residual(self, hi, lo, rhs_hi, rhs_lo):
         """Compensated folded residual of a (hi, lo) pressure pair against
@@ -363,8 +493,7 @@ class ChorinSolver:
         # pop the stored-pair low word out of the stats channel into the
         # state (the corrector and the next solve use hi only)
         pr_lo, stats.pr_lo = stats.pr_lo, None
-        vx, vy, vz = self._correct(vx, vy, vz, pr, self.masks, k,
-                                   self.set_bc_vel)
+        vx, vy, vz = self._correct(vx, vy, vz, pr, self.masks, k)
         vx, vy, vz, c, n_clamped = k_advect.advect(
             vx, vy, vz, c, k, self.advect_k, plain=self.plain)
         stats.advect_clamped = int(n_clamped.item())

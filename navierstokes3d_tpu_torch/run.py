@@ -1,13 +1,15 @@
 """Command-line entry point of the port (the main path of navierstokes3d_tpu/run.py).
 
-    python -m navierstokes3d_tpu_torch.run --preset gpu --nx 255 --nt 4 \
-        [--dtype float32] [--device cuda]
+    python -m navierstokes3d_tpu_torch.run --preset {gpu,multi} [--nx N] \
+        [--nt 4] [--dtype float32] [--device cuda]
 
-Runs the gpu preset (compat=False) from its initial state and prints one
-line per step: Poisson iterations, accuracy-phase iterations, the final
-residual, advection clamp count and wall seconds. The remaining flags of
-the JAX package's CLI (I/O, resume, watchdog, clamp policy) are not
-ported yet.
+Runs the gpu or multi preset (compat=False) from its initial state and
+prints one line per step: Poisson iterations, accuracy-phase iterations,
+the final residual, advection clamp count and wall seconds. --nx defaults
+to 255 (gpu) or 63 (multi), as bench.py's. The solver runs on the card;
+--device cpu runs the plain PyTorch versions of the kernels. The remaining
+flags of the JAX package's CLI (I/O, resume, watchdog, clamp policy) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -17,25 +19,30 @@ import time
 
 import torch
 
-from .config import preset_gpu
+from .config import preset_gpu, preset_multi
 from .models.chorin import ChorinSolver
+
+PRESETS = {"gpu": (preset_gpu, 255), "multi": (preset_multi, 63)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", choices=["gpu"], default="gpu")
-    ap.add_argument("--nx", type=int, default=255)
+    ap.add_argument("--preset", choices=sorted(PRESETS), default="gpu")
+    ap.add_argument("--nx", type=int, default=None,
+                    help="default: 255 (gpu) / 63 (multi)")
     ap.add_argument("--nt", type=int, default=4)
     ap.add_argument("--dtype", choices=["float32", "float64"],
                     default="float32")
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available()
-                    else "cpu")
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    cfg = preset_gpu(nx=args.nx, nt=args.nt, compat=False, dtype=args.dtype)
+    make, nx_default = PRESETS[args.preset]
+    nx = nx_default if args.nx is None else args.nx
+    cfg = make(nx=nx, nt=args.nt, compat=False, dtype=args.dtype)
     solver = ChorinSolver(cfg, device=args.device)
     g = solver.grid
-    print(f"grid {g.nx}x{g.ny}x{g.nz} {args.dtype} on {solver.device} "
-          f"(niter {g.niter}, nchk {g.nchk}, eps_it {cfg.numerics.eps_it})")
+    print(f"{args.preset} preset, grid {g.nx}x{g.ny}x{g.nz} {args.dtype} "
+          f"on {solver.device} (niter {g.niter}, nchk {g.nchk}, eps_it "
+          f"{cfg.numerics.eps_it}, accuracy phase {solver.acc})")
     state = solver.init_state()
     for it in range(1, args.nt + 1):
         t0 = time.perf_counter()

@@ -56,7 +56,7 @@ def test_advect_plain_matches_jax(dims, dt, scale, clamps):
     want_e = jadvect(*jf, dt, DX, DY, DZ, compat=False, method="selectshift",
                      with_stats=True, k=2)
     consts = StepConsts(dt=dt, dx=DX, dy=DY, dz=DZ, mu=0.0, rho=1.0,
-                        g_eff=0.0)
+                        g_eff=0.0, variant="gpu", vin=1.0)
     got = ka.advect(*tf, consts, 2)
     for a, bk, be in zip(got[:4], want_k[:4], want_e[:4]):
         _close(a, bk)
@@ -70,7 +70,8 @@ def test_branch_writes_only_its_region():
     """Points outside a branch's write region keep the input value."""
     nx, ny, nz = 12, 7, 5
     vx, vy, vz, c = map(torch.tensor, _fields(nx, ny, nz, seed=4, scale=0.5))
-    k = StepConsts(dt=0.9, dx=DX, dy=DY, dz=DZ, mu=0.0, rho=1.0, g_eff=0.0)
+    k = StepConsts(dt=0.9, dx=DX, dy=DY, dz=DZ, mu=0.0, rho=1.0, g_eff=0.0,
+                   variant="gpu", vin=1.0)
     out = ka.advect_branch("vx", vx, vx, vy, vz, k, 2)
     assert torch.equal(out[0], vx[0]) and torch.equal(out[-1], vx[-1])
     out = ka.advect_branch("vy", vy, vx, vy, vz, k, 2)

@@ -95,12 +95,23 @@ def test_cuda_device_raises_without_cuda():
         nt.ChorinSolver(cfg, device="cuda")
 
 
+def test_solver_defaults_to_cuda():
+    """ChorinSolver(cfg) targets the card: with none present it raises
+    instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for cfg in (nt.preset_gpu(nx=15, compat=False, dtype="float32"),
+                nt.preset_multi(nx=15, compat=False, dtype="float32")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            nt.ChorinSolver(cfg)
+
+
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="K2"):
-        nt.ChorinSolver(nt.preset_multi(nx=15, compat=False,
-                                        dtype="float32"))
     with pytest.raises(NotImplementedError, match="compat"):
-        nt.ChorinSolver(nt.preset_gpu(nx=15, dtype="float32"))
+        nt.ChorinSolver(nt.preset_multi(nx=15, compat=True,
+                                        dtype="float32"), device="cpu")
+    with pytest.raises(NotImplementedError, match="compat"):
+        nt.ChorinSolver(nt.preset_gpu(nx=15, dtype="float32"), device="cpu")
     with pytest.raises(ValueError, match="CPU only"):
         nt.ChorinSolver(nt.preset_gpu(nx=15, compat=False), device="meta")
 
@@ -111,10 +122,16 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
     monkeypatch.setattr(_build, "load", refuse)
     monkeypatch.setattr(_build, "build", refuse)
     kernels.reset_counts()
-    cfg = nt.preset_gpu(nx=15, compat=False, dtype="float32")
-    s = nt.ChorinSolver(cfg)
-    state, stats = s.step(s.init_state())
-    assert stats.iters > 0
+    gpu = nt.preset_gpu(nx=15, compat=False, dtype="float32")
+    # the multi preset at eps_it=1e-9 runs K2 in its first step
+    multi = nt.preset_multi(nx=15, compat=False, dtype="float32")
+    multi = multi.replace(numerics=dataclasses.replace(multi.numerics,
+                                                       eps_it=1e-9))
+    for cfg in (gpu, multi):
+        s = nt.ChorinSolver(cfg, device="cpu")
+        state, stats = s.step(s.init_state())
+        assert stats.iters > 0
+    assert stats.iters_ext > 0
     for k in kernels.KERNELS:
         assert k.wrapper.launches == 0, k.name
         assert k.plain.calls > 0, k.name
@@ -125,8 +142,8 @@ def test_use_pallas_false_runs_plain_versions():
     """use_pallas=False: the solver calls the plain versions directly
     (the switch of the hand kernels), with the same results on the CPU."""
     cfg = nt.preset_gpu(nx=15, compat=False, dtype="float32")
-    a = nt.ChorinSolver(cfg)
-    b = nt.ChorinSolver(cfg.replace(use_pallas=False))
+    a = nt.ChorinSolver(cfg, device="cpu")
+    b = nt.ChorinSolver(cfg.replace(use_pallas=False), device="cpu")
     assert b.plain and not a.plain
     sa, ta = a.step(a.init_state())
     sb, tb = b.step(b.init_state())
@@ -141,5 +158,6 @@ def test_build_sources_and_key():
     assert _build.build_key() == _build.build_key()
     assert "--fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert set(_build.SIGNATURES) == {"ns3d_poisson_iter", "ns3d_predict",
-                                      "ns3d_correct", "ns3d_advect"}
+    assert set(_build.SIGNATURES) == {
+        "ns3d_poisson_iter", "ns3d_poisson_iter_ext", "ns3d_predict",
+        "ns3d_correct", "ns3d_advect"}

@@ -11,6 +11,8 @@ card, run them as
 every operation in float32 in the same order (the kernels are built with
 --fmad=false), so the expected difference is zero."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -24,16 +26,22 @@ from navierstokes3d_tpu_torch.kernels import poisson as kp
 pytestmark = pytest.mark.cuda
 
 
-def _solver(nx):
+def _solver(nx, preset="gpu"):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card)")
-    return nt.ChorinSolver(nt.preset_gpu(nx=nx, compat=False,
-                                         dtype="float32"), device="cuda")
+    make = nt.preset_gpu if preset == "gpu" else nt.preset_multi
+    return nt.ChorinSolver(make(nx=nx, compat=False, dtype="float32"),
+                           device="cuda")
 
 
 @pytest.fixture
 def solver():
     return _solver(17)
+
+
+@pytest.fixture
+def multi():
+    return _solver(17, "multi")
 
 
 def _rand(rng, shape, scale=1.0):
@@ -57,6 +65,39 @@ def test_k1_matches_plain(solver):
             assert float(ea) == float(eb)
 
 
+def test_k1_multi_operator_matches_plain(multi):
+    test_k1_matches_plain(multi)
+
+
+def test_k2_matches_plain(multi):
+    g, rng = multi.grid, np.random.default_rng(3)
+    hi = multi.set_bc_pr(_rand(rng, g.shape_c, 50.0))
+    lo = _rand(rng, g.shape_c, 50.0 * 2.0 ** -24)
+    rhs = _rand(rng, g.shape_c, 1e5)
+    dpr = torch.zeros_like(hi)
+    dpr[1:-1, 1:-1, 1:-1] = _rand(rng, (g.nx - 2, g.ny - 2, g.nz - 2), 1e3)
+    for check in (False, True):
+        a = [torch.full_like(hi, float("nan")) for _ in range(2)]
+        b = [torch.empty_like(hi) for _ in range(2)]
+        da, db = dpr.clone(), dpr.clone()
+        ea = kp.poisson_iter_ext(hi, lo, *a, da, rhs, multi._op, check)
+        eb = kp.poisson_iter_ext_plain(hi, lo, *b, db, rhs, multi._op, check)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert torch.equal(da, db)
+        if check:
+            assert float(ea) == float(eb)
+
+
+def test_k4_multi_matches_plain(multi):
+    g, rng, k = multi.grid, np.random.default_rng(4), multi._consts
+    v = [_rand(rng, s) for s in (g.shape_vx, g.shape_vy, g.shape_vz)]
+    pr = _rand(rng, g.shape_c, 50.0)
+    a = kf.correct(*v, pr, multi.masks, k)
+    for x, y in zip(a, kf.correct_plain(*v, pr, multi.masks, k)):
+        assert torch.equal(x, y)
+    assert bool((a[0][0] == multi.cfg.physics.vin).all())
+
+
 def test_k3_k4_match_plain(solver):
     g, rng, k = solver.grid, np.random.default_rng(1), solver._consts
     v = [_rand(rng, s) for s in (g.shape_vx, g.shape_vy, g.shape_vz)]
@@ -64,9 +105,8 @@ def test_k3_k4_match_plain(solver):
     for a, b in zip(kf.predict(*v, solver.masks, k),
                     kf.predict_plain(*v, solver.masks, k)):
         assert torch.equal(a, b)
-    for a, b in zip(kf.correct(*v, pr, solver.masks, k, solver.set_bc_vel),
-                    kf.correct_plain(*v, pr, solver.masks, k,
-                                     solver.set_bc_vel)):
+    for a, b in zip(kf.correct(*v, pr, solver.masks, k),
+                    kf.correct_plain(*v, pr, solver.masks, k)):
         assert torch.equal(a, b)
 
 
@@ -83,12 +123,18 @@ def test_k5_matches_plain(solver, scale):
     assert (int(a[4].item()) > 0) == (scale > 1.0)
 
 
-def test_step_on_card_matches_cpu():
+@pytest.mark.parametrize("preset", ["gpu", "multi"])
+def test_step_on_card_matches_cpu(preset):
     """Two steps at nx=15 (the gpu preset diverges at nx=17 and 24 in the
-    JAX package too): every field bitwise equal to the CPU run."""
-    solver = _solver(15)
+    JAX package too): every field bitwise equal to the CPU run. The multi
+    preset runs at eps_it=1e-9, where K2 carries every solve."""
+    solver = _solver(15, preset)
+    if preset == "multi":
+        cfg = solver.cfg
+        solver = nt.ChorinSolver(cfg.replace(numerics=dataclasses.replace(
+            cfg.numerics, eps_it=1e-9)), device="cuda")
     kernels.reset_counts()
-    cpu = nt.ChorinSolver(solver.cfg)
+    cpu = nt.ChorinSolver(solver.cfg, device="cpu")
     a, b = solver.init_state(), cpu.init_state()
     for _ in range(2):
         a, sa = solver.step(a)
@@ -98,4 +144,5 @@ def test_step_on_card_matches_cpu():
         for name in ("pr", "vx", "vy", "vz", "c", "dprdtau", "pr_lo"):
             assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
     for k in kernels.KERNELS:
-        assert k.wrapper.launches > 0, k.name
+        on_path = preset == "multi" or k.name != "K2 poisson_iter_ext"
+        assert (k.wrapper.launches > 0) == on_path, k.name

@@ -166,3 +166,66 @@ def test_ds_ops_bitwise_f32():
     pairs_j = [pj, jds.two_sum(ja, jb), (jb, jdl)]
     for x, y in zip(tds.accumulate(pairs_t), jds.accumulate(pairs_j)):
         _eq(x, y)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_multi_bcs_exact(dtype):
+    """The multi variant (compat=False): zero-gradient faces, the inlet
+    Vx = vin and the outlet Pr = 0, and the (hi, lo) pair image."""
+    nx = 17
+    cfgj = ns.preset_multi(nx=nx, compat=False)
+    cfgt = nt.preset_multi(nx=nx, compat=False)
+    gj, gt = ns.make_grid(cfgj), nt.make_grid(cfgt)
+    vel_j, pr_j = jbc.make_bc_fns(cfgj, gj)
+    vel_t, pr_t = tbc.make_bc_fns(cfgt, gt)
+    pair_j = jbc.make_bc_pr_pair(cfgj, gj)
+    pair_t = tbc.make_bc_pr_pair(cfgt, gt)
+    rng = np.random.default_rng(6)
+    v = [_rand(rng, s, dtype) for s in (gt.shape_vx, gt.shape_vy,
+                                        gt.shape_vz)]
+    j, t = _both(*v)
+    for a, b in zip(vel_t(*t), vel_j(*j)):
+        _eq(a, b)
+    assert bool((vel_t(*t)[0][0] == cfgt.physics.vin).all())
+    p = _rand(rng, gt.shape_c, dtype, scale=100.0)
+    lo = _rand(rng, gt.shape_c, dtype, scale=1e-5)
+    (jp, jl), (tp, tl) = _both(p, lo)
+    _eq(pr_t(tp), pr_j(jp))
+    for a, b in zip(pair_t(tp, tl), pair_j(jp, jl)):
+        _eq(a, b)
+    _eq(tp, p)  # inputs are not modified
+
+
+def test_multi_folded_masks_match_solver():
+    cfgj = ns.preset_multi(nx=17, compat=False, dtype="float32")
+    s = ns.ChorinSolver(cfgj)
+    cfgt = nt.preset_multi(nx=17, compat=False, dtype="float32")
+    m = tbc.folded_masks(cfgt, nt.make_grid(cfgt))
+    want = s._folded_masks(np.float64)
+    for key, w in zip(("xm", "xp", "ym", "yp", "zm", "zp"), want):
+        np.testing.assert_array_equal(m[key], w.ravel())
+    assert m["xm"][0] == 0 and m["xp"].all()
+
+
+@pytest.mark.parametrize("nx", [15, 63])
+def test_multi_cylinder_masks(nx):
+    cfgj = ns.preset_multi(nx=nx, compat=False)
+    cfgt = nt.preset_multi(nx=nx, compat=False)
+    mj = jcyl.build_masks(cfgj, ns.make_grid(cfgj))
+    mt = tcyl.build_masks(cfgt, nt.make_grid(cfgt))
+    for name in ("mask_c", "mask_vx", "mask_vy", "mask_vz"):
+        np.testing.assert_array_equal(getattr(mt, name).numpy(),
+                                      np.asarray(getattr(mj, name)))
+    assert bool(mt.mask_vx.any())
+
+
+def test_unported_bcs_raise():
+    cfg = nt.preset_multi(nx=15)   # compat=True by default
+    with pytest.raises(NotImplementedError, match="compat"):
+        tbc.make_bc_fns(cfg, nt.make_grid(cfg))
+    cfg = nt.preset_multi(nx=15, compat=False)
+    with pytest.raises(NotImplementedError, match="pressure_split"):
+        tbc.make_bc_fns(cfg, nt.make_grid(cfg), pressure_split=True)
+    cfg = nt.preset_gpu(nx=15, compat=False)
+    with pytest.raises(NotImplementedError, match="split"):
+        tbc.folded_masks(cfg, nt.make_grid(cfg), pressure_split=False)

@@ -24,7 +24,8 @@ NX = 17
 
 def _solvers(dtype="float32", nx=NX):
     js = ns.ChorinSolver(ns.preset_gpu(nx=nx, compat=False, dtype=dtype))
-    ts = nt.ChorinSolver(nt.preset_gpu(nx=nx, compat=False, dtype=dtype))
+    ts = nt.ChorinSolver(nt.preset_gpu(nx=nx, compat=False, dtype=dtype),
+                         device="cpu")
     return js, ts
 
 

@@ -60,7 +60,8 @@ def _compare_pr(got, want, tol, msg):
 
 def test_f32_main_path_matches_jax(jax_run):
     states, stats = jax_run
-    s = nt.ChorinSolver(nt.preset_gpu(nx=NX, dtype="float32", compat=False))
+    s = nt.ChorinSolver(nt.preset_gpu(nx=NX, dtype="float32", compat=False),
+                        device="cpu")
     st = s.init_state()
     for k in FIELDS:
         np.testing.assert_array_equal(getattr(st, k).numpy(), states[0][k])
@@ -90,7 +91,8 @@ def test_state_carried_across(jax_run):
     for k in FIELDS + ("pr_lo",):
         np.testing.assert_array_equal(back[k], states[1][k])
         assert getattr(st, k).dtype == torch.float32
-    s = nt.ChorinSolver(nt.preset_gpu(nx=NX, dtype="float32", compat=False))
+    s = nt.ChorinSolver(nt.preset_gpu(nx=NX, dtype="float32", compat=False),
+                        device="cpu")
     st, got = s.step(st)
     assert (got.iters, got.iters_ext, got.advect_clamped) == (
         int(stats[1].iters), int(stats[1].iters_ext),

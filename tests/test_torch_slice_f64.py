@@ -46,7 +46,7 @@ def runs():
             jstates.append({k: np.asarray(getattr(st, k)) for k in FIELDS})
             jstats.append(s)
     ts = nt.ChorinSolver(nt.preset_gpu(nx=NX, dtype="float64",
-                                       compat=False))
+                                       compat=False), device="cpu")
     st = ts.init_state()
     tstates, tstats = [st], []
     for _ in range(2):
@@ -89,7 +89,7 @@ def test_f64_step2_fields_match_off_the_discontinuity(runs):
     prev, k = tstates[1], ts._consts
     vx, vy, vz, divv = ts._predict(prev.vx, prev.vy, prev.vz, ts.masks, k)
     pr, _, _ = ts.poisson_solve(prev.pr, prev.dprdtau, divv)
-    vx, vy, vz = ts._correct(vx, vy, vz, pr, ts.masks, k, ts.set_bc_vel)
+    vx, vy, vz = ts._correct(vx, vy, vz, pr, ts.masks, k)
     exempt_total = 0
     for branch in ("vx", "vz", "c"):
         vals = adv.face_velocities(branch, vx, vy, vz)
@@ -115,7 +115,49 @@ def test_tracer_mask_is_idempotent():
     step's order); setting it again after the corrector, as the unchained
     JAX step does, changes nothing."""
     ts = nt.ChorinSolver(nt.preset_gpu(nx=NX, dtype="float64",
-                                       compat=False))
+                                       compat=False), device="cpu")
     c = torch.rand(ts.grid.shape_c, dtype=torch.float64)
     once = mask_tracer(c, ts.masks)
     assert torch.equal(mask_tracer(once, ts.masks), once)
+
+
+@pytest.fixture(scope="module")
+def multi_runs():
+    """Two steps of the multi preset in float64 in both packages (the
+    plain folded solve with the x-lo zero-gradient operator)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NS3D_FUSED_INTERPRET", "1")
+        js = ns.ChorinSolver(ns.preset_multi(nx=NX, dtype="float64",
+                                             compat=False))
+        assert js.advect_method == "selectshift" and not js.extended
+        step = jax.jit(js.step)
+        st = js.init_state()
+        jstates, jstats = [], []
+        for _ in range(2):
+            st, s = step(st)
+            jstates.append({k: np.asarray(getattr(st, k)) for k in FIELDS})
+            jstats.append(s)
+    ts = nt.ChorinSolver(nt.preset_multi(nx=NX, dtype="float64",
+                                         compat=False), device="cpu")
+    st = ts.init_state()
+    tstates, tstats = [], []
+    for _ in range(2):
+        st, s = ts.step(st)
+        tstates.append(st)
+        tstats.append(s)
+    return jstates, jstats, tstates, tstats
+
+
+def test_f64_multi_matches(multi_runs):
+    """Equal iteration and clamp counts and err; every field within 1e-9
+    of its max after step 1, pr and dprdtau after step 2."""
+    jstates, jstats, tstates, tstats = multi_runs
+    for j, t in zip(jstats, tstats):
+        assert t.iters == int(j.iters)
+        assert t.advect_clamped == int(j.advect_clamped)
+        assert t.iters_ext is None and t.pr_lo is None
+        np.testing.assert_allclose(t.err, float(j.err), rtol=1e-9)
+    for k in FIELDS:
+        _close(getattr(tstates[0], k).numpy(), jstates[0][k], k)
+    for k in ("pr", "dprdtau"):
+        _close(getattr(tstates[1], k).numpy(), jstates[1][k], k)
