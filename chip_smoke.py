@@ -8,11 +8,12 @@ Phases (any failure exits non-zero; nothing is caught):
      process per source)
   3. kernels: each hand-written kernel (K1 poisson_iter with the gpu and
      the multi operator, K2 poisson_iter_ext, K3 predict, K4 correct for
-     both variants, K5 advect) against its plain PyTorch version on the
-     card, at the main paths' 255x153x153 float32 shapes with seeded
-     inputs: max ulp / abs difference, kernel and plain times (CUDA
-     events), and each kernel's bound (bytes over the HBM rate, flops over
-     the float32 rate, the larger)
+     both variants, K5 advect, K7 poisson_iter_bc with the compat gpu and
+     multi BC specs) against its plain PyTorch version on the card, at the
+     main paths' 255x153x153 float32 shapes with seeded inputs: max ulp /
+     abs difference, kernel and plain times (CUDA events), and each
+     kernel's bound (bytes over the HBM rate, flops over the float32 rate,
+     the larger)
   4. gpu main path: ChorinSolver(preset_gpu(nx=255, compat=False,
      dtype='float32'), device='cuda') for 4 steps from init_state; every
      solve must converge with finite fields, no advection clamps, the JAX
@@ -28,7 +29,21 @@ Phases (any failure exits non-zero; nothing is caught):
   have launched and no plain version may have run. Then one more step of
   the gpu and the nx=255 multi path is traced with torch.profiler: device
   time per kernel and the device's idle share.
-  6. reference: small grids on the card against the same solver's plain
+  6. compat paths: preset_gpu(nx=255, dtype='float32') and
+     preset_multi(nx=255, dtype='float32') with compat on (the reference's
+     own semantics: K7 under the reference's chunk loop, torch ops for the
+     rest of the step, gather advection), 4 steps each from init_state,
+     with the launch counts set to 0 just before each and read just after:
+     K7 must have launched, no other kernel and no plain version; every
+     field finite. Step 1 of each runs again with use_pallas=False (the
+     plain versions): equal iteration counts, pr within MAX_ULP. (Should a
+     path turn non-finite, the plain run must turn non-finite at the same
+     step with the same counts: the reference's documented gpu blow-up.)
+     Then one more step of each is traced with torch.profiler.
+  7. golden: preset_multi(nx=63, nt=3) with its defaults (compat,
+     float64, torch ops only) on the card: iterations [37, 259, 296] and
+     the Pr probes of tests/test_golden.py within rtol 3e-3
+  8. reference: small grids on the card against the same solver's plain
      path on the CPU (the path the CPU tests hold against the JAX package):
      gpu nx=15, and multi nx=15 at eps_it=1e-9, where K2 runs
 The line before the last is a JSON object of per-kernel results; the last
@@ -89,8 +104,36 @@ F32_FLOP_PER_S = 67e12
 # face-average/displacement/trilinear expressions; every kernel here moves
 # bytes for more than 5x as long as it computes, whatever the exact count
 FLOPS_PER_CELL = {"K1 poisson_iter": 22, "K2 poisson_iter_ext": 45,
-                  "K3 predict": 71, "K4 correct": 12, "K5 advect": 50}
+                  "K3 predict": 71, "K4 correct": 12, "K5 advect": 50,
+                  "K7 poisson_iter_bc": 20}
 K2_NAME = "K2 poisson_iter_ext"
+K7_NAME = "K7 poisson_iter_bc"
+COMPAT_STEPS = 4
+# the golden configuration and its values, copied from tests/test_golden.py
+# (preset_multi(nx=63, nt=3), compat, float64, 3 steps from init_state):
+# Poisson iterations per step and Pr at the reference test's 1-based probe
+# indices (test/test3D.jl:8-10) of the gathered inner array
+GOLDEN_ITERS = [37, 259, 296]
+GOLDEN_INDS = (np.array([31, 38, 50, 51]) - 1, np.array([2, 5, 19, 31]) - 1,
+               np.array([12, 13, 23, 23]) - 1)
+PR_GOLDEN = np.array([
+    [[5.263392464132383, 5.263392464132406, 5.263392464132561, 5.263392464132561],
+     [5.263197114326912, 5.2631971143269265, 5.263197114327076, 5.263197114327076],
+     [5.262254541896738, 5.262254541896746, 5.262254541896831, 5.262254541896831],
+     [5.263111486701518, 5.263111486701521, 5.263111486701573, 5.263111486701573]],
+    [[4.0822212326994824, 4.082221232699491, 4.082221232699574, 4.082221232699574],
+     [4.082125496826624, 4.082125496826638, 4.082125496826718, 4.082125496826718],
+     [4.081706386467998, 4.0817063864680065, 4.081706386468053, 4.081706386468053],
+     [4.082080632033709, 4.082080632033712, 4.082080632033743, 4.082080632033743]],
+    [[2.0459941629046665, 2.0459941629046714, 2.0459941629046963, 2.0459941629046963],
+     [2.046025003044617, 2.04602500304462, 2.046025003044646, 2.046025003044646],
+     [2.0459593473281243, 2.0459593473281297, 2.045959347328146, 2.045959347328146],
+     [2.046036438445157, 2.0460364384451584, 2.0460364384451712, 2.0460364384451712]],
+    [[1.8754330467584193, 1.8754330467584213, 1.8754330467584455, 1.8754330467584455],
+     [1.875504878213699, 1.8755048782137014, 1.8755048782137227, 1.8755048782137227],
+     [1.8754224534093715, 1.875422453409371, 1.875422453409388, 1.875422453409388],
+     [1.8755454375148632, 1.8755454375148652, 1.8755454375148761, 1.8755454375148761]],
+])
 
 
 def require(cond: bool, msg: str) -> None:
@@ -343,6 +386,44 @@ def phase_kernels(gpu, multi) -> dict:
     return results
 
 
+def phase_k7(solvers) -> dict:
+    """K7 against its plain version with each compat solver's BC spec (the
+    unsplit gpu one first: its Dirichlet planes are two more inputs)."""
+    rng = np.random.default_rng(2025)
+    g = solvers[0].grid
+    shape = (g.nx, g.ny, g.nz)
+    pr = seeded(rng, *shape, scale=50.0)
+    rhs = seeded(rng, *shape, scale=1e5)
+    dpr = interior_seeded(rng, shape, 1e3)
+    worst, times = 0.0, []
+    for s in solvers:
+        op = s._bc_op
+        a = [torch.full_like(pr, float("nan")) for _ in range(2)]
+        b = [torch.empty_like(pr) for _ in range(2)]
+        k_poisson.poisson_iter_bc(pr, dpr, rhs, *a, op)
+        k_poisson.poisson_iter_bc_plain(pr, dpr, rhs, *b, op)
+        torch.cuda.synchronize()
+        u = max(max_ulp(x, y) for x, y in zip(a, b))
+        require(u <= MAX_ULP, f"K7 ({s.cfg.variant}) differs by {u} ulp")
+        worst = max(worst, max_abs(zip(a, b)))
+        ms = cuda_ms(lambda: k_poisson.poisson_iter_bc(pr, dpr, rhs, *a, op),
+                     50)
+        plain_ms = cuda_ms(
+            lambda: k_poisson.poisson_iter_bc_plain(pr, dpr, rhs, *b, op), 10)
+        times.append((ms, plain_ms))
+        print(f"[kernels] K7 poisson_iter_bc ({s.cfg.variant} compat spec): "
+              f"max ulp {u} max abs {worst:.3e}; {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms")
+    op = solvers[0]._bc_op
+    r = dict(max_abs_err=worst, ms=times[0][0], plain_ms=times[0][1],
+             **bound(K7_NAME, (pr, dpr, rhs, op.xlo, op.xhi), (pr, dpr),
+                     pr.numel()))
+    print(f"[kernels] {K7_NAME}: bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB per launch); kernel "
+          f"at {100 * r['bound_ms'] / r['ms']:.1f}% of it")
+    return {K7_NAME: r}
+
+
 def run_steps(solver, nsteps: int, label: str, ref_iters=None):
     """nsteps of a main path from init_state with the launch counts set to
     0 just before and read just after. Returns (counts, iters, states)
@@ -486,6 +567,100 @@ def phase_multi_paths(multi) -> list:
     return [counts, counts63]
 
 
+def finite_state(state) -> bool:
+    return all(bool(torch.isfinite(getattr(state, n)).all())
+               for n in ("pr", "vx", "vy", "vz", "c", "dprdtau"))
+
+
+def phase_compat(solver, label) -> dict:
+    """COMPAT_STEPS compat steps from init_state with the launch counts set
+    to 0 just before and read just after; then step 1 (or the steps up to
+    a blow-up) again with use_pallas=False, the plain versions."""
+    k7 = next(kk for kk in kernels.KERNELS if kk.name == K7_NAME)
+    state = solver.init_state()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    wall, iters, states, blown = [], [], [state], None
+    for step in range(COMPAT_STEPS):
+        n0 = k7.wrapper.launches
+        t0 = time.perf_counter()
+        state, stats = solver.step(state)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        iters.append(stats.iters)
+        states.append(state)
+        finite = finite_state(state)
+        print(f"[{label}] step {step + 1}: iters {stats.iters} err "
+              f"{float(stats.err):.6e} {wall[-1]:.4f} s/step, K7 launches "
+              f"{k7.wrapper.launches - n0}"
+              + ("" if finite else "; NON-FINITE fields"), flush=True)
+        if not finite and blown is None:
+            blown = step + 1
+    counts = {kk.name: (kk.wrapper.launches, kk.plain.calls)
+              for kk in kernels.KERNELS}
+    total = sum(wall)
+    print(f"[{label}] {total / COMPAT_STEPS:.4f} s/step, "
+          f"{sum(iters) / total:.1f} Poisson iterations/s ({sum(iters)} "
+          f"iterations in {total:.3f} s)")
+    for name, (launches, plain) in counts.items():
+        print(f"[{label}] {name}: {launches} launches, plain version "
+              f"{plain} calls")
+        require(plain == 0, f"{label}: {name} ran its plain version")
+        require((launches > 0) == (name == K7_NAME),
+                f"{label}: {name} launched {launches} times")
+    # the plain versions on the card: step 1, or up to a blow-up
+    plain = nt.ChorinSolver(solver.cfg.replace(use_pallas=False), "cuda")
+    st = plain.init_state()
+    for step in range(blown or 1):
+        st, stats = plain.step(st)
+        require(stats.iters == iters[step],
+                f"{label} step {step + 1}: plain run iterations "
+                f"{stats.iters}, kernel run {iters[step]}")
+    if blown is None:
+        u = max_ulp(st.pr, states[1].pr)
+        print(f"[{label}] step 1 with use_pallas=False: iters {iters[0]} "
+              f"equal, pr max ulp {u}")
+        require(u <= MAX_ULP, f"{label}: plain run's pr differs by {u} ulp")
+    else:
+        require(not finite_state(st),
+                f"{label}: the kernel run turned non-finite at step "
+                f"{blown}, the plain run did not")
+        print(f"[{label}] non-finite from step {blown} in the plain run "
+              f"too, with equal counts: the reference's gpu blow-up")
+    profile_step(solver, states[-1], label)
+    return counts
+
+
+def phase_golden() -> None:
+    """The repo's golden configuration on the card: float64 compat, torch
+    ops only (no kernel launches, no plain version)."""
+    s = nt.ChorinSolver(nt.preset_multi(nx=63, nt=3), device="cuda")
+    require(s.cfg.compat and s.dtype == torch.float64,
+            "golden: the preset defaults are compat, float64")
+    kernels.reset_counts()
+    state, iters = s.init_state(), []
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, stats = s.step(state)
+        iters.append(stats.iters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c, pr, vx, vy, vz = nt.gather_inner(state)
+    probe = pr[np.ix_(*GOLDEN_INDS)]
+    rel = float(np.max(np.abs(probe / PR_GOLDEN - 1.0)))
+    print(f"[golden] multi 63x38x38 float64 compat on the card: iters "
+          f"{iters} (tests/test_golden.py: {GOLDEN_ITERS}), Pr probes max "
+          f"rel diff {rel:.3e}, max|Vz| {np.abs(vz).max():.3e}, "
+          f"{wall / 3:.3f} s/step")
+    require(iters == GOLDEN_ITERS, f"golden iterations {iters}")
+    require(np.allclose(probe, PR_GOLDEN, rtol=3e-3, atol=1e-8),
+            f"golden Pr probes differ by {rel} (rtol 3e-3)")
+    require(float(np.abs(vz).max()) < 1e-10, "golden: Vz was advected")
+    for kk in kernels.KERNELS:
+        require(kk.wrapper.launches == 0 and kk.plain.calls == 0,
+                f"golden: {kk.name} ran")
+
+
 def compare_with_cpu(cfg, label) -> None:
     """The port on the card against the same solver's plain path on the
     CPU, 2 steps: equal iteration, accuracy-phase and clamp counts, pr
@@ -533,8 +708,19 @@ def main() -> int:
         print(f"[{s.cfg.variant}] grid {g.nx}x{g.ny}x{g.nz} float32, niter "
               f"{g.niter}, nchk {g.nchk}, eps_it {s.cfg.numerics.eps_it}, "
               f"accuracy phase {s.acc} ({smi})")
+    compat = [nt.ChorinSolver(make(nx=NX, compat=True, dtype="float32"),
+                              device="cuda")
+              for make in (nt.preset_gpu, nt.preset_multi)]
+    for s in compat:
+        g = s.grid
+        print(f"[{s.cfg.variant} compat] niter {g.niter} = "
+              f"{g.niter // g.nchk} chunks of nchk {g.nchk} + "
+              f"{g.niter % g.nchk}, stall exit {s._stall}")
     results = phase_kernels(gpu, multi)
+    results.update(phase_k7(compat))
     runs = [phase_gpu_path(gpu), *phase_multi_paths(multi)]
+    runs += [phase_compat(s, f"{s.cfg.variant} compat") for s in compat]
+    phase_golden()
     phase_reference()
     rows = []
     for kk in kernels.KERNELS:

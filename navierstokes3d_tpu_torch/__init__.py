@@ -11,7 +11,7 @@ package is held against; this package imports torch and never jax.
 from .config import (IOConfig, NumericsConfig, ParallelConfig, PhysicsConfig,
                      SimConfig, preset_gpu, preset_multi)
 from .grid import Grid, make_grid
-from .models.chorin import ChorinSolver
+from .models.chorin import ChorinSolver, gather_inner
 from .state import (FlowState, StepStats, state_from_numpy, state_to_numpy,
                     zeros_state)
 
@@ -20,6 +20,6 @@ __version__ = "0.1.0"
 __all__ = [
     "SimConfig", "PhysicsConfig", "NumericsConfig", "IOConfig",
     "ParallelConfig", "preset_gpu", "preset_multi", "Grid", "make_grid",
-    "ChorinSolver", "FlowState", "StepStats", "zeros_state",
+    "ChorinSolver", "gather_inner", "FlowState", "StepStats", "zeros_state",
     "state_from_numpy", "state_to_numpy",
 ]

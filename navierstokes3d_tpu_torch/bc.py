@@ -4,16 +4,17 @@ The primitives are functional (they read the pre-update planes, as the
 reference kernels do) and the orchestrators keep the reference's exact
 application order (edges and corners depend on it):
 
-  gpu variant (NavierStokes3D_gpu.jl:221-286), under the hydrostatic split:
+  gpu variant (NavierStokes3D_gpu.jl:221-286):
     velocity: zero-gradient x/y, no-slip bottom + free-slip top (bc_zV!);
     pressure: zero-gradient y/z + hydrostatic Dirichlet on both x planes,
-              with a +100 Pa inlet head that drives the flow (:257-260).
-  multi variant (NavierStokes3D_multi_gpu.jl:108-184), compat=False:
-    velocity: zero-gradient on all faces, then the inlet plane Vx = vin;
+              with a +100 Pa inlet head that drives the flow (:257-260);
+              under the hydrostatic split the image of the same sequence
+              on p' = Pr - P_static(z).
+  multi variant (NavierStokes3D_multi_gpu.jl:108-184):
+    velocity: zero-gradient on all faces (compat keeps the reference's
+              omitted bc_y!(Vy) and bc_z!(Vz), :160-163), then the inlet
+              plane Vx = vin;
     pressure: zero-gradient on all faces, then the outlet plane Pr = 0.
-
-Not ported: compat mode (the multi reference's omitted velocity BCs) and
-the unsplit gpu pressure BCs (ROADMAP queue 1, items 4 and 10).
 """
 
 from __future__ import annotations
@@ -21,29 +22,20 @@ from __future__ import annotations
 from typing import Callable, Dict, Tuple
 
 import numpy as np
+import torch
 
 from .config import SimConfig
 from .grid import Grid
 
 
-def _not_ported(cfg: SimConfig, pressure_split: bool):
+def _check_variant(cfg: SimConfig, pressure_split: bool):
     if cfg.variant not in ("gpu", "multi"):
         raise ValueError(f"unknown variant {cfg.variant!r}")
-    if cfg.compat:
+    if pressure_split and cfg.variant != "gpu":
         raise NotImplementedError(
-            "compat-mode boundary conditions are not ported yet (ROADMAP "
-            "queue 1, item 10)")
-    if cfg.variant == "multi":
-        if pressure_split:
-            raise NotImplementedError(
-                "pressure_split is defined for the gpu variant's "
-                "hydrostatic profile (the multi preset has g=0)")
-        return
-    if not pressure_split:
-        raise NotImplementedError(
-            "the gpu variant is ported under the hydrostatic pressure "
-            "split only (the unsplit and compat paths are ROADMAP queue 1, "
-            "items 4 and 10)")
+            "pressure_split is defined for the gpu variant's hydrostatic "
+            "profile (the multi preset has g=0, making the split an "
+            "identity)")
 
 
 # ---- plane primitives ----
@@ -92,6 +84,19 @@ def noslip_bottom_slip_top(a):
     return b
 
 
+def hydrostatic_x(pr, grid: Grid, rho, g, inlet_head):
+    """bc_xhydstatic!: hydrostatic Dirichlet on both x planes; the inlet
+    gets an extra +`inlet_head` Pa (gpu.jl:257-261). 1-based iz arithmetic,
+    evaluated in the field's dtype as the JAX function does:
+    value(iz) = rho*g*(nz - iz + 0.5)*dz."""
+    iz = torch.arange(1, grid.nz + 1, dtype=pr.dtype, device=pr.device)
+    prof = rho * g * (grid.nz - iz + 0.5) * grid.dz        # (nz,)
+    b = pr.clone()
+    b[0] = (prof + inlet_head).expand(grid.ny, grid.nz)
+    b[-1] = prof.expand(grid.ny, grid.nz)
+    return b
+
+
 def affine_grad_z(a, lo_add, hi_add):
     """Zero-gradient z planes with an additive offset: the split-pressure
     (p' = Pr - P_static(z)) image of bc_z! — Pr[:,:,1]=Pr[:,:,2] becomes
@@ -104,16 +109,18 @@ def affine_grad_z(a, lo_add, hi_add):
 
 # ---- orchestrators ----
 
-def velocity_bc(variant: str, vin: float) -> Callable:
-    """set_bc_vel(vx, vy, vz) -> (vx, vy, vz) of a variant (compat=False);
-    K4's plain version builds its BC stack here from StepConsts."""
+def velocity_bc(variant: str, vin: float, compat: bool = False) -> Callable:
+    """set_bc_vel(vx, vy, vz) -> (vx, vy, vz) of a variant; K4's plain
+    version builds its BC stack here from StepConsts (compat=False)."""
     if variant == "multi":
         def set_bc_vel(vx, vy, vz):
-            # Order: NavierStokes3D_multi_gpu.jl:156-169 (the fixed path
-            # applies the bc_y!/bc_z! calls the reference omits)
+            # Order: NavierStokes3D_multi_gpu.jl:156-169; compat keeps the
+            # reference's omitted bc_y!(Vy) and bc_z!(Vz) (:160-163)
             vx = zero_grad_z(zero_grad_y(zero_grad_x(vx)))
-            vy = zero_grad_z(zero_grad_y(zero_grad_x(vy)))
-            vz = zero_grad_z(zero_grad_y(zero_grad_x(vz)))
+            vy = zero_grad_x(vy)
+            vy = zero_grad_z(vy if compat else zero_grad_y(vy))
+            vz = zero_grad_y(zero_grad_x(vz))
+            vz = vz if compat else zero_grad_z(vz)
             return dirichlet_x_lo(vx, vin), vy, vz   # inlet (:164-166)
     elif variant == "gpu":
         def set_bc_vel(vx, vy, vz):
@@ -133,16 +140,24 @@ def make_bc_fns(cfg: SimConfig, grid: Grid, pressure_split: bool = False
                 ) -> Tuple[Callable, Callable]:
     """(set_bc_vel, set_bc_pr) of the configured variant:
       set_bc_vel(vx, vy, vz) -> (vx, vy, vz)
-      set_bc_pr(pr) -> pr   (gpu: the split field p' = Pr - P_static(z))"""
-    _not_ported(cfg, pressure_split)
-    set_bc_vel = velocity_bc(cfg.variant, cfg.physics.vin)
+      set_bc_pr(pr) -> pr   (gpu under the split: the field
+                             p' = Pr - P_static(z))"""
+    _check_variant(cfg, pressure_split)
+    phys = cfg.physics
+    set_bc_vel = velocity_bc(cfg.variant, phys.vin, cfg.compat)
     if cfg.variant == "multi":
         def set_bc_pr(pr):
             # Order: NavierStokes3D_multi_gpu.jl:175-184
             pr = zero_grad_z(zero_grad_y(zero_grad_x(pr)))
             return dirichlet_x_hi(pr, 0.0)   # outlet (:179-181)
         return set_bc_vel, set_bc_pr
-    rho_g_dz = cfg.physics.rho * cfg.physics.g * grid.dz
+    if not pressure_split:
+        def set_bc_pr(pr):
+            # Order: NavierStokes3D_gpu.jl:281-286
+            pr = zero_grad_z(zero_grad_y(pr))
+            return hydrostatic_x(pr, grid, phys.rho, phys.g, inlet_head=100.0)
+        return set_bc_vel, set_bc_pr
+    rho_g_dz = phys.rho * phys.g * grid.dz
 
     def set_bc_pr(pr):
         # split image of NavierStokes3D_gpu.jl:281-286 (same order)
@@ -167,7 +182,7 @@ def folded_masks(cfg: SimConfig, grid: Grid,
     (frozen 0) at the outlet (the JAX solver's _folded_masks,
     models/chorin.py:896-904). Keys xm, xp, ym, yp, zm, zp (m: the -1
     neighbor, p: the +1 one)."""
-    _not_ported(cfg, pressure_split)
+    _check_variant(cfg, pressure_split)
     x_lo_zero_grad = cfg.variant == "multi"
     out = {}
     for axis, n, lo_zg, hi_zg in (("x", grid.nx, x_lo_zero_grad, False),
@@ -189,8 +204,10 @@ def make_bc_pr_pair(cfg: SimConfig, grid: Grid,
     -> (hi, lo) such that hi + lo satisfies the pressure BC in near-real
     arithmetic. Zero-gradient faces copy both words; the affine-z copy
     carries the rounding error of `hi_neighbor + add` into lo through an
-    exact two_sum; the Dirichlet values 100 and 0 are exact in f32."""
-    _not_ported(cfg, pressure_split)
+    exact two_sum; the split's Dirichlet values 100 and 0 are exact in f32,
+    and the unsplit gpu planes put the rounded float64 profile in hi and
+    its representation error in lo."""
+    _check_variant(cfg, pressure_split)
     if cfg.variant == "multi":
         # every face is a zero-gradient copy (exact for both words) and the
         # outlet Dirichlet 0.0 is exactly representable: set_bc_pr on each
@@ -199,6 +216,8 @@ def make_bc_pr_pair(cfg: SimConfig, grid: Grid,
         def multi_pair_bc(hi, lo):
             return set_bc_pr(hi), set_bc_pr(lo)
         return multi_pair_bc
+    if not pressure_split:
+        return _unsplit_gpu_pair_bc(cfg, grid)
     rho_g_dz = cfg.physics.rho * cfg.physics.g * grid.dz
 
     def two_sum_const(a, c):
@@ -223,6 +242,32 @@ def make_bc_pr_pair(cfg: SimConfig, grid: Grid,
         hi[-1] = 0.0
         lo[0] = 0.0
         lo[-1] = 0.0
+        return hi, lo
+
+    return pair_bc
+
+
+def _unsplit_gpu_pair_bc(cfg: SimConfig, grid: Grid) -> Callable:
+    """The unsplit gpu pair BCs (NavierStokes3D_gpu.jl:281-286): zero-
+    gradient y/z copies of both words, then the hydrostatic Dirichlet
+    planes with hi = the float64 profile rounded to the words' dtype and
+    lo = the representation error of that rounding."""
+    phys = cfg.physics
+    iz = np.arange(1, grid.nz + 1, dtype=np.float64)
+    prof64 = phys.rho * phys.g * (grid.nz - iz + 0.5) * grid.dz
+    prof2d = np.broadcast_to(prof64[None, :], (grid.ny, grid.nz))
+
+    def words(plane, t):
+        npdt = np.float32 if t.dtype == torch.float32 else np.float64
+        hi = plane.astype(npdt)
+        return (torch.tensor(hi, device=t.device),
+                torch.tensor((plane - hi).astype(npdt), device=t.device))
+
+    def pair_bc(hi, lo):
+        hi = zero_grad_z(zero_grad_y(hi))
+        lo = zero_grad_z(zero_grad_y(lo))
+        hi[0], lo[0] = words(prof2d + 100.0, hi)
+        hi[-1], lo[-1] = words(prof2d, hi)
         return hi, lo
 
     return pair_bc

@@ -155,7 +155,7 @@ class SimConfig:
     io: IOConfig = dataclasses.field(default_factory=IOConfig)
     parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
     variant: str = "multi"   # 'multi' | 'gpu' — which reference script's BCs/init
-    compat: bool = False     # replicate reference quirks (not ported yet)
+    compat: bool = False     # replicate reference quirks (compat mode)
     # Hand-written CUDA kernels for the hot path: None = auto (on for CUDA
     # tensors), True/False = force. On CPU the plain PyTorch versions run.
     use_pallas: Optional[bool] = None

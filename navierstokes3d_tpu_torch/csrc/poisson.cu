@@ -1,6 +1,7 @@
 // K1: one damped pseudo-transient Poisson iteration with the boundary
-// conditions folded into the stencil, and K2: the same iteration on a
-// double-single (hi, lo) pressure pair.
+// conditions folded into the stencil, K2: the same iteration on a
+// double-single (hi, lo) pressure pair, and K7: the iteration followed by
+// the reference's boundary-condition sequence, as compat mode runs it.
 //
 // K1 replaces the Pallas kernel of navierstokes3d_tpu/kernels/poisson.py:914
 // (build_poisson_iter(mode='blocked', folded=True): `kernel` :872,
@@ -46,6 +47,31 @@
 // planes), keeps no intermediate in memory, and skips the reduction on the
 // iterations that are not checked. Temporal blocking (several iterations
 // per round trip, the TPU's K8) is later work.
+//
+// K7 replaces the Pallas kernel of navierstokes3d_tpu/kernels/poisson.py:914
+// built with folded=False (`kernel` :872, `compute_slab` :334,
+// `lap_of_rows` :241, `apply_bc_rows` :257). Per interior cell, in
+// lap_of_rows's order:
+//   lap   = ((p[x+1]-pc) + (p[x-1]-pc))*inv_dx2
+//   lap  += ((p[y+1]-pc) + (p[y-1]-pc))*inv_dy2
+//   lap  += ((p[z+1]-pc) + (p[z-1]-pc))*inv_dz2
+//   resid = lap - rhs;  d = dpr*decay + dtau*resid;  q = pc + dtau*d
+// and off the interior d = 0 and q = pc + dtau*0. The updated field then
+// takes set_bc_Pr!'s sequence: x copies (zero_grad_x, the multi variant),
+// y copies, z copies each plus its constant (added only where nonzero, as
+// the Pallas kernel does), then the Dirichlet x planes. Composed over the
+// axes in that order, every ring cell ends as q at its clamped source
+// cell (x clamped only where x is zero-gradient) plus the z constant of
+// its z face, or as a Dirichlet plane value.
+// The race this raises: a ring cell needs its source's UPDATED value,
+// which depends on the source's old dpr, while the source's own thread
+// writes the new dpr. K7 therefore ping-pongs dpr as well as pr (reads
+// dpr, writes dpr_out: the same 5 x 4 B per cell as K1's in-place update),
+// and a ring thread recomputes its source's update from the unchanged
+// inputs, bit for bit as the source's own thread computes it. One launch
+// writes every cell of both outputs. It reduces nothing: compat's check
+// value is a separate residual evaluation (torch ops), once per chunk.
+// Bound: device-memory bytes, as K1 (~120 MB per launch at 255x153x153).
 #include "common.cuh"
 
 namespace {
@@ -143,6 +169,71 @@ __global__ void poisson_iter_ext_kernel(
   if (err_bits != nullptr) ns3d::block_max_to(bits, err_bits);
 }
 
+struct BCConsts {
+  float inv_dx2, inv_dy2, inv_dz2, dtau, decay, z_lo_add, z_hi_add;
+  int zero_grad_x;
+  const float* xlo;  // (ny, nz) Dirichlet plane at x = 0, or null
+  const float* xhi;  // (ny, nz) Dirichlet plane at x = nx-1, or null
+};
+
+// q = pc + dtau*d at interior cell i (x-stride sx, y-stride nz), with d the
+// updated dpr, in compute_slab's expression order.
+__device__ inline float bc_update(const float* __restrict__ pr,
+                                  const float* __restrict__ dpr,
+                                  const float* __restrict__ rhs, long i,
+                                  long sx, int nz, const BCConsts& k,
+                                  float* d_out) {
+  const float pc = pr[i];
+  float lap = ((pr[i + sx] - pc) + (pr[i - sx] - pc)) * k.inv_dx2;
+  lap = lap + ((pr[i + nz] - pc) + (pr[i - nz] - pc)) * k.inv_dy2;
+  lap = lap + ((pr[i + 1] - pc) + (pr[i - 1] - pc)) * k.inv_dz2;
+  const float resid = lap - rhs[i];
+  const float d = dpr[i] * k.decay + k.dtau * resid;
+  *d_out = d;
+  return pc + k.dtau * d;
+}
+
+__device__ inline int clamp_int(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+__global__ void poisson_iter_bc_kernel(
+    const float* __restrict__ pr, const float* __restrict__ dpr,
+    const float* __restrict__ rhs, float* __restrict__ pr_out,
+    float* __restrict__ dpr_out, BCConsts k, int nx, int ny, int nz) {
+  const int z = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int x = blockIdx.z;
+  if (y >= ny || z >= nz) return;
+  const long sx = static_cast<long>(ny) * nz;
+  const long i = x * sx + static_cast<long>(y) * nz + z;
+  float d;
+  if (interior(x, y, z, nx, ny, nz)) {
+    pr_out[i] = bc_update(pr, dpr, rhs, i, sx, nz, k, &d);
+    dpr_out[i] = d;
+    return;
+  }
+  dpr_out[i] = 0.0f;
+  if (x == 0 && k.xlo != nullptr) {
+    pr_out[i] = k.xlo[static_cast<long>(y) * nz + z];
+    return;
+  }
+  if (x == nx - 1 && k.xhi != nullptr) {
+    pr_out[i] = k.xhi[static_cast<long>(y) * nz + z];
+    return;
+  }
+  const int cx = k.zero_grad_x ? clamp_int(x, 1, nx - 2) : x;
+  const int cy = clamp_int(y, 1, ny - 2);
+  const int cz = clamp_int(z, 1, nz - 2);
+  const long src = cx * sx + static_cast<long>(cy) * nz + cz;
+  float v = interior(cx, cy, cz, nx, ny, nz)
+                ? bc_update(pr, dpr, rhs, src, sx, nz, k, &d)
+                : pr[src] + k.dtau * 0.0f;
+  if (z == 0 && k.z_lo_add != 0.0f) v = v + k.z_lo_add;
+  if (z == nz - 1 && k.z_hi_add != 0.0f) v = v + k.z_hi_add;
+  pr_out[i] = v;
+}
+
 }  // namespace
 
 extern "C" int ns3d_poisson_iter(const float* pr, float* pr_out, float* dpr,
@@ -172,5 +263,21 @@ extern "C" int ns3d_poisson_iter_ext(const float* hi, const float* lo,
   const dim3 block = ns3d::block_shape();
   const Weights w{wyp, wym, wzp, wzm};
   poisson_iter_ext_kernel<<<grid, block, 0, stream>>>(hi, lo, hi_out, lo_out, dpr, rhs, w, inv_dx2, dtau, decay, zero_grad_x, nx, ny, nz, err_bits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ns3d_poisson_iter_bc(const float* pr, const float* dpr,
+                                    const float* rhs, float* pr_out,
+                                    float* dpr_out, const float* xlo,
+                                    const float* xhi, float inv_dx2,
+                                    float inv_dy2, float inv_dz2, float dtau,
+                                    float decay, float z_lo_add,
+                                    float z_hi_add, int zero_grad_x, int nx,
+                                    int ny, int nz, cudaStream_t stream) {
+  const dim3 grid = ns3d::grid_for(nx, ny, nz);
+  const dim3 block = ns3d::block_shape();
+  const BCConsts k{inv_dx2, inv_dy2, inv_dz2, dtau, decay, z_lo_add,
+                   z_hi_add, zero_grad_x, xlo, xhi};
+  poisson_iter_bc_kernel<<<grid, block, 0, stream>>>(pr, dpr, rhs, pr_out, dpr_out, k, nx, ny, nz);
   return static_cast<int>(cudaGetLastError());
 }

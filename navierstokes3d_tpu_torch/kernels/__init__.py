@@ -41,6 +41,9 @@ KERNELS = (
     Kernel("K5 advect", "navierstokes3d_tpu_torch/csrc/advect.cu",
            "navierstokes3d_tpu/kernels/advect.py:537",
            advect.advect_branch, advect.advect_branch_plain),
+    Kernel("K7 poisson_iter_bc", "navierstokes3d_tpu_torch/csrc/poisson.cu",
+           "navierstokes3d_tpu/kernels/poisson.py:914",
+           poisson.poisson_iter_bc, poisson.poisson_iter_bc_plain),
 )
 
 

@@ -13,7 +13,9 @@ fused_step.py (`build_predict` :440 and `build_correct` :632):
            raises ValueError for any other).
 
 The plain versions ARE the ops/physics.py + ops/cylinder.py + bc.py chain,
-in the JAX functions' expression order. Constants reach the kernels
+in the JAX functions' expression order (`predict_ops` / `correct_ops`,
+which compat mode runs as the JAX package's unfused `_step_impl` branch
+runs them, uncounted). Constants reach the kernels
 pre-rounded to float32 exactly as jnp's weak-type promotion rounds them
 (the JAX kernels' `_f`, fused_step.py:62). The tracer's mask set
 (c = where(mask_c, 1, c)) stays outside both kernels, as in the JAX
@@ -73,15 +75,22 @@ def _check_masks(masks: CylinderMasks, nx, ny, dev):
 
 # ---- K3 ----
 
-def predict_plain(vx, vy, vz, masks: CylinderMasks, k: StepConsts
-                  ) -> Tuple[torch.Tensor, ...]:
-    """Plain PyTorch version of K3: (vx*, vy*, vz*, divv)."""
-    predict_plain.calls += 1
+def predict_ops(vx, vy, vz, masks: CylinderMasks, k: StepConsts
+                ) -> Tuple[torch.Tensor, ...]:
+    """Stress, predictor, cylinder mask and divergence as torch ops:
+    (vx*, vy*, vz*, divv)."""
     taus = ph.update_tau(vx, vy, vz, k.mu, k.dx, k.dy, k.dz)
     vx, vy, vz = ph.predict_v(vx, vy, vz, *taus, k.rho, k.g_eff, k.dt,
                               k.dx, k.dy, k.dz)
     vx, vy, vz = mask_velocities(vx, vy, vz, masks)
     return vx, vy, vz, ph.update_divv(vx, vy, vz, k.dx, k.dy, k.dz)
+
+
+def predict_plain(vx, vy, vz, masks: CylinderMasks, k: StepConsts
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of K3: (vx*, vy*, vz*, divv)."""
+    predict_plain.calls += 1
+    return predict_ops(vx, vy, vz, masks, k)
 
 
 predict_plain.calls = 0
@@ -117,15 +126,21 @@ predict.launches = 0
 
 # ---- K4 ----
 
+def correct_ops(vx, vy, vz, pr, masks: CylinderMasks, k: StepConsts,
+                set_bc_vel) -> Tuple[torch.Tensor, ...]:
+    """correct_v + cylinder mask + set_bc_vel as torch ops."""
+    vx, vy, vz = ph.correct_v(vx, vy, vz, pr, k.dt, k.rho, k.dx, k.dy, k.dz)
+    vx, vy, vz = mask_velocities(vx, vy, vz, masks)
+    return set_bc_vel(vx, vy, vz)
+
+
 def correct_plain(vx, vy, vz, pr, masks: CylinderMasks, k: StepConsts
                   ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of K4: correct_v + cylinder mask + the
     variant's BCs (bc.velocity_bc)."""
     correct_plain.calls += 1
-    set_bc_vel = velocity_bc(k.variant, k.vin)
-    vx, vy, vz = ph.correct_v(vx, vy, vz, pr, k.dt, k.rho, k.dx, k.dy, k.dz)
-    vx, vy, vz = mask_velocities(vx, vy, vz, masks)
-    return set_bc_vel(vx, vy, vz)
+    return correct_ops(vx, vy, vz, pr, masks, k,
+                       velocity_bc(k.variant, k.vin))
 
 
 correct_plain.calls = 0

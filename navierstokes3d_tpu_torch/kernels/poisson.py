@@ -1,10 +1,12 @@
 """K1, the folded-BC pseudo-transient Poisson iteration, K2, its
-double-single (hi, lo) form, and the residual evaluations of the Poisson
-solve.
+double-single (hi, lo) form, K7, the iteration with the boundary
+conditions applied in-kernel (compat mode), and the residual evaluations
+of the Poisson solve.
 
-`poisson_iter` and `poisson_iter_ext` launch the CUDA kernels of
-csrc/poisson.cu for CUDA tensors and run `poisson_iter_plain` and
-`poisson_iter_ext_plain`, their plain PyTorch versions, for CPU tensors.
+`poisson_iter`, `poisson_iter_ext` and `poisson_iter_bc` launch the CUDA
+kernels of csrc/poisson.cu for CUDA tensors and run `poisson_iter_plain`,
+`poisson_iter_ext_plain` and `poisson_iter_bc_plain`, their plain PyTorch
+versions, for CPU tensors.
 K1 computes the Pallas kernel's iteration (navierstokes3d_tpu/kernels/
 poisson.py:914, `compute_slab_folded` :305) on the canonical 3D layout:
 
@@ -26,6 +28,14 @@ kernels/poisson.py:130-142): one exact first iteration plus set_bc_pr,
 the affine-z constants hoisted into the RHS, and the boundary planes
 materialized at the end.
 
+K7 (:914 with folded=False, `compute_slab` :334, `apply_bc_rows` :257) is
+the reference's own loop body: the unfolded iteration on every interior
+cell, then set_bc_Pr!'s sequence in-kernel, described by a PoissonBCSpec
+(`poisson_bc_spec`, a copy of the JAX package's :43-80). Its Dirichlet
+planes are computed in float64 and rounded once, as the JAX kernel's
+`lanes()` does; they can differ by an ulp from bc.hydrostatic_x's, which
+evaluates the profile in the field's dtype.
+
 `compensated_residual` (kernels/poisson.py:1311-1395) and `residual_max`
 (`residual_flat`, :1287-1309) stay torch ops, as XLA computes them in the
 JAX package; both run once per restart or check, not per iteration.
@@ -35,7 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -254,6 +264,165 @@ def poisson_iter_ext(hi, lo, hi_out, lo_out, dpr, rhs, op: PoissonOperator,
 
 
 poisson_iter_ext.launches = 0
+
+
+# ---- K7: the iteration with the BCs applied in-kernel ----
+
+class PoissonBCSpec(NamedTuple):
+    """BC sequence applied in-kernel after the pressure update.
+
+    multi variant: zero_grad_x=True,  xlo_plane=None,     xhi_plane=zeros
+                   (bc_x!, bc_y!, bc_z!, outlet Dirichlet — multi_gpu.jl:175-184)
+    gpu variant:   zero_grad_x=False, xlo_plane=prof+100, xhi_plane=prof
+                   (bc_y!, bc_z!, hydrostatic x — gpu.jl:281-286)
+    gpu + split:   xlo_plane=100s, xhi_plane=zeros, z_lo_add=-rho*g*dz,
+                   z_hi_add=+rho*g*dz (the p' = Pr - P_static(z) image of
+                   the same BC sequence; bc.affine_grad_z)
+    """
+    zero_grad_x: bool
+    xlo_plane: Optional[np.ndarray]   # (ny*nz,) or None
+    xhi_plane: Optional[np.ndarray]   # (ny*nz,) or None
+    z_lo_add: float = 0.0             # additive offset on the z-lo copy
+    z_hi_add: float = 0.0             # additive offset on the z-hi copy
+
+
+def poisson_bc_spec(variant: str, grid, phys,
+                    pressure_split: bool = False) -> PoissonBCSpec:
+    """The configured variant's BC sequence as a kernel spec (planes in
+    float64)."""
+    nyz = grid.ny * grid.nz
+    if variant == "multi":
+        return PoissonBCSpec(zero_grad_x=True, xlo_plane=None,
+                             xhi_plane=np.zeros(nyz))
+    if pressure_split:
+        rho_g_dz = phys.rho * phys.g * grid.dz
+        return PoissonBCSpec(zero_grad_x=False,
+                             xlo_plane=np.full(nyz, 100.0),
+                             xhi_plane=np.zeros(nyz),
+                             z_lo_add=-rho_g_dz, z_hi_add=+rho_g_dz)
+    iz = np.arange(1, grid.nz + 1, dtype=np.float64)
+    prof = phys.rho * phys.g * (grid.nz - iz + 0.5) * grid.dz
+    prof2d = np.broadcast_to(prof[None, :], (grid.ny, grid.nz))
+    return PoissonBCSpec(zero_grad_x=False,
+                         xlo_plane=(prof2d + 100.0).ravel(),
+                         xhi_plane=prof2d.ravel())
+
+
+@dataclasses.dataclass(frozen=True)
+class BCOperator:
+    """K7's constants on one device, float32: the inverse squared spacings,
+    dtau and decay and the z constants rounded as the JAX kernel rounds
+    them, and the Dirichlet planes (ny, nz) rounded once from float64
+    (None where that x face has no plane)."""
+    inv_dx2: float
+    inv_dy2: float
+    inv_dz2: float
+    dtau: float
+    decay: float
+    zero_grad_x: bool
+    xlo: Optional[torch.Tensor]
+    xhi: Optional[torch.Tensor]
+    z_lo_add: float
+    z_hi_add: float
+
+
+def make_bc_operator(spec: PoissonBCSpec, grid, device) -> BCOperator:
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+
+    def plane(p):
+        if p is None:
+            return None
+        return torch.tensor(np.asarray(p, np.float32).reshape(
+            grid.ny, grid.nz), device=device)
+    return BCOperator(
+        inv_dx2=f32(1.0 / grid.dx / grid.dx),
+        inv_dy2=f32(1.0 / grid.dy / grid.dy),
+        inv_dz2=f32(1.0 / grid.dz / grid.dz), dtau=f32(grid.dtau),
+        decay=f32(1.0 - grid.damp), zero_grad_x=bool(spec.zero_grad_x),
+        xlo=plane(spec.xlo_plane), xhi=plane(spec.xhi_plane),
+        z_lo_add=f32(spec.z_lo_add), z_hi_add=f32(spec.z_hi_add))
+
+
+def apply_bc_sequence(q, op: BCOperator):
+    """set_bc_Pr!'s sequence on the updated field (`apply_bc_rows`): x
+    copies where x is zero-gradient, y copies, z copies plus their nonzero
+    constants, then the Dirichlet x planes. Returns a new tensor."""
+    q = q.clone()
+    if op.zero_grad_x:
+        q[0] = q[1]
+        q[-1] = q[-2]
+    q[:, 0] = q[:, 1]
+    q[:, -1] = q[:, -2]
+    lo, hi = q[:, :, 1], q[:, :, -2]
+    if op.z_lo_add != 0.0:
+        lo = lo + op.z_lo_add
+    if op.z_hi_add != 0.0:
+        hi = hi + op.z_hi_add
+    q[:, :, 0] = lo
+    q[:, :, -1] = hi
+    if op.xlo is not None:
+        q[0] = op.xlo
+    if op.xhi is not None:
+        q[-1] = op.xhi
+    return q
+
+
+def poisson_iter_bc_plain(pr, dpr, rhs, pr_out, dpr_out,
+                          op: BCOperator) -> None:
+    """Plain PyTorch version of K7 (same arguments and effects as
+    poisson_iter_bc)."""
+    poisson_iter_bc_plain.calls += 1
+    pc = pr[INNER]
+    lap = ((pr[2:, 1:-1, 1:-1] - pc) + (pr[:-2, 1:-1, 1:-1] - pc)) * op.inv_dx2
+    lap = lap + ((pr[1:-1, 2:, 1:-1] - pc)
+                 + (pr[1:-1, :-2, 1:-1] - pc)) * op.inv_dy2
+    lap = lap + ((pr[1:-1, 1:-1, 2:] - pc)
+                 + (pr[1:-1, 1:-1, :-2] - pc)) * op.inv_dz2
+    d = dpr[INNER] * op.decay + op.dtau * (lap - rhs[INNER])
+    dpr_out.zero_()
+    dpr_out[INNER] = d
+    # off the interior q = pc + dtau*0, as the kernels compute it
+    pr_out.copy_(apply_bc_sequence(pr + op.dtau * dpr_out, op))
+
+
+poisson_iter_bc_plain.calls = 0
+
+
+def poisson_iter_bc(pr, dpr, rhs, pr_out, dpr_out, op: BCOperator) -> None:
+    """One PT iteration with the reference's BC sequence applied to the
+    updated field: reads pr, dpr and rhs, writes every cell of pr_out and
+    dpr_out (which must alias neither input: a ring cell is filled from
+    its source cell's update, which reads the source's old dpr). dpr_out
+    is 0 off the interior. No reduction: the caller evaluates the
+    residual. CUDA tensors launch the kernel (or raise); CPU tensors run
+    the plain version."""
+    if not _build.on_cuda(pr, "poisson_iter_bc"):
+        return poisson_iter_bc_plain(pr, dpr, rhs, pr_out, dpr_out, op)
+    dev = pr.device
+    for fname, t in (("pr", pr), ("dpr", dpr), ("rhs", rhs),
+                     ("pr_out", pr_out), ("dpr_out", dpr_out)):
+        _build.require(fname, t, pr.shape, torch.float32, dev)
+    nx, ny, nz = pr.shape
+    for fname, t in (("xlo", op.xlo), ("xhi", op.xhi)):
+        if t is not None:
+            _build.require(fname, t, (ny, nz), torch.float32, dev)
+    outs = {pr_out.data_ptr(), dpr_out.data_ptr()}
+    if len(outs) != 2 or outs & {pr.data_ptr(), dpr.data_ptr()}:
+        raise ValueError("poisson_iter_bc: pr_out and dpr_out must be "
+                         "distinct and alias neither input")
+    lib = _build.load()
+    f = ctypes.c_float
+    rc = lib.ns3d_poisson_iter_bc(
+        pr.data_ptr(), dpr.data_ptr(), rhs.data_ptr(), pr_out.data_ptr(),
+        dpr_out.data_ptr(), _build.ptr(op.xlo), _build.ptr(op.xhi),
+        f(op.inv_dx2), f(op.inv_dy2), f(op.inv_dz2), f(op.dtau),
+        f(op.decay), f(op.z_lo_add), f(op.z_hi_add), int(op.zero_grad_x),
+        nx, ny, nz, _build.stream_of(pr))
+    _build.check(rc, "poisson_iter_bc")
+    poisson_iter_bc.launches += 1
+
+
+poisson_iter_bc.launches = 0
 
 
 # ---- residual evaluations (torch ops, as XLA computes them in JAX) ----

@@ -1,10 +1,10 @@
 """Chorin projection solver, single device (torch port of
-navierstokes3d_tpu/models/chorin.py for the gpu and multi presets'
-main paths, compat=False).
+navierstokes3d_tpu/models/chorin.py for the gpu and multi presets, with
+and without compat mode).
 
-Step structure (the JAX package's `_step_chained`, chorin.py:1843-1884;
-reference time loops NavierStokes3D_gpu.jl:119-171 and
-NavierStokes3D_multi_gpu.jl:383-444):
+Step structure outside compat mode (the JAX package's `_step_chained`,
+chorin.py:1843-1884; reference time loops NavierStokes3D_gpu.jl:119-171
+and NavierStokes3D_multi_gpu.jl:383-444):
 
   1. fused predictor (K3): stress -> V* -> cylinder mask -> div V*;
      the tracer's seed ring is set outside the kernel
@@ -26,10 +26,25 @@ float32 runs that path on any device (CUDA tensors launch the kernels,
 CPU tensors run their plain versions). float64 runs on the CPU only, with
 the plain folded solve and no accuracy phase, as the JAX package does when
 its extended precision is off (chorin.py:1041-1067).
+
+compat mode, the reference's own semantics (the JAX package's unfused
+`_step_impl` branch, chorin.py:1806-1841), on any device in either dtype:
+  1. update_tau, predict_v (with g: no hydrostatic split), cylinder mask,
+     update_divv, as torch ops
+  2. the reference's Poisson loop (`pt_loop`, no stall exit): chunks of
+     nchk iterations, each chunk checked by a separate residual
+     evaluation, the trailing partial chunk only on an unconverged budget
+     exhaustion. float32 iterates K7 (the iteration with set_bc_Pr!
+     applied in-kernel); float64 iterates the reference's exact form
+     (poisson_iter + set_bc_pr, torch ops, as `_poisson_solve_jnp`)
+  3. correct_v, cylinder mask, the compat velocity BCs (the multi
+     reference's omitted bc_y!(Vy)/bc_z!(Vz)), as torch ops
+  4. gather advection with the reference's Vz bug (Vz never advected)
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -41,11 +56,13 @@ from ..grid import Grid, make_grid
 from ..kernels import advect as k_advect
 from ..kernels import fused_step as k_step
 from ..kernels import poisson as k_poisson
+from ..ops import advect as adv
 from ..ops import ds
 from ..ops import physics as ph
+from ..ops.stencil import div
 from ..ops.cylinder import (CylinderMasks, apply_cylinder, build_masks,
                             mask_tracer)
-from ..ptloop import host_scalar, np_float, pt_loop_fused
+from ..ptloop import host_scalar, np_float, pt_loop, pt_loop_fused
 from ..state import FlowState, StepStats, zeros_state
 
 INNER = (slice(1, -1),) * 3
@@ -71,19 +88,16 @@ class ChorinSolver:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not "
                                "available")
-        if cfg.compat:
-            raise NotImplementedError(
-                "compat mode is not ported yet (ROADMAP queue 1, item 10; "
-                "queue 2, K7)")
         if cfg.numerics.poisson_backend != "pt":
             raise NotImplementedError(
                 "the fdm Poisson backend is not ported yet (ROADMAP queue "
                 "1, item 8)")
         self.grid: Grid = make_grid(cfg)
         self.dtype = cfg.numerics.torch_dtype
-        if self.dtype == torch.float64 and self.device.type != "cpu":
-            raise ValueError("float64 runs on the CPU only: the CUDA "
-                             "kernels are float32")
+        if (self.dtype == torch.float64 and self.device.type != "cpu"
+                and not cfg.compat):
+            raise ValueError("float64 runs on the CPU only outside compat "
+                             "mode: that path's CUDA kernels are float32")
         self._init_split()
         grid, phys = self.grid, cfg.physics
         self.set_bc_vel, self.set_bc_pr = make_bc_fns(
@@ -98,24 +112,45 @@ class ChorinSolver:
             dt=grid.dt, dx=grid.dx, dy=grid.dy, dz=grid.dz, mu=phys.mu,
             rho=phys.rho, g_eff=0.0 if self.pressure_split else phys.g,
             variant=cfg.variant, vin=phys.vin)
-        # stall exit: None = auto, which is on outside compat mode
+        # stall exit: None = auto, which is on outside compat mode (the
+        # reference's loop has none)
+        stall_on = cfg.numerics.stall_exit
+        if stall_on is None:
+            stall_on = not cfg.compat
         self._stall = ((cfg.numerics.stall_ratio, cfg.numerics.stall_checks)
-                       if cfg.numerics.stall_exit is not False else None)
-        # select-shift window: k=2 is a 2x margin over the CFL_adv=1
-        # displacement bound, clamp-counted beyond (ops/advect.py)
+                       if stall_on else None)
+        # compat keeps the reference's gather advection (any displacement,
+        # clamped to the array bounds); otherwise select-shift, whose
+        # window k=2 is a 2x margin over the CFL_adv=1 displacement bound,
+        # clamp-counted beyond (ops/advect.py)
+        self.advect_method = "gather" if cfg.compat else "selectshift"
         self.advect_k = 2
         # use_pallas=False runs the plain PyTorch versions on every
         # device; otherwise the wrappers launch the hand-written kernels
         # for CUDA tensors (CPU tensors always take the plain versions)
         self.plain = cfg.use_pallas is False
-        if self.plain:
-            self._poisson_iter = k_poisson.poisson_iter_plain
-            self._poisson_iter_ext = k_poisson.poisson_iter_ext_plain
+        # K7's constants: compat float32 only (float64 iterates the
+        # reference's exact form)
+        self._bc_op = None
+        if cfg.compat and self.dtype == torch.float32:
+            self._bc_op = k_poisson.make_bc_operator(
+                k_poisson.poisson_bc_spec(cfg.variant, grid, phys,
+                                          self.pressure_split),
+                grid, self.device)
+        kp = k_poisson
+        self._poisson_iter, self._poisson_iter_ext, self._poisson_iter_bc = (
+            (kp.poisson_iter_plain, kp.poisson_iter_ext_plain,
+             kp.poisson_iter_bc_plain) if self.plain else
+            (kp.poisson_iter, kp.poisson_iter_ext, kp.poisson_iter_bc))
+        if cfg.compat:
+            # the unfused chain of the JAX package's _step_impl, torch ops
+            self._predict = k_step.predict_ops
+            self._correct = functools.partial(k_step.correct_ops,
+                                              set_bc_vel=self.set_bc_vel)
+        elif self.plain:
             self._predict = k_step.predict_plain
             self._correct = k_step.correct_plain
         else:
-            self._poisson_iter = k_poisson.poisson_iter
-            self._poisson_iter_ext = k_poisson.poisson_iter_ext
             self._predict = k_step.predict
             self._correct = k_step.correct
 
@@ -137,6 +172,9 @@ class ChorinSolver:
         ext = num.extended_precision
         if ext is None:
             ext = self.dtype == torch.float32 and not cfg.compat
+        elif ext and cfg.compat:
+            raise ValueError("extended_precision changes the iterate and "
+                             "cannot compose with compat mode")
         self.extended = bool(ext)
         acc = num.accuracy
         if acc not in (None, "defect", "extended", "none"):
@@ -164,32 +202,35 @@ class ChorinSolver:
         """Initial conditions per variant (profiles evaluated in numpy
         float64, then cast).
 
-        multi (NavierStokes3D_multi_gpu.jl:368-373): inflow plane Vx = vin,
-        hydrostatic pressure from global z (zero when g = 0), then the
-        cylinder mask.
+        multi (NavierStokes3D_multi_gpu.jl:368-373): inflow plane velocity
+        (written to Vy[1,:,:] in the reference, a typo compat keeps; Vx
+        otherwise), hydrostatic pressure from global z (zero when g = 0),
+        then the cylinder mask.
         gpu (NavierStokes3D_gpu.jl:84-88): 1/6-power-law Vx profile and
         hydrostatic pressure, which under the split is p' = 0 exactly."""
-        cfg, grid = self.cfg, self.grid
+        cfg, grid, phys = self.cfg, self.grid, self.cfg.physics
         st = zeros_state(grid, self.dtype, self.device)
         if cfg.variant == "multi":
-            phys = cfg.physics
-            vx = st.vx.clone()
-            vx[0] = phys.vin
+            vx, vy = st.vx.clone(), st.vy.clone()
+            (vy if cfg.compat else vx)[0] = phys.vin
             # Pr(iz) = -(z_g(iz) - dz/2) rho g with z_g(iz) = (iz-1) dz
             iz = np.arange(1, grid.nz + 1)
             prof = -(((iz - 1) * grid.dz) - grid.dz / 2) * phys.rho * phys.g
             pr = torch.tensor(prof, dtype=self.dtype, device=self.device)
             pr = pr.expand(grid.shape_c).contiguous()
-            c, vx, vy, vz = apply_cylinder(st.c, vx, st.vy, st.vz,
-                                           self.masks)
+            c, vx, vy, vz = apply_cylinder(st.c, vx, vy, st.vz, self.masks)
             return st.replace(pr=pr, vx=vx, vy=vy, vz=vz, c=c)
         zc = grid.zc()
-        prof = cfg.physics.vin * (7.0 / 6.0) * (
+        prof = phys.vin * (7.0 / 6.0) * (
             (zc + grid.lz / 2) / grid.lz) ** (1.0 / 6.0)
         vx = np.broadcast_to(prof[None, None, :], grid.shape_vx)
         vx = torch.tensor(np.ascontiguousarray(vx), dtype=self.dtype,
                           device=self.device)
-        return st.replace(vx=vx)
+        if self.pressure_split:
+            return st.replace(vx=vx)
+        prof = -(zc - grid.lz / 2) * phys.rho * phys.g
+        pr = torch.tensor(prof, dtype=self.dtype, device=self.device)
+        return st.replace(vx=vx, pr=pr.expand(grid.shape_c).contiguous())
 
     # ---- Poisson solve ----
 
@@ -197,6 +238,10 @@ class ChorinSolver:
                       ) -> Tuple[torch.Tensor, torch.Tensor, StepStats]:
         """(pr, dprdtau, stats); stats.pr_lo carries the stored pair's low
         word on the float32 accuracy paths."""
+        if self.cfg.compat:
+            if self._bc_op is not None:
+                return self._poisson_solve_bc(pr, dprdtau, divv)
+            return self._poisson_solve_exact(pr, dprdtau, divv)
         if self.dtype == torch.float64:
             return self._poisson_solve_folded(pr, dprdtau, divv)
         return {"defect": self._poisson_solve_defect,
@@ -217,6 +262,67 @@ class ChorinSolver:
         the solver's dtype (the hi word of ds.rhs_pair)."""
         zh = torch.tensor(self._z_hoist, dtype=self.dtype, device=self.device)
         return (self.cfg.physics.rho / self.grid.dt) * divv - zh
+
+    def _poisson_solve_bc(self, pr, dprdtau, divv):
+        """compat in float32: K7 under the reference's loop, the non-folded
+        branch of the JAX package's `_poisson_solve_pallas`
+        (chorin.py:1274-1295): the unhoisted RHS (rho/dt)*divv, no exact
+        first iteration, and after each chunk the check value
+        max|poisson_residual(pr)| * ly^2/psc."""
+        grid, phys, num = self.grid, self.cfg.physics, self.cfg.numerics
+        nchunks, rem = self._budget()
+        rhs = (phys.rho / grid.dt) * divv
+        err_scale = self._err_scale()
+        op, k7 = self._bc_op, self._poisson_iter_bc
+        # two (pr, dpr) output pairs in turn: K7 reads its inputs whole,
+        # and the caller's state is never written
+        bufs = [(torch.empty_like(pr), torch.empty_like(pr))
+                for _ in range(2)]
+
+        def run_iters(p, d, n, _k):
+            for _ in range(n):
+                p_out, d_out = bufs[0]
+                k7(p, d, rhs, p_out, d_out, op)
+                bufs.reverse()
+                p, d = p_out, d_out
+            return p, d
+
+        def residual_err(p):
+            rp = ph.poisson_residual(p, divv, phys.rho, grid.dt, grid.dx,
+                                     grid.dy, grid.dz)
+            return torch.max(torch.abs(rp)) * err_scale
+
+        pr, dpr, it, err, hist = pt_loop(
+            run_iters, residual_err, pr, dprdtau, nchunks, grid.nchk, rem,
+            num.eps_it, self.dtype, stall=self._stall)
+        return pr, dpr, StepStats(iters=it, err=err, err_hist=hist)
+
+    def _poisson_solve_exact(self, pr, dprdtau, divv):
+        """compat in float64: the reference's exact iteration (poisson_iter
+        + set_bc_pr) under its loop with no stall exit, the JAX package's
+        `_poisson_solve_jnp` (chorin.py:1609-1640)."""
+        grid, phys = self.grid, self.cfg.physics
+        nchunks, rem = self._budget()
+        args = (phys.rho, grid.dt, grid.dtau, grid.damp, grid.dx, grid.dy,
+                grid.dz)
+
+        def run_iters(p, d, n, _k):
+            for _ in range(n):
+                p, d = ph.poisson_iter(p, d, divv, *args)
+                p = self.set_bc_pr(p)
+            return p, d
+
+        def residual_err(p):
+            # (max|Rp| * ly^2) / psc, the reference's order (gpu.jl:132)
+            rp = ph.poisson_residual(p, divv, phys.rho, grid.dt, grid.dx,
+                                     grid.dy, grid.dz)
+            return div(torch.max(torch.abs(rp)) * (grid.ly * grid.ly),
+                       phys.psc)
+
+        pr, dpr, it, err, hist = pt_loop(
+            run_iters, residual_err, pr, dprdtau, nchunks, grid.nchk, rem,
+            self.cfg.numerics.eps_it, self.dtype, stall=None)
+        return pr, dpr, StepStats(iters=it, err=err, err_hist=hist)
 
     def _first_iteration(self, pr, dprdtau, divv):
         """The folded protocol's global iteration 1 in exact form (it reads
@@ -494,8 +600,13 @@ class ChorinSolver:
         # state (the corrector and the next solve use hi only)
         pr_lo, stats.pr_lo = stats.pr_lo, None
         vx, vy, vz = self._correct(vx, vy, vz, pr, self.masks, k)
-        vx, vy, vz, c, n_clamped = k_advect.advect(
-            vx, vy, vz, c, k, self.advect_k, plain=self.plain)
+        if self.advect_method == "gather":
+            vx, vy, vz, c, n_clamped = adv.advect(
+                vx, vy, vz, c, k.dt, k.dx, k.dy, k.dz,
+                compat=self.cfg.compat, method="gather")
+        else:
+            vx, vy, vz, c, n_clamped = k_advect.advect(
+                vx, vy, vz, c, k, self.advect_k, plain=self.plain)
         stats.advect_clamped = int(n_clamped.item())
         return (FlowState(pr=pr, vx=vx, vy=vy, vz=vz, c=c, dprdtau=dprdtau,
                           pr_lo=pr_lo), stats)
@@ -514,3 +625,13 @@ class ChorinSolver:
             if callback is not None:
                 callback(it, state, stats)
         return state, all_stats
+
+
+def gather_inner(state: FlowState):
+    """Inner fields as the reference's final gather returns them
+    (NavierStokes3D_multi_gpu.jl:528-535), as numpy arrays: C, Pr
+    (nx-2, ny-2, nz-2) and the velocities with their staggered dim one
+    larger."""
+    sl = (slice(1, -1),) * 3
+    return tuple(getattr(state, k)[sl].cpu().numpy()
+                 for k in ("c", "pr", "vx", "vy", "vz"))

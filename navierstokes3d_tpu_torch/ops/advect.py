@@ -1,18 +1,24 @@
-"""Semi-Lagrangian advection, select-shift method (torch port of the
-`selectshift` backend of navierstokes3d_tpu/ops/advect.py).
+"""Semi-Lagrangian advection (torch port of navierstokes3d_tpu/ops/
+advect.py).
 
 Reference: advect!/backtrack!/lerp (NavierStokes3D_gpu.jl:288-334). Each
 staggered component averages the other two velocity components onto its
 own face, backtracks the departure point one dt, and trilinearly
-interpolates the post-BC snapshot there. The select-shift form bounds the
-departure displacement to ±k cells (clamped beyond, and counted), so the
-interpolation is a select-weighted stencil of (2k+2)^3 shifted slices,
-summed in the JAX backend's (p, q, o) term order with its weight
-expressions. compat=False semantics (Vz advected properly); the gather
-method and compat's never-advected Vz are not ported yet.
+interpolates the post-BC snapshot there. Two methods:
 
-These are the plain versions the advection kernel (kernels/advect.py) is
-held against.
+  gather:      the reference's literal semantics (departure indices clamp
+               to the array bounds, any displacement): 8 gathers per
+               field, torch ops as XLA computes them in the JAX package;
+  selectshift: the displacement bounded to ±k cells (clamped beyond, and
+               counted), so the interpolation is a select-weighted stencil
+               of (2k+2)^3 shifted slices, summed in the JAX backend's
+               (p, q, o) term order with its weight expressions. Its
+               branches are the plain versions K5 (kernels/advect.py) is
+               held against.
+
+compat=True keeps the reference bug where the third branch advects Vy a
+second time with Vz-face velocities and Vy's bounds, so Vz is never
+advected (gpu.jl:321-326); compat=False advects Vz properly.
 """
 
 from __future__ import annotations
@@ -55,6 +61,71 @@ def face_velocities(branch: str, vx, vy, vz):
                 0.5 * (vy[:, :-1, :] + vy[:, 1:, :]),
                 0.5 * (vz[:, :, :-1] + vz[:, :, 1:]))
     raise ValueError(f"unknown advection branch {branch!r}")
+
+
+def _lerp(a, b, t):
+    """lerp(a,b,t) = b t + a (1-t) (NavierStokes3D_gpu.jl:306)."""
+    return b * t + a * (1.0 - t)
+
+
+def _ranges(dtype, device, *specs):
+    """1-based index axes, shaped for broadcasting: specs are (start,
+    stop)."""
+    out = []
+    for axis, (start, stop) in enumerate(specs):
+        shape = [1, 1, 1]
+        shape[axis] = stop - start + 1
+        out.append(torch.arange(start, stop + 1, dtype=dtype,
+                                device=device).reshape(shape))
+    return out
+
+
+def _backtrack(a_o, vxc, vyc, vzc, ix, iy, iz, dt, dx, dy, dz):
+    """Vectorized backtrack! (NavierStokes3D_gpu.jl:288-304): ix/iy/iz are
+    the 1-based indices of the write region (broadcastable); departure
+    indices clamp to a_o's bounds. Returns the interpolated values over
+    the write region."""
+    n1, n2, n3 = a_o.shape
+    dlx = div(dt * vxc, dx)
+    dly = div(dt * vyc, dy)
+    dlz = div(dt * vzc, dz)
+
+    def corner(i, dl, n):
+        # the second clamp keeps a NaN displacement's index in bounds (its
+        # interpolant is NaN through t all the same)
+        return torch.clamp(torch.floor(i - dl), 1, n).long().clamp(1, n)
+
+    ix1, iy1, iz1 = corner(ix, dlx, n1), corner(iy, dly, n2), corner(iz, dlz,
+                                                                    n3)
+    ix2 = torch.clamp(ix1 + 1, max=n1)
+    iy2 = torch.clamp(iy1 + 1, max=n2)
+    iz2 = torch.clamp(iz1 + 1, max=n3)
+    # Julia: δ = (δ>0) - (δ%1); % is the truncated remainder, fmod
+    tx = (dlx > 0).to(a_o.dtype) - torch.fmod(dlx, 1.0)
+    ty = (dly > 0).to(a_o.dtype) - torch.fmod(dly, 1.0)
+    tz = (dlz > 0).to(a_o.dtype) - torch.fmod(dlz, 1.0)
+    ix1, iy1, iz1, ix2, iy2, iz2 = torch.broadcast_tensors(
+        ix1, iy1, iz1, ix2, iy2, iz2)
+
+    def at(i, j, k):  # 1-based -> 0-based gather
+        return a_o[i - 1, j - 1, k - 1]
+
+    fy1z1 = _lerp(at(ix1, iy1, iz1), at(ix2, iy1, iz1), tx)
+    fy1z2 = _lerp(at(ix1, iy1, iz2), at(ix2, iy1, iz2), tx)
+    fy2z1 = _lerp(at(ix1, iy2, iz1), at(ix2, iy2, iz1), tx)
+    fy2z2 = _lerp(at(ix1, iy2, iz2), at(ix2, iy2, iz2), tx)
+    fz1 = _lerp(fy1z1, fy2z1, ty)
+    fz2 = _lerp(fy1z2, fy2z2, ty)
+    return _lerp(fz1, fz2, tz)
+
+
+def backtrack_gather(a_o, vxc, vyc, vzc, starts, dt, dx, dy, dz):
+    """_backtrack over the region that starts at the 1-based `starts` and
+    spans the advecting velocities' broadcast shape."""
+    rs = torch.broadcast_shapes(vxc.shape, vyc.shape, vzc.shape)
+    ix, iy, iz = _ranges(a_o.dtype, a_o.device,
+                         *((s, s + n - 1) for s, n in zip(starts, rs)))
+    return _backtrack(a_o, vxc, vyc, vzc, ix, iy, iz, dt, dx, dy, dz)
 
 
 def backtrack_selectshift(a_o, vxc, vyc, vzc, starts, dt, dx, dy, dz, k):
@@ -118,19 +189,47 @@ def advect_branch(branch: str, a, vx, vy, vz, dt, dx, dy, dz, k):
     vals, ncl = backtrack_selectshift(
         a, *face_velocities(branch, vx, vy, vz), _STARTS[branch],
         dt, dx, dy, dz, k)
+    return _place(a, _STARTS[branch], vals), ncl
+
+
+def _place(a, starts, vals):
     out = a.clone()
-    sx, sy, sz = _STARTS[branch]
+    sx, sy, sz = starts
     out[sx - 1:sx - 1 + vals.shape[0], sy - 1:sy - 1 + vals.shape[1],
         sz - 1:sz - 1 + vals.shape[2]] = vals
-    return out, ncl
+    return out
 
 
-def advect(vx, vy, vz, c, dt, dx, dy, dz, *, k: int = 2):
+def advect(vx, vy, vz, c, dt, dx, dy, dz, *, compat: bool = False,
+           method: str = "selectshift", k: int = 2):
     """Advect Vx, Vy, Vz and the tracer C from the post-BC snapshots
-    (gpu.jl:308-332, compat=False). Returns (vx', vy', vz', c', n_clamped)."""
-    outs, total = [], 0
+    (gpu.jl:308-332) with the given method; compat keeps the reference's
+    third branch (below). Returns (vx', vy', vz', c', n_clamped) with
+    n_clamped an int32 0-dim tensor (always 0 for 'gather')."""
+    n_clamped = torch.zeros((), dtype=torch.int32, device=vx.device)
+
+    def bt(a_o, vels, starts):
+        nonlocal n_clamped
+        if method == "gather":
+            return backtrack_gather(a_o, *vels, starts, dt, dx, dy, dz)
+        if method != "selectshift":
+            raise ValueError(f"unknown advection method {method!r}")
+        vals, n = backtrack_selectshift(a_o, *vels, starts, dt, dx, dy, dz,
+                                        k)
+        n_clamped = n_clamped + n
+        return vals
+
+    new = {}
     for branch, a in zip(BRANCHES, (vx, vy, vz, c)):
-        o, n = advect_branch(branch, a, vx, vy, vz, dt, dx, dy, dz, k)
-        outs.append(o)
-        total = total + n
-    return (*outs, total)
+        vels = face_velocities(branch, vx, vy, vz)
+        if branch == "vz" and compat:
+            # Reference bug (gpu.jl:325): Vy is written again, from the Vy
+            # snapshot with Vy's clamp bounds, over iy 1..ny and iz 2..nz,
+            # overwriting branch 2 where the regions overlap; Vz is left
+            # as it is
+            new["vy"] = _place(new["vy"], (1, 1, 2), bt(vy, vels, (1, 1, 2)))
+            new["vz"] = vz
+        else:
+            new[branch] = _place(a, _STARTS[branch],
+                                 bt(a, vels, _STARTS[branch]))
+    return new["vx"], new["vy"], new["vz"], new["c"], n_clamped

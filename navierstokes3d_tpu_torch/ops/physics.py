@@ -80,6 +80,12 @@ def poisson_iter(pr, dprdtau, divv, rho, dt, dtau, damp, dx, dy, dz):
     return pr, dprdtau
 
 
+def poisson_residual(pr, divv, rho, dt, dx, dy, dz):
+    """Poisson residual on the interior, (nx-2, ny-2, nz-2) (compute_res!,
+    NavierStokes3D_gpu.jl:209-212): compat's convergence check."""
+    return st.laplacian_inner(pr, dx, dy, dz) - (rho / dt) * st.inn(divv)
+
+
 def correct_v(vx, vy, vz, pr, dt, rho, dx, dy, dz):
     """Chorin step 2: project out the pressure gradient, interior only
     (correct_V!, NavierStokes3D_gpu.jl:214-219)."""

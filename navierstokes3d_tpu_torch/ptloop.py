@@ -1,5 +1,5 @@
-"""Chunked pseudo-transient convergence loop, driven from the host (torch
-port of navierstokes3d_tpu/ptloop.py `pt_loop_fused`).
+"""Chunked pseudo-transient convergence loops, driven from the host (torch
+port of navierstokes3d_tpu/ptloop.py: `pt_loop_fused` and `pt_loop`).
 
 Replicates the reference's `for iter=1:niter ... break` control flow
 (NavierStokes3D_gpu.jl:126-137): iterate, check the residual every nchk
@@ -7,7 +7,9 @@ iterations, stop on convergence (err < eps_it), a non-finite err, or the
 budget. The JAX package runs this as one lax.while_loop on the device;
 here the host drives it and reads ONE device scalar per nchk-iteration
 chunk (the check value), so the card never waits on the host between
-checks.
+checks. `pt_loop` is the reference's exact loop, which compat mode runs:
+the check value is a separate residual evaluation after each chunk, also
+one device read per chunk.
 
 All exit comparisons run in the loop's dtype (numpy float32 for float32
 solves), with the Python constants rounded to that dtype first, exactly as
@@ -38,6 +40,60 @@ def host_scalar(e, ft: type):
     return ft(e)
 
 
+class _Stall:
+    """The stall window: exit when err > ratio**window times the err of
+    `window` checks earlier (errbuf starts at `big`, so the first `window`
+    checks cannot trip it). stall=None turns it off."""
+
+    def __init__(self, stall: Optional[Tuple[float, int]], ft: type):
+        self.on = stall is not None
+        ratio, window = stall if self.on else (0.0, 1)
+        window = max(int(window), 1)
+        self.thresh = ft(ratio ** window)
+        self.big = ft(1e30)
+        self.errbuf = [self.big] * (window + 1)
+
+    def push(self, err) -> None:
+        self.errbuf = self.errbuf[1:] + [err]
+
+    def stalled(self, err) -> bool:
+        e0 = self.errbuf[0]
+        return self.on and bool((err > self.thresh * e0) & (e0 < self.big))
+
+
+def pt_loop(run_iters: Callable, residual_err: Callable, pr, dpr,
+            nchunks: int, nchk: int, rem: int, eps_it: float, dtype,
+            stall: Optional[Tuple[float, int]] = None):
+    """The reference's chunk loop (JAX `pt_loop`): run_iters(pr, dpr, n, k)
+    -> (pr, dpr) advances n iterations (k = chunk index); residual_err(pr)
+    -> err (a device scalar, read once per chunk). Chunks run while
+    k < nchunks, err >= eps_it, err is finite and (with a stall window)
+    the iteration has not stalled; the trailing `rem` iterations run only
+    when the loop ends on the chunk budget without converging or stalling.
+    Returns (pr, dpr, iters, err, hist)."""
+    ft = np_float(dtype)
+    eps = ft(eps_it)
+    window = _Stall(stall, ft)
+    hist = np.full((max(nchunks, 1),), np.nan, ft)
+    err, k = window.big, 0
+
+    def unconverged(err):
+        return bool(err >= eps) and bool(np.isfinite(err))
+
+    while k < nchunks and unconverged(err) and not window.stalled(err):
+        pr, dpr = run_iters(pr, dpr, nchk, k)
+        err = host_scalar(residual_err(pr), ft)
+        hist[k] = err
+        window.push(err)
+        k += 1
+    iters = k * nchk
+    if (rem > 0 and k >= nchunks and unconverged(err)
+            and not window.stalled(err)):
+        pr, dpr = run_iters(pr, dpr, rem, k)
+        iters += rem
+    return pr, dpr, iters, err, hist
+
+
 def pt_loop_fused(step_fn: Callable, carry, it0: int, niter: int, nchk: int,
                   nchunks: int, eps_it: float, dtype,
                   stall: Optional[Tuple[float, int]] = None, err0=None):
@@ -59,31 +115,23 @@ def pt_loop_fused(step_fn: Callable, carry, it0: int, niter: int, nchk: int,
     eps exit) — a value below eps_it makes the loop a no-op.
     Returns (carry, iters, err, hist)."""
     ft = np_float(dtype)
-    big = ft(1e30)
-    stall_on = stall is not None
-    ratio, window = stall if stall_on else (0.0, 1)
-    window = max(int(window), 1)
-    thresh = ft(ratio ** window)
+    window = _Stall(stall, ft)
     eps = ft(eps_it)
     nhist = max(nchunks, 1)
     n_checked = nchunks * nchk
 
-    def stalled(err, errbuf):
-        return bool((err > thresh * errbuf[0]) & (errbuf[0] < big))
-
-    def running(it, err, errbuf):
+    def running(it, err):
         ok = it < niter and bool(err >= eps) and bool(np.isfinite(err))
-        return ok and not (stall_on and stalled(err, errbuf))
+        return ok and not window.stalled(err)
 
     hist = np.full((nhist,), np.nan, ft)
-    errbuf = [big] * (window + 1)
-    err = big if err0 is None else host_scalar(err0, ft)
+    err = window.big if err0 is None else host_scalar(err0, ft)
     it = int(it0)
-    while running(it, err, errbuf):
+    while running(it, err):
         carry, e, nadv = step_fn(carry, it)
         it += int(nadv)
         if it % nchk == 0 and it <= n_checked:
             err = host_scalar(e, ft)
             hist[min(max(it // nchk - 1, 0), nhist - 1)] = err
-            errbuf = errbuf[1:] + [err]
+            window.push(err)
     return carry, it, err, hist

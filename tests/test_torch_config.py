@@ -107,13 +107,22 @@ def test_solver_defaults_to_cuda():
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="compat"):
-        nt.ChorinSolver(nt.preset_multi(nx=15, compat=True,
-                                        dtype="float32"), device="cpu")
-    with pytest.raises(NotImplementedError, match="compat"):
-        nt.ChorinSolver(nt.preset_gpu(nx=15, dtype="float32"), device="cpu")
+    """What the solver still refuses: the fdm backend, float64 off the CPU
+    outside compat mode (that path's kernels are float32; compat float64
+    runs on any device), and the hydrostatic split on the multi variant."""
+    for compat in (True, False):
+        cfg = nt.preset_gpu(nx=15, compat=compat, dtype="float32")
+        cfg = cfg.replace(numerics=dataclasses.replace(
+            cfg.numerics, poisson_backend="fdm"))
+        with pytest.raises(NotImplementedError, match="fdm"):
+            nt.ChorinSolver(cfg, device="cpu")
     with pytest.raises(ValueError, match="CPU only"):
         nt.ChorinSolver(nt.preset_gpu(nx=15, compat=False), device="meta")
+    cfg = nt.preset_multi(nx=15, compat=False, dtype="float32")
+    cfg = cfg.replace(numerics=dataclasses.replace(cfg.numerics,
+                                                   pressure_split=True))
+    with pytest.raises(NotImplementedError, match="pressure_split"):
+        nt.ChorinSolver(cfg, device="cpu")
 
 
 def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
@@ -127,11 +136,14 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
     multi = nt.preset_multi(nx=15, compat=False, dtype="float32")
     multi = multi.replace(numerics=dataclasses.replace(multi.numerics,
                                                        eps_it=1e-9))
-    for cfg in (gpu, multi):
+    # compat float32 runs K7
+    compat = nt.preset_multi(nx=9, dtype="float32")
+    for cfg in (gpu, multi, compat):
         s = nt.ChorinSolver(cfg, device="cpu")
         state, stats = s.step(s.init_state())
         assert stats.iters > 0
-    assert stats.iters_ext > 0
+        if cfg is multi:
+            assert stats.iters_ext > 0
     for k in kernels.KERNELS:
         assert k.wrapper.launches == 0, k.name
         assert k.plain.calls > 0, k.name
@@ -159,5 +171,5 @@ def test_build_sources_and_key():
     assert "--fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert set(_build.SIGNATURES) == {
-        "ns3d_poisson_iter", "ns3d_poisson_iter_ext", "ns3d_predict",
-        "ns3d_correct", "ns3d_advect"}
+        "ns3d_poisson_iter", "ns3d_poisson_iter_ext", "ns3d_poisson_iter_bc",
+        "ns3d_predict", "ns3d_correct", "ns3d_advect"}

@@ -88,6 +88,31 @@ def test_k2_matches_plain(multi):
             assert float(ea) == float(eb)
 
 
+@pytest.mark.parametrize("variant,split", [("multi", False),
+                                           ("gpu", False), ("gpu", True)])
+def test_k7_matches_plain(variant, split):
+    """K7 with each BC spec (the multi, the unsplit gpu and the split gpu
+    one, whose z constants are nonzero): both outputs bitwise, every cell
+    written."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    make = nt.preset_gpu if variant == "gpu" else nt.preset_multi
+    cfg = make(nx=17, dtype="float32")
+    g = nt.make_grid(cfg)
+    op = kp.make_bc_operator(kp.poisson_bc_spec(variant, g, cfg.physics,
+                                                split), g, "cuda")
+    rng = np.random.default_rng(5)
+    pr = _rand(rng, g.shape_c, 50.0)
+    rhs = _rand(rng, g.shape_c, 1e5)
+    dpr = torch.zeros_like(pr)
+    dpr[1:-1, 1:-1, 1:-1] = _rand(rng, (g.nx - 2, g.ny - 2, g.nz - 2), 1e3)
+    a = [torch.full_like(pr, float("nan")) for _ in range(2)]
+    b = [torch.empty_like(pr) for _ in range(2)]
+    kp.poisson_iter_bc(pr, dpr, rhs, *a, op)
+    kp.poisson_iter_bc_plain(pr, dpr, rhs, *b, op)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def test_k4_multi_matches_plain(multi):
     g, rng, k = multi.grid, np.random.default_rng(4), multi._consts
     v = [_rand(rng, s) for s in (g.shape_vx, g.shape_vy, g.shape_vz)]
@@ -144,5 +169,29 @@ def test_step_on_card_matches_cpu(preset):
         for name in ("pr", "vx", "vy", "vz", "c", "dprdtau", "pr_lo"):
             assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
     for k in kernels.KERNELS:
-        on_path = preset == "multi" or k.name != "K2 poisson_iter_ext"
+        on_path = (k.name != "K7 poisson_iter_bc"
+                   and (preset == "multi" or k.name != "K2 poisson_iter_ext"))
         assert (k.wrapper.launches > 0) == on_path, k.name
+
+
+@pytest.mark.parametrize("preset", ["gpu", "multi"])
+def test_compat_step_on_card_matches_cpu(preset):
+    """Two compat float32 steps at nx=15: K7 is the only kernel launched,
+    and every field is bitwise equal to the CPU run (the torch ops of the
+    compat chain round alike on both devices)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    make = nt.preset_gpu if preset == "gpu" else nt.preset_multi
+    cfg = make(nx=15, dtype="float32")
+    kernels.reset_counts()
+    card = nt.ChorinSolver(cfg, device="cuda")
+    cpu = nt.ChorinSolver(cfg, device="cpu")
+    a, b = card.init_state(), cpu.init_state()
+    for _ in range(2):
+        a, sa = card.step(a)
+        b, sb = cpu.step(b)
+        assert sa.iters == sb.iters
+        for name in ("pr", "vx", "vy", "vz", "c", "dprdtau"):
+            assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
+    for k in kernels.KERNELS:
+        assert (k.wrapper.launches > 0) == (k.name == "K7 poisson_iter_bc")

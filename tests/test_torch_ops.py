@@ -1,7 +1,7 @@
 """The port's plain ops against the JAX package's jnp functions.
 
-Stencil/physics/cylinder and the gpu variant's boundary conditions must be
-EXACT in float64 (identical expression trees, each operation rounded on its
+Stencil/physics/cylinder and both variants' boundary conditions (with and
+without compat mode, split and unsplit) must be EXACT in float64 (identical expression trees, each operation rounded on its
 own in both frameworks); the double-single building blocks must be bitwise
 equal in float32. Inputs come from a seeded numpy generator and go to both
 packages. Distinct nx/ny/nz catch axis mix-ups.
@@ -220,12 +220,65 @@ def test_multi_cylinder_masks(nx):
 
 
 def test_unported_bcs_raise():
-    cfg = nt.preset_multi(nx=15)   # compat=True by default
-    with pytest.raises(NotImplementedError, match="compat"):
+    """What still raises: the hydrostatic split on the multi variant (its
+    g is 0), for every BC builder and with compat on or off, and an
+    unknown variant."""
+    for compat in (True, False):
+        cfg = nt.preset_multi(nx=15, compat=compat)
+        grid = nt.make_grid(cfg)
+        for build in (tbc.make_bc_fns, tbc.folded_masks,
+                      tbc.make_bc_pr_pair):
+            with pytest.raises(NotImplementedError, match="pressure_split"):
+                build(cfg, grid, pressure_split=True)
+    cfg = nt.preset_multi(nx=15).replace(variant="other")
+    with pytest.raises(ValueError, match="variant"):
         tbc.make_bc_fns(cfg, nt.make_grid(cfg))
-    cfg = nt.preset_multi(nx=15, compat=False)
-    with pytest.raises(NotImplementedError, match="pressure_split"):
-        tbc.make_bc_fns(cfg, nt.make_grid(cfg), pressure_split=True)
-    cfg = nt.preset_gpu(nx=15, compat=False)
-    with pytest.raises(NotImplementedError, match="split"):
-        tbc.folded_masks(cfg, nt.make_grid(cfg), pressure_split=False)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("variant", ["multi", "gpu"])
+def test_compat_bcs_exact(variant, dtype):
+    """compat mode's BCs (after tests/test_kernels.py:141-171): the multi
+    reference's velocity BCs without bc_y!(Vy) and bc_z!(Vz), and the
+    unsplit gpu pressure BCs with their hydrostatic planes, which
+    hydrostatic_x evaluates in the field's dtype; the unsplit gpu (hi, lo)
+    pair BCs too."""
+    nx = 17
+    preset_j = ns.preset_multi if variant == "multi" else ns.preset_gpu
+    preset_t = nt.preset_multi if variant == "multi" else nt.preset_gpu
+    cfgj, cfgt = preset_j(nx=nx), preset_t(nx=nx)
+    assert cfgj.compat and cfgt.compat
+    gj, gt = ns.make_grid(cfgj), nt.make_grid(cfgt)
+    vel_j, pr_j = jbc.make_bc_fns(cfgj, gj)
+    vel_t, pr_t = tbc.make_bc_fns(cfgt, gt)
+    rng = np.random.default_rng(7)
+    v = [_rand(rng, s, dtype) for s in (gt.shape_vx, gt.shape_vy,
+                                        gt.shape_vz)]
+    j, t = _both(*v)
+    out = vel_t(*t)
+    for a, b in zip(out, vel_j(*j)):
+        _eq(a, b)
+    if variant == "multi":
+        # the omitted copies leave Vy's y faces and Vz's z faces alone
+        assert torch.equal(out[1][1:-1, 0, 1:-1], t[1][1:-1, 0, 1:-1])
+        assert torch.equal(out[2][1:-1, 1:-1, 0], t[2][1:-1, 1:-1, 0])
+    p = _rand(rng, gt.shape_c, dtype, scale=100.0)
+    lo = _rand(rng, gt.shape_c, dtype, scale=1e-5)
+    (jp, jl), (tp, tl) = _both(p, lo)
+    _eq(pr_t(tp), pr_j(jp))
+    if variant == "gpu":
+        pair_j = jbc.make_bc_pr_pair(cfgj, gj)
+        pair_t = tbc.make_bc_pr_pair(cfgt, gt)
+        for a, b in zip(pair_t(tp, tl), pair_j(jp, jl)):
+            _eq(a, b)
+    _eq(tp, p)  # inputs are not modified
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_poisson_residual_exact(dtype):
+    rng = np.random.default_rng(8)
+    pr, divv = _rand(rng, (NX, NY, NZ), dtype), _rand(rng, (NX, NY, NZ),
+                                                      dtype)
+    (jp, jd), (tp, td) = _both(pr, divv)
+    _eq(tph.poisson_residual(tp, td, RHO, DT, DX, DY, DZ),
+        jph.poisson_residual(jp, jd, RHO, DT, DX, DY, DZ))

@@ -1,15 +1,19 @@
-"""The port's host-driven pt_loop_fused against the JAX package's device
-loop, on synthetic step functions (after tests/test_ptloop.py): both must
-give the same (iters, err, hist) and carry — the check value is the
-residual entering iteration k*nchk, the stall window and err0 seeding
-behave alike, and the trailing partial chunk runs unchecked."""
+"""The port's host-driven pt_loop_fused and pt_loop against the JAX
+package's device loops, on synthetic step functions (after
+tests/test_ptloop.py): both must give the same (iters, err, hist) and
+carry — the check value is the residual entering iteration k*nchk
+(pt_loop_fused) or a residual evaluated after each chunk (pt_loop), the
+stall window and err0 seeding behave alike, and the trailing partial chunk
+runs unchecked, in pt_loop only on an unconverged budget exhaustion."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from navierstokes3d_tpu.ptloop import pt_loop as jax_chunks
 from navierstokes3d_tpu.ptloop import pt_loop_fused as jax_loop
+from navierstokes3d_tpu_torch.ptloop import pt_loop as torch_chunks
 from navierstokes3d_tpu_torch.ptloop import pt_loop_fused as torch_loop
 
 torch.set_num_threads(2)
@@ -109,3 +113,73 @@ def test_plain_python_scalars_as_err():
         lambda c, it: (c * 0.5, np.float32(c), 1), 1.0, 0, 40, 4, 10, 1e-3,
         np.float32)
     assert it == 12 and isinstance(err, np.float32)
+
+
+# ---- pt_loop: the reference's chunk loop (compat) ----
+
+def chunks_both(values, nchunks, nchk, rem, eps, stall=None):
+    """pt_loop in both packages on a scripted residual: the carry pr counts
+    the iterations run (dpr the run_iters calls), and the check after the
+    chunk that ends at iteration i reads values[i // nchk - 1] (the last
+    value past the end)."""
+    last = len(values) - 1
+    arr_j = jnp.asarray(values, jnp.float32)
+    arr_t = torch.tensor(values, dtype=torch.float32)
+
+    def run_j(p, d, n, k):
+        return p + n, d + 1
+
+    def err_j(p):
+        return arr_j[jnp.minimum(p.astype(jnp.int32) // nchk - 1, last)]
+
+    def err_t(p):
+        return arr_t[min(int(p.item()) // nchk - 1, last)]
+
+    zero = np.zeros((), np.float32)
+    pj, dj, ij, ej, hj = jax_chunks(run_j, err_j, jnp.asarray(zero),
+                                    jnp.asarray(zero), nchunks, nchk, rem,
+                                    eps, jnp.float32, stall=stall)
+    pt, dt, it_, et, ht = torch_chunks(run_j, err_t, torch.tensor(zero),
+                                       torch.tensor(zero), nchunks, nchk,
+                                       rem, eps, torch.float32, stall=stall)
+    assert int(ij) == it_ == int(pt.item())
+    assert float(dj) == float(dt.item())
+    assert np.float32(ej) == et or (np.isnan(ej) and np.isnan(et))
+    assert et.dtype == np.float32
+    np.testing.assert_array_equal(np.asarray(hj), ht)
+    return it_, et, ht
+
+
+def test_chunks_converge_at_a_check():
+    it, err, hist = chunks_both([1.0, 0.1, 5e-4, 1e-5], 10, 4, 3, 1e-3)
+    assert it == 12 and err == np.float32(5e-4)
+    assert np.isnan(hist[3:]).all()
+
+
+@pytest.mark.parametrize("values,iters", [
+    ([1.0, 0.5, 0.2], 3 * 4 + 3),      # unconverged: the tail runs
+    ([1.0, 0.5, 5e-4], 3 * 4),         # converged at the last check
+    ([1.0, float("nan"), 0.2], 2 * 4),  # NaN exit, no tail
+    ([1.0, float("inf"), 0.2], 2 * 4),  # inf exit, no tail
+])
+def test_chunks_tail_and_non_finite_exit(values, iters):
+    it, err, _ = chunks_both(values, 3, 4, 3, 1e-3)
+    assert it == iters
+
+
+def test_chunks_stall_window():
+    """A flat residual trips the stall window after `window` checks (and
+    skips the tail); with stall=None the loop runs the whole budget."""
+    flat = [1.0, 0.5] + [0.4] * 10
+    it, _, _ = chunks_both(flat, 10, 2, 1, 1e-3, stall=(0.96, 3))
+    assert it < 20
+    it, _, _ = chunks_both(flat, 10, 2, 1, 1e-3)
+    assert it == 21
+
+
+def test_chunks_marginal_threshold_compares_in_float32():
+    eps = 0.7
+    e32 = float(np.float32(eps))
+    assert e32 < eps
+    it, err, _ = chunks_both([1.0, e32, e32], 3, 2, 1, eps)
+    assert it == 7 and err == np.float32(eps)

@@ -4,7 +4,8 @@ mode: preset_multi(nx=15, float32, compat=False).replace(use_pallas=True)
 under NS3D_FUSED_INTERPRET=1, i.e. the folded Pallas Poisson kernel with
 the extended (hi, lo) accuracy phase on the K2 kernel, and the chained
 predict/correct/advect kernels. Also the gpu preset with accuracy
-'extended' and 'none'.
+'extended' and 'none', and without the hydrostatic split (the unsplit
+planes and pair BCs).
 
 Two regimes of the multi preset:
   eps_it=1e-3: phase 1 converges on its own and K2 never runs; the
@@ -86,6 +87,8 @@ def jax_runs():
             "multi 1e-9": _jax_steps(_with(multi, eps_it=1e-9), NSTEPS),
             "gpu extended": _jax_steps(_with(gpu, accuracy="extended"), 2),
             "gpu none": _jax_steps(_with(gpu, accuracy="none"), 2),
+            "gpu unsplit": _jax_steps(_with(gpu, pressure_split=False,
+                                            eps_it=5e-3), 2),
         }
     assert runs["multi 1e-3"][0].acc_pallas == "extended"
     return runs
@@ -97,7 +100,9 @@ def _port(name):
     cfg = {"multi 1e-3": multi,
            "multi 1e-9": _with(multi, eps_it=1e-9),
            "gpu extended": _with(gpu, accuracy="extended"),
-           "gpu none": _with(gpu, accuracy="none")}[name]
+           "gpu none": _with(gpu, accuracy="none"),
+           "gpu unsplit": _with(gpu, pressure_split=False,
+                                eps_it=5e-3)}[name]
     return nt.ChorinSolver(cfg, device="cpu")
 
 
@@ -228,6 +233,26 @@ def test_gpu_accuracy_setting_matches_jax(jax_runs, acc):
         assert (st.pr_lo is None) == (acc == "none")
         if acc == "extended":
             _check_state(s, st, divv, 1e-3)
+        _compare_pr(st.pr.numpy(), states[step + 1]["pr"], 1e-5,
+                    f"pr step {step}")
+
+
+def test_gpu_unsplit_matches_jax(jax_runs):
+    """The gpu preset without the hydrostatic split (the unsplit planes,
+    init and (hi, lo) pair BCs; the extended hybrid) at eps_it=5e-3, where
+    the unsplit float32 check value exits on eps_it and not at its noise
+    floor (tests/test_pallas.py:155-160): each step from the JAX state
+    takes the JAX counts (step 2 clamps 116 advection points), pr within
+    1e-5 of max|pr|."""
+    js, states, stats = jax_runs["gpu unsplit"]
+    s = _port("gpu unsplit")
+    assert not s.pressure_split and not js.pressure_split
+    assert s.acc == js.acc_pallas == "extended"
+    np.testing.assert_array_equal(s.init_state().pr.numpy(),
+                                  states[0]["pr"])
+    for step in range(2):
+        st, got = s.step(nt.state_from_numpy(states[step]))
+        assert _counts(got) == _counts(stats[step])
         _compare_pr(st.pr.numpy(), states[step + 1]["pr"], 1e-5,
                     f"pr step {step}")
 
