@@ -46,6 +46,20 @@ Phases (any failure exits non-zero; nothing is caught):
   8. reference: small grids on the card against the same solver's plain
      path on the CPU (the path the CPU tests hold against the JAX package):
      gpu nx=15, and multi nx=15 at eps_it=1e-9, where K2 runs
+  9. wide kernels: at the wide grid's 511x307x307 float32 shapes, K8 at
+     s = 2 and 3 with the gpu operator against its plain version and
+     against s K1 launches (bitwise), and one launch each of K1, K3, K4
+     and K5 against its plain version (the counterparts there of the JAX
+     package's lane-tiled K9a, K3t, K4t and K5t); phase 3 also holds K8 at
+     s = 2 on the 255 gpu and multi operators
+ 10. wide path: ChorinSolver(preset_gpu(nx=511, compat=False,
+     dtype='float32')) for 2 steps from init_state with the sweep plan on
+     (its default there: bodies of two K8 launches of s = 3), launch
+     counts set to 0 just before and read just after: K8, K1, K3, K4 and
+     K5 launched, no plain version ran; every solve converges, stored-state
+     err below eps_it, finite fields; step 1 again with the plan off must
+     take the same counts and give bitwise-equal pr and pr_lo; one more
+     step traced with torch.profiler
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -105,9 +119,16 @@ F32_FLOP_PER_S = 67e12
 # bytes for more than 5x as long as it computes, whatever the exact count
 FLOPS_PER_CELL = {"K1 poisson_iter": 22, "K2 poisson_iter_ext": 45,
                   "K3 predict": 71, "K4 correct": 12, "K5 advect": 50,
-                  "K7 poisson_iter_bc": 20}
+                  "K7 poisson_iter_bc": 20, "K8 poisson_iter_sweeps": 22}
+K1_NAME = "K1 poisson_iter"
 K2_NAME = "K2 poisson_iter_ext"
 K7_NAME = "K7 poisson_iter_bc"
+K8_NAME = "K8 poisson_iter_sweeps"
+# the wide grid of README.md's "Wide grids" (511x307x307), where the JAX
+# package lane-tiles its kernels and runs temporal 3-sweeps
+WIDE_NX = 511
+WIDE_STEPS = 2
+WIDE_SWEEPS = 3
 COMPAT_STEPS = 4
 # the golden configuration and its values, copied from tests/test_golden.py
 # (preset_multi(nx=63, nt=3), compat, float64, 3 steps from init_state):
@@ -171,15 +192,17 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(name: str, tensors_in, tensors_out, cells: int) -> dict:
+def bound(name: str, tensors_in, tensors_out, cells: int,
+          iters: int = 1) -> dict:
     """The least time the card could take for one launch: each distinct
     input read once and each output written once over the HBM rate,
-    against the float32 operations over the float32 rate."""
+    against the float32 operations (of `iters` iterations per cell) over
+    the float32 rate."""
     distinct_in = {id(t): t for t in tensors_in}.values()
     nbytes = sum(t.numel() * t.element_size() for t in distinct_in) + sum(
         t.numel() * t.element_size() for t in tensors_out)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = FLOPS_PER_CELL[name] * cells / F32_FLOP_PER_S * 1e3
+    t_ops = FLOPS_PER_CELL[name] * iters * cells / F32_FLOP_PER_S * 1e3
     return {"bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -246,6 +269,59 @@ def check_k1(op, pr, dpr0, rhs, label) -> tuple:
     return worst, ms, plain_ms
 
 
+def check_k8(op, pr, dpr0, rhs, s, label) -> dict:
+    """K8 at depth s against its plain version (MAX_ULP) and against s K1
+    launches (bitwise, check value equal), with and without the check
+    reduction; then its time, the plain version's and that of s K1
+    launches, and its bound."""
+    worst_ulp, worst = 0, 0.0
+    for check in (False, True):
+        po, do = (torch.full_like(pr, float("nan")) for _ in range(2))
+        ek = k_poisson.poisson_iter_sweeps(pr, dpr0, rhs, po, do, op, s,
+                                           check)
+        pp, dp = torch.empty_like(pr), torch.empty_like(pr)
+        ep = k_poisson.poisson_iter_sweeps_plain(pr, dpr0, rhs, pp, dp, op,
+                                                 s, check)
+        p, d, e1 = pr.clone(), dpr0.clone(), None
+        for j in range(s):
+            q = torch.empty_like(pr)
+            e1 = k_poisson.poisson_iter(p, q, d, rhs, op,
+                                        check and j == s - 1)
+            p = q
+        torch.cuda.synchronize()
+        worst_ulp = max(worst_ulp, max_ulp(po, pp), max_ulp(do, dp))
+        worst = max(worst, max_abs(((po, pp), (do, dp))))
+        require(torch.equal(po.view(torch.int32), p.view(torch.int32))
+                and torch.equal(do.view(torch.int32), d.view(torch.int32)),
+                f"K8 s={s} ({label}) differs from {s} K1 launches")
+        if check:
+            vk, vp, v1 = float(ek), float(ep), float(e1)
+            require(vk == vp == v1, f"K8 s={s} ({label}) check err {vk}, "
+                    f"plain {vp}, K1 {v1}")
+        del p, d, q, pp, dp
+    require(worst_ulp <= MAX_ULP,
+            f"K8 s={s} ({label}) differs by {worst_ulp} ulp")
+    po, do = torch.empty_like(pr), torch.empty_like(pr)
+    ms = cuda_ms(lambda: k_poisson.poisson_iter_sweeps(
+        pr, dpr0, rhs, po, do, op, s, False), 20)
+    ms_chk = cuda_ms(lambda: k_poisson.poisson_iter_sweeps(
+        pr, dpr0, rhs, po, do, op, s, True), 10)
+    plain_ms = cuda_ms(lambda: k_poisson.poisson_iter_sweeps_plain(
+        pr, dpr0, rhs, po, do, op, s, False), 5)
+    pa, da = torch.empty_like(pr), dpr0.clone()
+    k1_ms = cuda_ms(lambda: k_poisson.poisson_iter(pr, pa, da, rhs, op,
+                                                   False), 20)
+    b = bound(K8_NAME, (pr, dpr0, rhs), (po, do), pr.numel(), iters=s)
+    print(f"[kernels] {K8_NAME} s={s} ({label}): max ulp {worst_ulp}, "
+          f"bitwise equal to {s} K1 launches; {ms:.4f} ms (check "
+          f"{ms_chk:.4f} ms) = {ms / s:.4f} ms per iteration against K1's "
+          f"{k1_ms:.4f} ms; plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f}"
+          f" ms ({b['bound_by']}, {b['bytes'] / 1e6:.1f} MB), kernel at "
+          f"{100 * b['bound_ms'] / ms:.1f}% of it")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, k1_ms=k1_ms,
+                **b)
+
+
 def phase_kernels(gpu, multi) -> dict:
     """Each kernel against its plain version on identical inputs, at the
     main paths' shapes."""
@@ -269,6 +345,11 @@ def phase_kernels(gpu, multi) -> dict:
     results["K1 poisson_iter"] = dict(
         max_abs_err=max(err, err_m), ms=ms, plain_ms=plain_ms,
         **bound("K1 poisson_iter", (pr, dpr0, rhs), (pr, dpr0), cells))
+    # K8 at s = 2 (the function of the untiled two-sweep K8b) with both
+    # operators; its row's main numbers come from the wide phase
+    results[K8_NAME] = {"at_255_s2": {
+        label: check_k8(solver._op, pr, dpr0, rhs, 2, f"{label} operator")
+        for label, solver in (("gpu", gpu), ("multi", multi))}}
 
     # K2 at the multi preset's shapes: a seeded (hi, lo) pair with lo at
     # the rounding level of hi, with and without the check reduction
@@ -379,6 +460,8 @@ def phase_kernels(gpu, multi) -> dict:
         bound_ms=sum(b["bound_ms"] for b in per) / 4,
         bound_by=per[0]["bound_by"])
     for name, r in results.items():
+        if name == K8_NAME:
+            continue
         print(f"[kernels] {name}: bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB per launch"
               f"{', the mean of the four' if name == 'K5 advect' else ''}); "
@@ -424,15 +507,17 @@ def phase_k7(solvers) -> dict:
     return {K7_NAME: r}
 
 
-def run_steps(solver, nsteps: int, label: str, ref_iters=None):
+def run_steps(solver, nsteps: int, label: str, ref_iters=None,
+              clamps_allowed: bool = False):
     """nsteps of a main path from init_state with the launch counts set to
-    0 just before and read just after. Returns (counts, iters, states)
-    with states[i] the state entering step i+1 (and the last one after)."""
+    0 just before and read just after. Returns (counts, iters, states,
+    stats) with states[i] the state entering step i+1 (and the last one
+    after) and stats[i] step i+1's StepStats."""
     g, eps_it = solver.grid, solver.cfg.numerics.eps_it
     state = solver.init_state()
     torch.cuda.synchronize()
     kernels.reset_counts()
-    wall, iters, ext, states = [], [], [], [state]
+    wall, iters, ext, states, all_stats = [], [], [], [state], []
     for step in range(nsteps):
         t0 = time.perf_counter()
         state, stats = solver.step(state)
@@ -441,6 +526,7 @@ def run_steps(solver, nsteps: int, label: str, ref_iters=None):
         iters.append(stats.iters)
         ext.append(stats.iters_ext)
         states.append(state)
+        all_stats.append(stats)
         ref = "" if ref_iters is None else f" (JAX {ref_iters[step]})"
         print(f"[{label}] step {step + 1}: iters {stats.iters}{ref} "
               f"iters_ext {stats.iters_ext} err {float(stats.err):.6e} "
@@ -451,7 +537,7 @@ def run_steps(solver, nsteps: int, label: str, ref_iters=None):
                 f"(err {stats.err})")
         require(stats.iters < g.niter,
                 f"{label} step {step + 1} used the whole budget {g.niter}")
-        require(stats.advect_clamped == 0,
+        require(clamps_allowed or stats.advect_clamped == 0,
                 f"{label} step {step + 1} clamped {stats.advect_clamped}")
         for name in ("pr", "vx", "vy", "vz", "c", "dprdtau", "pr_lo"):
             require(bool(torch.isfinite(getattr(state, name)).all()),
@@ -467,7 +553,7 @@ def run_steps(solver, nsteps: int, label: str, ref_iters=None):
         print(f"[{label}] {name}: {launches} launches, plain version "
               f"{plain} calls")
         require(plain == 0, f"{label}: {name} ran its plain version")
-    return counts, iters, states
+    return counts, iters, states, all_stats
 
 
 def stored_errs(solver, states, label, steps, required=True) -> list:
@@ -529,7 +615,7 @@ def profile_step(solver, state, label) -> None:
 
 
 def phase_gpu_path(solver) -> dict:
-    counts, iters, states = run_steps(solver, NSTEPS, "gpu", REF_ITERS)
+    counts, iters, states, _ = run_steps(solver, NSTEPS, "gpu", REF_ITERS)
     for name in ("K1 poisson_iter", "K3 predict", "K4 correct", "K5 advect"):
         require(counts[name][0] > 0, f"gpu: {name} never launched")
     stored_errs(solver, states, "gpu", [NSTEPS])
@@ -541,7 +627,7 @@ def phase_gpu_path(solver) -> dict:
 
 
 def phase_multi_paths(multi) -> list:
-    counts, _, states = run_steps(multi, NSTEPS, "multi")
+    counts, _, states, _ = run_steps(multi, NSTEPS, "multi")
     for name in ("K1 poisson_iter", K2_NAME, "K3 predict", "K4 correct",
                  "K5 advect"):
         require(counts[name][0] > 0, f"multi: {name} never launched")
@@ -551,8 +637,8 @@ def phase_multi_paths(multi) -> list:
     small = nt.ChorinSolver(nt.preset_multi(nx=MULTI_NX_SMALL,
                                             compat=False, dtype="float32"),
                             device="cuda")
-    counts63, iters, states = run_steps(small, MULTI_STEPS_SMALL,
-                                        "multi63", REF_ITERS_MULTI63)
+    counts63, iters, states, _ = run_steps(small, MULTI_STEPS_SMALL,
+                                           "multi63", REF_ITERS_MULTI63)
     stored_errs(small, states, "multi63", range(1, MULTI_STEPS_SMALL + 1),
                 required=False)
     for name in ("K1 poisson_iter", K2_NAME, "K3 predict", "K4 correct",
@@ -696,6 +782,149 @@ def phase_reference() -> None:
             "multi nx=15 eps_it=1e-9: K2 never launched")
 
 
+def phase_kernels_wide(wide, results) -> None:
+    """At the wide grid's shapes: K8 at s = 2 and 3 (its main numbers are
+    s = 3's, the depth the wide path runs), and one launch each of K1, K3,
+    K4 and K5 against its plain version (timed once: K5's plain version
+    takes ~0.2 s a launch there), into results[name]['wide']."""
+    rng = np.random.default_rng(2026)
+    g, k, masks = wide.grid, wide._consts, wide.masks
+    nx, ny, nz = g.nx, g.ny, g.nz
+    cells = nx * ny * nz
+    pr = wide.set_bc_pr(seeded(rng, nx, ny, nz, scale=50.0))
+    rhs = seeded(rng, nx, ny, nz, scale=1e5)
+    dpr0 = interior_seeded(rng, (nx, ny, nz), 1e3)
+    for s in (2, WIDE_SWEEPS):
+        r = check_k8(wide._op, pr, dpr0, rhs, s, f"{nx}, gpu operator")
+        results[K8_NAME][f"at_{nx}_s{s}"] = r
+    results[K8_NAME].update(results[K8_NAME][f"at_{nx}_s{WIDE_SWEEPS}"])
+
+    err, ms, plain_ms = check_k1(wide._op, pr, dpr0, rhs,
+                                 f"{nx}, gpu operator")
+    wide_rows = {K1_NAME: dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        **bound(K1_NAME, (pr, dpr0, rhs), (pr, dpr0), cells))}
+    del pr, rhs, dpr0
+
+    vx = seeded(rng, nx + 1, ny, nz, scale=0.5) + 1.0
+    vy = seeded(rng, nx, ny + 1, nz, scale=0.3)
+    vz = seeded(rng, nx, ny, nz + 1, scale=0.3)
+    pr = seeded(rng, nx, ny, nz, scale=50.0)
+    mask_bytes = (masks.mask_vx, masks.mask_vy, masks.mask_vz)
+    a = k_step.predict(vx, vy, vz, masks, k)
+    b = k_step.predict_plain(vx, vy, vz, masks, k)
+    u = max(max_ulp(x, y) for x, y in zip(a[:3], b[:3]))
+    dv_abs = float((a[3] - b[3]).abs().max())
+    dv_tol = 8 * 1.2e-7 * float(b[3].abs().max())
+    require(u <= MAX_ULP, f"K3 at {nx}: velocities differ by {u} ulp")
+    require(dv_abs <= dv_tol, f"K3 at {nx}: divv differs by {dv_abs}")
+    wide_rows["K3 predict"] = dict(
+        max_abs_err=max_abs(zip(a, b)),
+        ms=cuda_ms(lambda: k_step.predict(vx, vy, vz, masks, k), 5),
+        plain_ms=cuda_ms(lambda: k_step.predict_plain(vx, vy, vz, masks, k),
+                         1, warmup=0),
+        **bound("K3 predict", (vx, vy, vz, *mask_bytes), a, cells))
+    print(f"[wide kernels] K3 predict: max ulp {u} divv abs {dv_abs:.3e} "
+          f"(tol {dv_tol:.3e})")
+    del a, b
+    a = k_step.correct(vx, vy, vz, pr, masks, k)
+    b = k_step.correct_plain(vx, vy, vz, pr, masks, k)
+    u = max(max_ulp(x, y) for x, y in zip(a, b))
+    require(u <= MAX_ULP, f"K4 at {nx}: differs by {u} ulp")
+    wide_rows["K4 correct"] = dict(
+        max_abs_err=max_abs(zip(a, b)),
+        ms=cuda_ms(lambda: k_step.correct(vx, vy, vz, pr, masks, k), 5),
+        plain_ms=cuda_ms(lambda: k_step.correct_plain(vx, vy, vz, pr, masks,
+                                                      k), 1, warmup=0),
+        **bound("K4 correct", (vx, vy, vz, pr, *mask_bytes), a, cells))
+    print(f"[wide kernels] K4 correct: max ulp {u}")
+    del a, b
+    c = torch.tensor(rng.uniform(size=(nx, ny, nz)).astype(np.float32),
+                     device="cuda")
+    fields = (vx, vy, vz, c)
+    ncl = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    ncl_plain, worst, ms, plain_ms = 0, 0.0, 0.0, 0.0
+    for name, f in zip(("vx", "vy", "vz", "c"), fields):
+        a = k_advect.advect_branch(name, f, vx, vy, vz, k, wide.advect_k,
+                                   ncl)
+        b, ncl_b = k_advect.advect_branch_plain(name, f, vx, vy, vz, k,
+                                                wide.advect_k)
+        ncl_plain += int(ncl_b.item())
+        d = float((a - b).abs().max())
+        require(d <= K5_ABS_TOL, f"K5 {name} at {nx}: differs by {d}")
+        worst = max(worst, d)
+        ms += cuda_ms(lambda: k_advect.advect_branch(
+            name, f, vx, vy, vz, k, wide.advect_k), 5) / 4
+        plain_ms += cuda_ms(lambda: k_advect.advect_branch_plain(
+            name, f, vx, vy, vz, k, wide.advect_k), 1, warmup=0) / 4
+        del a, b
+    require(int(ncl.item()) == ncl_plain,
+            f"K5 at {nx}: clamp count {int(ncl.item())} vs plain {ncl_plain}")
+    print(f"[wide kernels] K5 advect: clamped {ncl_plain} in both")
+    per = [bound("K5 advect", (f, vx, vy, vz), (f,), f.numel())
+           for f in fields]
+    wide_rows["K5 advect"] = dict(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+        bytes=sum(b["bytes"] for b in per) / 4,
+        bound_ms=sum(b["bound_ms"] for b in per) / 4,
+        bound_by=per[0]["bound_by"])
+    for name, r in wide_rows.items():
+        print(f"[wide kernels] {name} at {nx}x{ny}x{nz}: max abs "
+              f"{r['max_abs_err']:.3e}; {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB per launch"
+              f"{', the mean of the four' if name == 'K5 advect' else ''});"
+              f" kernel at {100 * r['bound_ms'] / r['ms']:.1f}% of it")
+        results[name]["wide"] = r
+
+
+def phase_wide_path(wide, smi) -> dict:
+    """The wide grid's main path: WIDE_STEPS steps with the sweep plan on
+    (its default there), then step 1 again with it off, then a traced
+    step."""
+    g = wide.grid
+    budget = (g.niter // g.nchk) * g.nchk
+    s = wide._sweep_plan(budget)
+    print(f"[wide] grid {g.nx}x{g.ny}x{g.nz} float32, niter {g.niter}, nchk "
+          f"{g.nchk}, accuracy phase {wide.acc}, sweep depths "
+          f"{wide._sweep_depths}, plan: bodies of two K8 launches of s={s} "
+          f"({smi})")
+    require(s == WIDE_SWEEPS, f"wide: sweep plan s={s}")
+    counts, iters, states, stats = run_steps(wide, WIDE_STEPS, "wide",
+                                             clamps_allowed=True)
+    for name in (K8_NAME, K1_NAME, "K3 predict", "K4 correct", "K5 advect"):
+        require(counts[name][0] > 0, f"wide: {name} never launched")
+    for step in range(WIDE_STEPS):
+        print(f"[wide] step {step + 1}: K8 bodies of {2 * s} iterations, "
+              f"advect_clamped {stats[step].advect_clamped}")
+    stored_errs(wide, states, "wide", range(1, WIDE_STEPS + 1))
+    # step 1 with the plan off: K1 bodies, the same iterations
+    depths, wide._sweep_depths = wide._sweep_depths, ()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    st, st_stats = wide.step(states[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wide._sweep_depths = depths
+    k8 = next(kk for kk in kernels.KERNELS if kk.name == K8_NAME)
+    require(k8.wrapper.launches == 0, "wide: K8 launched with the plan off")
+    print(f"[wide] step 1 with the plan off: iters {st_stats.iters} "
+          f"iters_ext {st_stats.iters_ext}, {wall:.3f} s, "
+          f"{st_stats.iters / wall:.1f} Poisson iterations/s ({smi})")
+    require((st_stats.iters, st_stats.iters_ext)
+            == (stats[0].iters, stats[0].iters_ext),
+            f"wide: plan off took {st_stats.iters}/{st_stats.iters_ext}, "
+            f"plan on {stats[0].iters}/{stats[0].iters_ext}")
+    for name in ("pr", "pr_lo"):
+        a, b = getattr(st, name), getattr(states[1], name)
+        require(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                f"wide: {name} with the plan off differs")
+    print("[wide] plan off: equal counts, pr and pr_lo bitwise equal")
+    del st
+    profile_step(wide, states[-1], "wide")
+    return counts
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -722,15 +951,31 @@ def main() -> int:
     runs += [phase_compat(s, f"{s.cfg.variant} compat") for s in compat]
     phase_golden()
     phase_reference()
+    del gpu, multi, compat
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wide = nt.ChorinSolver(nt.preset_gpu(nx=WIDE_NX, compat=False,
+                                         dtype="float32"), device="cuda")
+    phase_kernels_wide(wide, results)
+    runs.append(phase_wide_path(wide, smi))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[wide] peak device memory {peak:.2f} GB ({smi})")
     rows = []
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     for kk in kernels.KERNELS:
         r = results[kk.name]
-        rows.append({"name": kk.name, "route": "cuda", "source": kk.source,
-                     "replaces": kk.replaces,
-                     "launches": sum(c[kk.name][0] for c in runs),
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": None})
+        row = {"name": kk.name, "route": "cuda", "source": kk.source,
+               "replaces": kk.replaces,
+               "launches": sum(c[kk.name][0] for c in runs),
+               **{key: r[key] for key in keys}, "library_ms": None}
+        # the wide grid's numbers (K8's main ones are s=3 at 511; its s=2
+        # numbers at 255 go beside them)
+        if "wide" in r:
+            row["wide"] = {key: r["wide"][key] for key in keys}
+        if "at_255_s2" in r:
+            row["at_255_s2"] = {label: {key: v[key] for key in keys}
+                                for label, v in r["at_255_s2"].items()}
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,8 +45,34 @@
 // reads each input once from DRAM (the +-1 neighbors of a warp's z-run hit
 // L1/L2: the y and x neighbors were just read by adjacent warps and
 // planes), keeps no intermediate in memory, and skips the reduction on the
-// iterations that are not checked. Temporal blocking (several iterations
-// per round trip, the TPU's K8) is later work.
+// iterations that are not checked.
+//
+// K8 replaces the Pallas kernels of navierstokes3d_tpu/kernels/poisson.py:836
+// (`mk_sweep_fn`'s `kernelS` :756, the lane-tiled s-sweep) and :1007
+// (`kernel2` :967, the untiled two-sweep): s chained folded iterations per
+// device-memory round trip (temporal blocking), 2 <= s <= 4. Per cell and
+// per sweep the arithmetic is K1's exactly (lap_folded, resid,
+// dpr*decay + dtau*resid, pc + dtau*d; off the interior d = 0 and
+// pc + dtau*0.0f at EVERY sweep), so one launch is bitwise equal to s K1
+// launches. The check value is the residual entering the LAST sweep,
+// reduced over each tile's own interior cells (a recomputed halo cell
+// holds partial data and never enters the max): the value the s-th K1
+// launch would emit. Design: streaming along x (a 2.5-D form of temporal
+// blocking). A block owns 16 rows in y and 32 - 2s lanes in z (with s halo
+// rows and lanes per side, so a row of the region is one warp) and 32
+// planes in x. It walks its planes in order: each step loads the next
+// plane of pr, dpr and rhs with cp.async while it computes, in shared
+// memory, level j of the plane j behind it, for j = 1..s. Level j of a
+// plane needs level j-1 of the planes on either side, so each level keeps
+// a ring of three planes (pr), and a plane's dpr is updated in place by
+// each level in turn; level s goes to pr_out and dpr_out. The y and z
+// halo shrinks by one per level; the only x halo is the s planes a block
+// recomputes at each end of its 32. Both outputs ping-pong: neighbouring
+// blocks read the inputs over their halos, so neither output may alias an
+// input. The bytes bound is K1's (5 x 4 B per cell) for s iterations;
+// this design is bound instead by the s + 1 barriers per plane and the
+// recomputed halo (a ghost-zone form, which recomputes the x halo of
+// every small tile too, was slower; PERF.md).
 //
 // K7 replaces the Pallas kernel of navierstokes3d_tpu/kernels/poisson.py:914
 // built with folded=False (`kernel` :872, `compute_slab` :334,
@@ -72,6 +98,8 @@
 // writes every cell of both outputs. It reduces nothing: compat's check
 // value is a separate residual evaluation (torch ops), once per chunk.
 // Bound: device-memory bytes, as K1 (~120 MB per launch at 255x153x153).
+#include <cuda_pipeline.h>
+
 #include "common.cuh"
 
 namespace {
@@ -83,18 +111,31 @@ struct Weights {
   const float* zm;
 };
 
-// The folded Laplacian of p at interior cell i = (x, y, z) in
-// lap_of_rows_folded's order; pc = p[i].
-__device__ inline float lap_folded(const float* __restrict__ p, long i,
-                                   long sx, int nz, int y, int z, float pc,
-                                   bool drop_xm, float inv_dx2,
-                                   const Weights& w) {
-  const float xp = p[i + sx] - pc;
-  const float xm = drop_xm ? 0.0f : p[i - sx] - pc;
+// The folded Laplacian at an interior cell in lap_of_rows_folded's order,
+// from its value pc, its six neighbours' values and its weights wyp..wzm
+// (its entries of the y and z weight rows); drop_xm replaces the x-1
+// term by 0 (a select, as the Pallas kernel does).
+__device__ inline float lap_folded(float xpv, float xmv, float ypv,
+                                   float ymv, float zpv, float zmv, float pc,
+                                   bool drop_xm, float inv_dx2, float wyp,
+                                   float wym, float wzp, float wzm) {
+  const float xp = xpv - pc;
+  const float xm = drop_xm ? 0.0f : xmv - pc;
   float lap = (xp + xm) * inv_dx2;
-  lap = lap + ((p[i + nz] - pc) * w.yp[y] + (p[i - nz] - pc) * w.ym[y]);
-  lap = lap + ((p[i + 1] - pc) * w.zp[z] + (p[i - 1] - pc) * w.zm[z]);
+  lap = lap + ((ypv - pc) * wyp + (ymv - pc) * wym);
+  lap = lap + ((zpv - pc) * wzp + (zmv - pc) * wzm);
   return lap;
+}
+
+// lap_folded at interior cell i of a canonical field p (x-stride sx,
+// y-stride sy), at (y, z) for the weight rows.
+__device__ inline float lap_folded_at(const float* __restrict__ p, long i,
+                                      long sx, int sy, int y, int z,
+                                      float pc, bool drop_xm, float inv_dx2,
+                                      const Weights& w) {
+  return lap_folded(p[i + sx], p[i - sx], p[i + sy], p[i - sy], p[i + 1],
+                    p[i - 1], pc, drop_xm, inv_dx2, w.yp[y], w.ym[y],
+                    w.zp[z], w.zm[z]);
 }
 
 __device__ inline bool interior(int x, int y, int z, int nx, int ny,
@@ -117,8 +158,8 @@ __global__ void poisson_iter_kernel(
     const float pc = pr[i];
     if (interior(x, y, z, nx, ny, nz)) {
       const long sx = static_cast<long>(ny) * nz;
-      const float lap = lap_folded(pr, i, sx, nz, y, z, pc,
-                                   zero_grad_x && x == 1, inv_dx2, w);
+      const float lap = lap_folded_at(pr, i, sx, nz, y, z, pc,
+                                      zero_grad_x && x == 1, inv_dx2, w);
       const float resid = lap - rhs[i];
       const float d = dpr[i] * decay + dtau * resid;
       dpr[i] = d;
@@ -150,10 +191,10 @@ __global__ void poisson_iter_ext_kernel(
     if (interior(x, y, z, nx, ny, nz)) {
       const long sx = static_cast<long>(ny) * nz;
       const bool drop_xm = zero_grad_x && x == 1;
-      const float lap_h = lap_folded(hi, i, sx, nz, y, z, hc, drop_xm,
-                                     inv_dx2, w);
-      const float lap_l = lap_folded(lo, i, sx, nz, y, z, lc, drop_xm,
-                                     inv_dx2, w);
+      const float lap_h = lap_folded_at(hi, i, sx, nz, y, z, hc, drop_xm,
+                                        inv_dx2, w);
+      const float lap_l = lap_folded_at(lo, i, sx, nz, y, z, lc, drop_xm,
+                                        inv_dx2, w);
       const float resid = (lap_h - rhs[i]) + lap_l;
       d = dpr[i] * decay + dtau * resid;
       bits = __float_as_uint(fabsf(resid));
@@ -167,6 +208,166 @@ __global__ void poisson_iter_ext_kernel(
     lo_out[i] = (hc - ap) + (u - bp);
   }
   if (err_bits != nullptr) ns3d::block_max_to(bits, err_bits);
+}
+
+// K8's tile: a block owns kSweepTileY rows in y, 32 - 2S lanes in z (the
+// row plus S halo lanes per side is one warp) and kSweepSegX planes in x,
+// which it streams through plane by plane.
+constexpr int kSweepTileY = 16;
+constexpr int kSweepSegX = 32;
+
+// Shared-memory layout of one K8 block at depth S, in planes of
+// (kSweepTileY + 2S) rows x 32 lanes: the ring of level-0 pr planes (the
+// three a level-1 plane reads, and the one being loaded), a ring of three
+// per level 1..S-1, and rings of S + 2 planes of dpr and rhs (a plane's
+// dpr is updated in place by each level, S steps after its load).
+template <int S>
+struct SweepLayout {
+  static constexpr int rows = kSweepTileY + 2 * S;
+  static constexpr int plane = rows * 32;
+  static constexpr int p0_slots = 4;
+  static constexpr int dr_slots = S + 2;
+  static constexpr int planes = p0_slots + 3 * (S - 1) + 2 * dr_slots;
+  static constexpr size_t bytes = sizeof(float) * plane * planes;
+};
+
+// ring slot of plane x in a ring of n planes; x >= -S >= -4 and 60 is a
+// multiple of every ring size (3, 4 and S + 2 <= 6), so the slot is the
+// plane's residue however negative x is
+__device__ inline int ring_slot(int x, int n) { return (x + 60) % n; }
+
+// S is a template parameter so that the ring sizes and row counts are
+// constants: the loops unroll and the slot arithmetic folds.
+template <int S>
+__global__ void __launch_bounds__(ns3d::kBlockThreads) poisson_sweeps_kernel(
+    const float* __restrict__ pr, const float* __restrict__ dpr,
+    const float* __restrict__ rhs, float* __restrict__ pr_out,
+    float* __restrict__ dpr_out, Weights w, float inv_dx2, float dtau,
+    float decay, int zero_grad_x, int nx, int ny, int nz,
+    unsigned int* __restrict__ err_bits) {
+  using L = SweepLayout<S>;
+  constexpr int step = ns3d::kBlockY;  // row step of a block's warps
+  extern __shared__ float smem[];
+  float* const p0 = smem;                           // level 0
+  float* const pl = p0 + L::p0_slots * L::plane;    // levels 1..S-1
+  float* const sd = pl + 3 * (S - 1) * L::plane;    // dpr
+  float* const sr = sd + L::dr_slots * L::plane;    // rhs
+  const int lz = threadIdx.x;
+  const int xb = blockIdx.z * kSweepSegX;           // the block's planes
+  const int xe = min(xb + kSweepSegX, nx);
+  const int y0 = blockIdx.y * kSweepTileY - S;      // region's first row
+  const int gz = blockIdx.x * (32 - 2 * S) - S + lz;
+  const bool z_in = gz >= 0 && gz < nz;
+  const long sx = static_cast<long>(ny) * nz;
+  // the pr plane x of level j (0 <= j < S) in its ring
+  auto level = [&](int j, int x) -> float* {
+    return j == 0 ? p0 + ring_slot(x, L::p0_slots) * L::plane
+                  : pl + ((j - 1) * 3 + ring_slot(x, 3)) * L::plane;
+  };
+  // level j covers the planes [xb - (S - j), xe + (S - j)) of the domain
+  auto covers = [&](int j, int x) {
+    return x >= 0 && x < nx && x >= xb - (S - j) && x < xe + (S - j);
+  };
+  // level-0 plane x with its dpr and rhs, all in flight at once (cp.async)
+  auto load = [&](int x) {
+    if (!covers(0, x)) return;
+    float* const pp = level(0, x);
+    float* const dd = sd + ring_slot(x, L::dr_slots) * L::plane;
+    float* const rr = sr + ring_slot(x, L::dr_slots) * L::plane;
+    for (int r = threadIdx.y; r < L::rows; r += step) {
+      const int gy = y0 + r;
+      if (!z_in || gy < 0 || gy >= ny) continue;
+      const long i = x * sx + static_cast<long>(gy) * nz + gz;
+      const int l = r * 32 + lz;
+      __pipeline_memcpy_async(&pp[l], &pr[i], sizeof(float));
+      __pipeline_memcpy_async(&dd[l], &dpr[i], sizeof(float));
+      __pipeline_memcpy_async(&rr[l], &rhs[i], sizeof(float));
+    }
+  };
+  // the lane's z weights, constant over the block
+  const float wzp = z_in ? w.zp[gz] : 0.0f;
+  const float wzm = z_in ? w.zm[gz] : 0.0f;
+  load(xb - S);
+  __pipeline_commit();
+  unsigned int bits = 0u;
+  // step t loads plane t + 1 and computes level j of plane t - j: level j
+  // reads level j-1's planes t-j-1, t-j and t-j+1, the last one computed
+  // (or loaded) just before it in the same step
+  for (int t = xb - S; t < xe + S; ++t) {
+    __syncthreads();  // step t-1 is done with the slots load(t+1) fills
+    load(t + 1);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);
+    __syncthreads();  // every thread's copies of plane t have landed
+#pragma unroll
+    for (int j = 1; j <= S; ++j) {
+      const int x = t - j;
+      const bool last = j == S;
+      const bool z_live = z_in && lz >= j && lz < 32 - j;
+      if (covers(j, x) && z_live) {
+        const float* const pm = level(j - 1, x - 1);
+        const float* const pc_row = level(j - 1, x);
+        const float* const pp = level(j - 1, x + 1);
+        float* const out = last ? nullptr : level(j, x);
+        float* const dd = sd + ring_slot(x, L::dr_slots) * L::plane;
+        const float* const rr = sr + ring_slot(x, L::dr_slots) * L::plane;
+        for (int r = j + threadIdx.y; r < L::rows - j; r += step) {
+          const int gy = y0 + r;
+          if (gy < 0 || gy >= ny) continue;
+          const int l = r * 32 + lz;
+          const float pc = pc_row[l];
+          float d = 0.0f;
+          float q;
+          if (interior(x, gy, gz, nx, ny, nz)) {
+            const float lap = lap_folded(
+                pp[l], pm[l], pc_row[l + 32], pc_row[l - 32], pc_row[l + 1],
+                pc_row[l - 1], pc, zero_grad_x && x == 1, inv_dx2, w.yp[gy],
+                w.ym[gy], wzp, wzm);
+            const float resid = lap - rr[l];
+            d = dd[l] * decay + dtau * resid;
+            q = pc + dtau * d;
+            if (last) {
+              const unsigned int b = __float_as_uint(fabsf(resid));
+              bits = b > bits ? b : bits;
+            }
+          } else {
+            q = pc + dtau * 0.0f;
+          }
+          if (last) {
+            const long i = x * sx + static_cast<long>(gy) * nz + gz;
+            pr_out[i] = q;
+            dpr_out[i] = d;
+          } else {
+            out[l] = q;
+            dd[l] = d;
+          }
+        }
+      }
+      if (!last) __syncthreads();  // level j+1 reads plane x of level j
+    }
+  }
+  if (err_bits != nullptr) ns3d::block_max_to(bits, err_bits);
+}
+
+// One K8 launch at depth S (above 48 KB a block's dynamic shared memory
+// must be allowed explicitly).
+template <int S>
+cudaError_t launch_sweeps(const float* pr, const float* dpr, const float* rhs,
+                          float* pr_out, float* dpr_out, const Weights& w,
+                          float inv_dx2, float dtau, float decay,
+                          int zero_grad_x, int nx, int ny, int nz,
+                          unsigned int* err_bits, cudaStream_t stream) {
+  constexpr size_t smem = SweepLayout<S>::bytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      poisson_sweeps_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  constexpr int tz = 32 - 2 * S;
+  const dim3 grid((nz + tz - 1) / tz, (ny + kSweepTileY - 1) / kSweepTileY,
+                  (nx + kSweepSegX - 1) / kSweepSegX);
+  const dim3 block = ns3d::block_shape();
+  poisson_sweeps_kernel<S><<<grid, block, smem, stream>>>(pr, dpr, rhs, pr_out, dpr_out, w, inv_dx2, dtau, decay, zero_grad_x, nx, ny, nz, err_bits);
+  return cudaGetLastError();
 }
 
 struct BCConsts {
@@ -264,6 +465,31 @@ extern "C" int ns3d_poisson_iter_ext(const float* hi, const float* lo,
   const Weights w{wyp, wym, wzp, wzm};
   poisson_iter_ext_kernel<<<grid, block, 0, stream>>>(hi, lo, hi_out, lo_out, dpr, rhs, w, inv_dx2, dtau, decay, zero_grad_x, nx, ny, nz, err_bits);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ns3d_poisson_iter_sweeps(
+    const float* pr, const float* dpr, const float* rhs, float* pr_out,
+    float* dpr_out, const float* wyp, const float* wym, const float* wzp,
+    const float* wzm, float inv_dx2, float dtau, float decay,
+    int zero_grad_x, int nx, int ny, int nz, int s, unsigned int* err_bits,
+    cudaStream_t stream) {
+  const Weights w{wyp, wym, wzp, wzm};
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (s) {
+    case 2:
+      e = launch_sweeps<2>(pr, dpr, rhs, pr_out, dpr_out, w, inv_dx2, dtau,
+                           decay, zero_grad_x, nx, ny, nz, err_bits, stream);
+      break;
+    case 3:
+      e = launch_sweeps<3>(pr, dpr, rhs, pr_out, dpr_out, w, inv_dx2, dtau,
+                           decay, zero_grad_x, nx, ny, nz, err_bits, stream);
+      break;
+    case 4:
+      e = launch_sweeps<4>(pr, dpr, rhs, pr_out, dpr_out, w, inv_dx2, dtau,
+                           decay, zero_grad_x, nx, ny, nz, err_bits, stream);
+      break;
+  }
+  return static_cast<int>(e);
 }
 
 extern "C" int ns3d_poisson_iter_bc(const float* pr, const float* dpr,

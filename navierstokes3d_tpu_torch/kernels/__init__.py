@@ -44,6 +44,10 @@ KERNELS = (
     Kernel("K7 poisson_iter_bc", "navierstokes3d_tpu_torch/csrc/poisson.cu",
            "navierstokes3d_tpu/kernels/poisson.py:914",
            poisson.poisson_iter_bc, poisson.poisson_iter_bc_plain),
+    Kernel("K8 poisson_iter_sweeps",
+           "navierstokes3d_tpu_torch/csrc/poisson.cu",
+           "navierstokes3d_tpu/kernels/poisson.py:836 (K8a), :1007 (K8b)",
+           poisson.poisson_iter_sweeps, poisson.poisson_iter_sweeps_plain),
 )
 
 

@@ -49,6 +49,10 @@ SIGNATURES = {
     # decay, zero_grad_x, nx, ny, nz, err_bits (nullable), stream
     "ns3d_poisson_iter_ext": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
                               _F, _F, _I, _I, _I, _I, _P, _P),
+    # pr, dpr, rhs, pr_out, dpr_out, wyp, wym, wzp, wzm, inv_dx2, dtau,
+    # decay, zero_grad_x, nx, ny, nz, s, err_bits (nullable), stream
+    "ns3d_poisson_iter_sweeps": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F,
+                                 _F, _I, _I, _I, _I, _I, _P, _P),
     # pr, dpr, rhs, pr_out, dpr_out, xlo (nullable), xhi (nullable),
     # inv_dx2, inv_dy2, inv_dz2, dtau, decay, z_lo_add, z_hi_add,
     # zero_grad_x, nx, ny, nz, stream

@@ -1,10 +1,11 @@
-"""K1, the folded-BC pseudo-transient Poisson iteration, K2, its
-double-single (hi, lo) form, K7, the iteration with the boundary
-conditions applied in-kernel (compat mode), and the residual evaluations
-of the Poisson solve.
+"""K1, the folded-BC pseudo-transient Poisson iteration, K8, s of them per
+launch, K2, its double-single (hi, lo) form, K7, the iteration with the
+boundary conditions applied in-kernel (compat mode), and the residual
+evaluations of the Poisson solve.
 
-`poisson_iter`, `poisson_iter_ext` and `poisson_iter_bc` launch the CUDA
-kernels of csrc/poisson.cu for CUDA tensors and run `poisson_iter_plain`,
+`poisson_iter`, `poisson_iter_sweeps`, `poisson_iter_ext` and
+`poisson_iter_bc` launch the CUDA kernels of csrc/poisson.cu for CUDA
+tensors and run `poisson_iter_plain`, `poisson_iter_sweeps_plain`,
 `poisson_iter_ext_plain` and `poisson_iter_bc_plain`, their plain PyTorch
 versions, for CPU tensors.
 K1 computes the Pallas kernel's iteration (navierstokes3d_tpu/kernels/
@@ -27,6 +28,12 @@ The caller's protocol is the JAX package's (its docstring at
 kernels/poisson.py:130-142): one exact first iteration plus set_bc_pr,
 the affine-z constants hoisted into the RHS, and the boundary planes
 materialized at the end.
+
+K8 (:836, `kernelS` :756, the lane-tiled s-sweep; :1007, `kernel2` :967,
+the untiled two-sweep) runs s of K1's iterations per launch with pr and
+dpr both ping-ponged, bitwise equal to s K1 launches, and emits the
+residual entering the last one: the check value the s-th K1 launch would
+emit, so the convergence loop takes the same decisions.
 
 K7 (:914 with folded=False, `compute_slab` :334, `apply_bc_rows` :257) is
 the reference's own loop body: the unfolded iteration on every interior
@@ -152,11 +159,10 @@ def _check_operands(op: PoissonOperator, shape, dev, **fields):
 
 # ---- K1: the iteration ----
 
-def poisson_iter_plain(pr, pr_out, dpr, rhs, op: PoissonOperator,
-                       check: bool) -> Optional[torch.Tensor]:
-    """Plain PyTorch version of K1 (same arguments and effects as
-    poisson_iter)."""
-    poisson_iter_plain.calls += 1
+def _iter_math(pr, pr_out, dpr, rhs, op: PoissonOperator,
+               check: bool) -> Optional[torch.Tensor]:
+    """K1's arithmetic, uncounted (poisson_iter_plain and
+    poisson_iter_sweeps_plain)."""
     lap, pc = _lap_folded(pr, op)
     resid = lap - rhs[INNER]
     d = _update_dpr(dpr, resid, op)
@@ -164,6 +170,14 @@ def poisson_iter_plain(pr, pr_out, dpr, rhs, op: PoissonOperator,
     pr_out.copy_(pr)
     pr_out[INNER] = pc + op.dtau * d
     return torch.max(torch.abs(resid)) if check else None
+
+
+def poisson_iter_plain(pr, pr_out, dpr, rhs, op: PoissonOperator,
+                       check: bool) -> Optional[torch.Tensor]:
+    """Plain PyTorch version of K1 (same arguments and effects as
+    poisson_iter)."""
+    poisson_iter_plain.calls += 1
+    return _iter_math(pr, pr_out, dpr, rhs, op, check)
 
 
 poisson_iter_plain.calls = 0
@@ -200,6 +214,77 @@ def poisson_iter(pr, pr_out, dpr, rhs, op: PoissonOperator,
 
 
 poisson_iter.launches = 0
+
+
+# ---- K8: s folded iterations per launch ----
+
+MAX_SWEEPS = 4   # the depths ns3d_poisson_iter_sweeps instantiates: 2..4
+
+
+def _check_sweeps(s: int, name: str) -> None:
+    if not 2 <= s <= MAX_SWEEPS:
+        raise ValueError(f"{name}: s={s}, expected 2 <= s <= {MAX_SWEEPS}")
+
+
+def poisson_iter_sweeps_plain(pr, dpr, rhs, pr_out, dpr_out,
+                              op: PoissonOperator, s: int,
+                              check: bool) -> Optional[torch.Tensor]:
+    """Plain PyTorch version of K8 (same arguments and effects as
+    poisson_iter_sweeps): K1's arithmetic s times, dpr carried in
+    dpr_out."""
+    _check_sweeps(s, "poisson_iter_sweeps_plain")
+    poisson_iter_sweeps_plain.calls += 1
+    dpr_out.copy_(dpr)
+    spare = torch.empty_like(pr)
+    p = pr
+    for j in range(s):
+        # the last sweep lands in pr_out
+        dst = pr_out if (s - 1 - j) % 2 == 0 else spare
+        err = _iter_math(p, dst, dpr_out, rhs, op, check and j == s - 1)
+        p = dst
+    return err
+
+
+poisson_iter_sweeps_plain.calls = 0
+
+
+def poisson_iter_sweeps(pr, dpr, rhs, pr_out, dpr_out, op: PoissonOperator,
+                        s: int, check: bool) -> Optional[torch.Tensor]:
+    """s folded PT iterations (2 <= s <= 4) in one launch, bitwise equal to
+    s poisson_iter calls: reads pr, dpr and rhs and writes every cell of
+    pr_out and dpr_out, neither of which may alias an input (blocks read
+    the inputs over their halos). With check=True returns the max |resid|
+    over interior cells entering the LAST iteration (a 0-dim tensor on the
+    device), else None. CUDA tensors launch the kernel (or raise); CPU
+    tensors run the plain version."""
+    _check_sweeps(s, "poisson_iter_sweeps")
+    if not _build.on_cuda(pr, "poisson_iter_sweeps"):
+        return poisson_iter_sweeps_plain(pr, dpr, rhs, pr_out, dpr_out, op,
+                                         s, check)
+    dev = pr.device
+    _check_operands(op, pr.shape, dev, pr=pr, dpr=dpr, rhs=rhs,
+                    pr_out=pr_out, dpr_out=dpr_out)
+    outs = {pr_out.data_ptr(), dpr_out.data_ptr()}
+    if len(outs) != 2 or outs & {pr.data_ptr(), dpr.data_ptr(),
+                                 rhs.data_ptr()}:
+        raise ValueError("poisson_iter_sweeps: pr_out and dpr_out must be "
+                         "distinct and alias no input")
+    err = torch.zeros((1,), dtype=torch.int32, device=dev) if check else None
+    nx, ny, nz = pr.shape
+    lib = _build.load()
+    rc = lib.ns3d_poisson_iter_sweeps(
+        pr.data_ptr(), dpr.data_ptr(), rhs.data_ptr(), pr_out.data_ptr(),
+        dpr_out.data_ptr(), op.wyp.data_ptr(), op.wym.data_ptr(),
+        op.wzp.data_ptr(), op.wzm.data_ptr(), ctypes.c_float(op.inv_dx2),
+        ctypes.c_float(op.dtau), ctypes.c_float(op.decay),
+        int(op.zero_grad_x), nx, ny, nz, s, _build.ptr(err),
+        _build.stream_of(pr))
+    _build.check(rc, "poisson_iter_sweeps")
+    poisson_iter_sweeps.launches += 1
+    return err.view(torch.float32)[0] if check else None
+
+
+poisson_iter_sweeps.launches = 0
 
 
 # ---- K2: the double-single iteration ----

@@ -18,7 +18,11 @@ and NavierStokes3D_multi_gpu.jl:383-444):
                   the double-single (hi, lo) iteration (K2) from lo = 0;
        'none':    K1 alone over the whole budget;
      the first two end with the stored-state guarantee and the stored
-     (hi, lo) pressure pair
+     (hi, lo) pressure pair. On wide grids (where the JAX package's TPU
+     build lane-tiles the iteration: 511x307x307) the folded loops run
+     bodies of two K8 launches of s = 3 (or 2) iterations each instead
+     of one K1, with the same iterations and check values
+     (`sweep_depths`, `_sweep_plan`)
   3. fused corrector + cylinder mask + the variant's velocity BCs (K4)
   4. four semi-Lagrangian advection branches (K5)
 
@@ -66,6 +70,27 @@ from ..ptloop import host_scalar, np_float, pt_loop, pt_loop_fused
 from ..state import FlowState, StepStats, zeros_state
 
 INNER = (slice(1, -1),) * 3
+# the JAX package's default temporal-sweep depth (kernels/poisson.py SWD)
+SWEEP_DEPTH = 3
+
+
+def sweep_depths(ny: int, nz: int) -> Tuple[int, ...]:
+    """The sweep depths s the folded loops may run K8 at, by the JAX
+    package's default (kernels/poisson.py:174-193 and :856-866,
+    models/chorin.py:556-593): temporal sweeps are on exactly where its
+    TPU build lane-tiles the folded iteration (rows of W = round_up(ny*nz,
+    128) > 2**15 lanes, T = round(W/24576) >= 2 tiles, not degenerate),
+    at the depths 2..SWEEP_DEPTH whose reach s*(nz+1) fits the tile halo.
+    () means sweeps off."""
+    nyz = ny * nz
+    w = -(-nyz // 128) * 128
+    t = max(1, round(w / 24576)) if w > (1 << 15) else 1
+    if t < 2:
+        return ()
+    hw = -(-SWEEP_DEPTH * (nz + 1) // 128) * 128
+    if -(-nyz // (t * hw)) * hw < hw:
+        return ()
+    return tuple(s for s in range(2, SWEEP_DEPTH + 1) if s * (nz + 1) <= hw)
 
 
 def _two_sum(a, b):
@@ -138,10 +163,16 @@ class ChorinSolver:
                                           self.pressure_split),
                 grid, self.device)
         kp = k_poisson
-        self._poisson_iter, self._poisson_iter_ext, self._poisson_iter_bc = (
-            (kp.poisson_iter_plain, kp.poisson_iter_ext_plain,
-             kp.poisson_iter_bc_plain) if self.plain else
-            (kp.poisson_iter, kp.poisson_iter_ext, kp.poisson_iter_bc))
+        (self._poisson_iter, self._poisson_iter_sweeps,
+         self._poisson_iter_ext, self._poisson_iter_bc) = (
+            (kp.poisson_iter_plain, kp.poisson_iter_sweeps_plain,
+             kp.poisson_iter_ext_plain, kp.poisson_iter_bc_plain)
+            if self.plain else
+            (kp.poisson_iter, kp.poisson_iter_sweeps, kp.poisson_iter_ext,
+             kp.poisson_iter_bc))
+        # the sweep depths the folded loops may run K8 at; () keeps them on
+        # 1-iteration K1 bodies (the JAX default, see sweep_depths)
+        self._sweep_depths = sweep_depths(grid.ny, grid.nz)
         if cfg.compat:
             # the unfused chain of the JAX package's _step_impl, torch ops
             self._predict = k_step.predict_ops
@@ -364,20 +395,88 @@ class ChorinSolver:
             iters=it1, err=err1, err_hist=hist1)
 
     def _kernel_chain(self, rhs, err_scale) -> Callable:
-        """Loop body of one K1 iteration on a ping-pong carry (p_in, p_out,
-        dpr); the reduction runs only on iterations the loop checks."""
+        """Loop body of one K1 iteration on the carry (p_in, p_out, d_in,
+        d_out): pr ping-pongs, dpr is updated in place (d_out is K8's
+        spare, None where no sweep runs); the reduction runs only on
+        iterations the loop checks."""
         op, nchk, k1 = self._op, self.grid.nchk, self._poisson_iter
 
         def step(carry, it):
-            p_in, p_out, dpr = carry
-            ec = k1(p_in, p_out, dpr, rhs, op, (it + 1) % nchk == 0)
-            return ((p_out, p_in, dpr),
+            p_in, p_out, d_in, d_out = carry
+            ec = k1(p_in, p_out, d_in, rhs, op, (it + 1) % nchk == 0)
+            return ((p_out, p_in, d_in, d_out),
                     None if ec is None else ec * err_scale, 1)
         return step
 
+    def _sweep(self, carry, rhs, s, check):
+        """One K8 launch of s iterations on the carry (p_in, p_out, d_in,
+        d_out): both pairs ping-pong. Returns (carry, check value)."""
+        p_in, p_out, d_in, d_out = carry
+        ec = self._poisson_iter_sweeps(p_in, d_in, rhs, p_out, d_out,
+                                       self._op, s, check)
+        return (p_out, p_in, d_out, d_in), ec
+
+    def _sweep_plan(self, budget: int) -> Optional[int]:
+        """The JAX package's `_sweep_plan` (models/chorin.py:556-593): the
+        largest depth s of `_sweep_depths` whose bodies of two K8(s)
+        launches (2s iterations) keep every check and the budget's end on
+        a body boundary (nchk % 2s == 0, nchk >= 4s, budget % 2s == 0,
+        budget >= 2s), so exit decisions and iteration counts are the 1x
+        loop's; None keeps the 1-iteration K1 bodies."""
+        nchk = self.grid.nchk
+        for s in sorted(self._sweep_depths, reverse=True):
+            n = 2 * s
+            if (nchk % n == 0 and nchk >= 2 * n and budget % n == 0
+                    and budget >= n):
+                return s
+        return None
+
+    def _folded_loop(self, rhs, err_scale, carry, it0: int, n_checked: int,
+                     rem: int, eps, stall, err0=None):
+        """pt_loop_fused over the folded iteration from global iteration
+        it0 (1 after the exact first iteration, 0 for a correction phase)
+        with a budget of n_checked + rem iterations, on the carry (p_in,
+        p_out, d_in, d_out). Where the sweep plan is on (the JAX package's
+        :1199-1233 and :1321-1345) the loop runs bodies of two K8(s)
+        launches with the check flag on the second; from it0 = 1 it first
+        runs to global iteration 2s (one K1, then s-1 K8(2) launches), and
+        the trailing `rem` iterations run on K1 after the loop. Otherwise
+        it runs 1-iteration K1 bodies over the whole budget. Both run the
+        same iterations with the same check values."""
+        nchk = self.grid.nchk
+        nchunks = n_checked // nchk
+        chain = self._kernel_chain(rhs, err_scale)
+        s = self._sweep_plan(n_checked)
+        if s is None:
+            return pt_loop_fused(chain, carry, it0, n_checked + rem, nchk,
+                                 nchunks, eps, self.dtype, stall=stall,
+                                 err0=err0)
+        if carry[3] is None:
+            carry = (*carry[:3], torch.empty_like(carry[2]))
+        if it0 == 1:
+            carry = chain(carry, 0)[0]   # global iteration 2, unchecked
+            for _ in range(s - 1):
+                carry = self._sweep(carry, rhs, 2, False)[0]
+            it0 = 2 * s
+
+        def body(c, it):
+            c = self._sweep(c, rhs, s, False)[0]
+            c, ec = self._sweep(c, rhs, s, (it + 2 * s) % nchk == 0)
+            return c, None if ec is None else ec * err_scale, 2 * s
+
+        def tail(c):
+            for _ in range(rem):
+                c = chain(c, 0)[0]       # it=0: no check flag
+            return c
+
+        return pt_loop_fused(body, carry, it0, n_checked, nchk, nchunks, eps,
+                             self.dtype, stall=stall, err0=err0, rem=rem,
+                             tail_fn=tail)
+
     def _poisson_solve_defect(self, pr, dprdtau, divv):
         """The folded + defect branch of the JAX package's
-        `_poisson_solve_pallas` (chorin.py:1127-1462), 1x loop body."""
+        `_poisson_solve_pallas` (chorin.py:1127-1462), on K1 bodies or,
+        where the sweep plan is on, K8 bodies."""
         grid, phys, num = self.grid, self.cfg.physics, self.cfg.numerics
         nchunks, rem = self._budget()
         nchk, eps_it = grid.nchk, num.eps_it
@@ -394,10 +493,10 @@ class ChorinSolver:
         # trajectory with better arithmetic); a stall detector always
         # runs here, and the trailing partial chunk belongs to phase 2
         stall1 = self._stall or (num.stall_ratio, num.stall_checks)
-        (p1, _, dpr), it1, _, hist1 = pt_loop_fused(
-            self._kernel_chain(rhs3d, err_scale),
-            (pr, torch.empty_like(pr), dpr), 1, nchunks * nchk, nchk,
-            nchunks, eps_it * 1000.0, self.dtype, stall=stall1)
+        carry, it1, _, hist1 = self._folded_loop(
+            rhs3d, err_scale, (pr, torch.empty_like(pr), dpr, None), 1,
+            nchunks * nchk, 0, eps_it * 1000.0, stall1)
+        p1, dpr = carry[0], carry[2]
 
         # ---- phase 2: restarted defect correction. r0 is evaluated ONCE
         # with compensated arithmetic (error ~eps*|r0|), then lap(delta) =
@@ -409,11 +508,12 @@ class ChorinSolver:
                                                   self._op)
         errh = host_scalar(emax * err_scale, ft)
         n2 = nchunks * nchk + rem
-        chain2 = self._kernel_chain(-r0, err_scale)
-        carry, it2, err, hist2 = pt_loop_fused(
-            chain2, (torch.zeros_like(p1), torch.empty_like(p1), dpr), 0,
-            n2, nchk, nchunks, eps_it, self.dtype, stall=self._stall,
-            err0=errh)
+        rhs2 = -r0
+        carry, it2, err, hist2 = self._folded_loop(
+            rhs2, err_scale, (torch.zeros_like(p1), torch.empty_like(p1),
+                              dpr, carry[3]),
+            0, nchunks * nchk, rem, eps_it, self._stall, err0=errh)
+        chain2 = self._kernel_chain(rhs2, err_scale)
         hist = np.where(np.isnan(hist1), np.roll(hist2, it1 // nchk), hist1)
 
         def pair_of(carry):
@@ -442,8 +542,8 @@ class ChorinSolver:
 
     def _poisson_solve_extended(self, pr, dprdtau, divv):
         """The folded + extended hybrid branch of the JAX package's
-        `_poisson_solve_pallas` (chorin.py:1127-1298 phase 1,
-        :1464-1607 phase 2), 1x loop bodies."""
+        `_poisson_solve_pallas` (chorin.py:1127-1298 phase 1, on K1 or,
+        where the sweep plan is on, K8 bodies; :1464-1607 phase 2, K2)."""
         num, nchk = self.cfg.numerics, self.grid.nchk
         eps_it = num.eps_it
         nchunks, rem = self._budget()
@@ -456,10 +556,10 @@ class ChorinSolver:
         # noise floor, where the stall detector (always on here) hands
         # off; the trailing partial chunk belongs to phase 2
         stall1 = self._stall or (num.stall_ratio, num.stall_checks)
-        (p1, _, dpr), it1, err1, hist1 = pt_loop_fused(
-            self._kernel_chain(rhs3d, err_scale),
-            (pr, torch.empty_like(pr), dpr), 1, nchunks * nchk, nchk,
-            nchunks, eps_it, self.dtype, stall=stall1)
+        carry, it1, err1, hist1 = self._folded_loop(
+            rhs3d, err_scale, (pr, torch.empty_like(pr), dpr, None), 1,
+            nchunks * nchk, 0, eps_it, stall1)
+        p1, dpr = carry[0], carry[2]
         if not (err1 >= ft(eps_it) and np.isfinite(err1)):
             # phase 1 converged (or failed): the pair is (pr1, 0)
             hi, lo = self.set_bc_pr_pair(p1, torch.zeros_like(p1))
@@ -497,14 +597,14 @@ class ChorinSolver:
         K1 over the whole budget, trailing partial chunk included, then
         the boundary planes; no stored pair."""
         nchunks, rem = self._budget()
-        nchk = self.grid.nchk
         pr, dpr = self._first_iteration(pr, dprdtau, divv)
-        (p, _, dpr), it, err, hist = pt_loop_fused(
-            self._kernel_chain(self._rhs3d(divv), self._err_scale()),
-            (pr, torch.empty_like(pr), dpr), 1, nchunks * nchk + rem, nchk,
-            nchunks, self.cfg.numerics.eps_it, self.dtype, stall=self._stall)
-        return self.set_bc_pr(p), dpr, StepStats(iters=it, err=err,
-                                                 err_hist=hist)
+        carry, it, err, hist = self._folded_loop(
+            self._rhs3d(divv), self._err_scale(),
+            (pr, torch.empty_like(pr), dpr, None), 1,
+            nchunks * self.grid.nchk, rem, self.cfg.numerics.eps_it,
+            self._stall)
+        return self.set_bc_pr(carry[0]), carry[2], StepStats(
+            iters=it, err=err, err_hist=hist)
 
     def _marginal(self, err) -> bool:
         """A loop exit just under eps_it (0.85*eps_it <= err < eps_it),

@@ -96,7 +96,8 @@ def pt_loop(run_iters: Callable, residual_err: Callable, pr, dpr,
 
 def pt_loop_fused(step_fn: Callable, carry, it0: int, niter: int, nchk: int,
                   nchunks: int, eps_it: float, dtype,
-                  stall: Optional[Tuple[float, int]] = None, err0=None):
+                  stall: Optional[Tuple[float, int]] = None, err0=None,
+                  rem: int = 0, tail_fn: Optional[Callable] = None):
     """Flat loop over ITERATIONS for backends whose iteration emits its own
     residual max.
 
@@ -113,6 +114,11 @@ def pt_loop_fused(step_fn: Callable, carry, it0: int, niter: int, nchk: int,
     `window` checks earlier. it0: iterations already performed outside the
     loop. err0: initial err (default a sentinel that cannot trigger the
     eps exit) — a value below eps_it makes the loop a no-op.
+    tail_fn(carry) -> carry: the trailing partial chunk of `rem`
+    iterations, run after the loop (so niter can stay a multiple of the
+    body's advance) and only where the loop ran out of budget without
+    converging, without a non-finite err and without stalling: the same
+    predicate as pt_loop's tail.
     Returns (carry, iters, err, hist)."""
     ft = np_float(dtype)
     window = _Stall(stall, ft)
@@ -120,9 +126,11 @@ def pt_loop_fused(step_fn: Callable, carry, it0: int, niter: int, nchk: int,
     nhist = max(nchunks, 1)
     n_checked = nchunks * nchk
 
+    def unconverged(err):
+        return bool(err >= eps) and bool(np.isfinite(err))
+
     def running(it, err):
-        ok = it < niter and bool(err >= eps) and bool(np.isfinite(err))
-        return ok and not window.stalled(err)
+        return it < niter and unconverged(err) and not window.stalled(err)
 
     hist = np.full((nhist,), np.nan, ft)
     err = window.big if err0 is None else host_scalar(err0, ft)
@@ -134,4 +142,8 @@ def pt_loop_fused(step_fn: Callable, carry, it0: int, niter: int, nchk: int,
             err = host_scalar(e, ft)
             hist[min(max(it // nchk - 1, 0), nhist - 1)] = err
             window.push(err)
+    if (rem > 0 and tail_fn is not None and it >= niter and unconverged(err)
+            and not window.stalled(err)):
+        carry = tail_fn(carry)
+        it += rem
     return carry, it, err, hist

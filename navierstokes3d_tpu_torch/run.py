@@ -9,8 +9,11 @@ residual, advection clamp count and wall seconds. --compat runs the
 reference's own semantics (compat mode: K7 in float32, the exact
 iteration in float64, which runs on the card there too); without it the
 main path (compat=False), whose float64 runs on the CPU only. --nx
-defaults to 255 (gpu) or 63 (multi), as bench.py's. The solver runs on
-the card; --device cpu runs the plain PyTorch versions of the kernels.
+defaults to 255 (gpu) or 63 (multi), as bench.py's; `--preset gpu --nx
+511` runs the wide grid (511x307x307, ~10 GB of device memory), whose
+Poisson loops take bodies of two K8 launches of 3 iterations each, as the
+JAX package's lane-tiled build does. The solver runs on the card;
+--device cpu runs the plain PyTorch versions of the kernels.
 The remaining flags of the JAX package's CLI (I/O, resume, watchdog,
 clamp policy) are not ported yet.
 """

@@ -138,8 +138,10 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
                                                        eps_it=1e-9))
     # compat float32 runs K7
     compat = nt.preset_multi(nx=9, dtype="float32")
-    for cfg in (gpu, multi, compat):
+    # and the gpu preset with the sweep plan forced on runs K8
+    for cfg, depths in ((gpu, ()), (multi, ()), (compat, ()), (gpu, (2,))):
         s = nt.ChorinSolver(cfg, device="cpu")
+        s._sweep_depths = depths
         state, stats = s.step(s.init_state())
         assert stats.iters > 0
         if cfg is multi:
@@ -172,4 +174,5 @@ def test_build_sources_and_key():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert set(_build.SIGNATURES) == {
         "ns3d_poisson_iter", "ns3d_poisson_iter_ext", "ns3d_poisson_iter_bc",
-        "ns3d_predict", "ns3d_correct", "ns3d_advect"}
+        "ns3d_poisson_iter_sweeps", "ns3d_predict", "ns3d_correct",
+        "ns3d_advect"}

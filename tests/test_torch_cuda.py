@@ -69,6 +69,39 @@ def test_k1_multi_operator_matches_plain(multi):
     test_k1_matches_plain(multi)
 
 
+@pytest.mark.parametrize("preset", ["gpu", "multi"])
+@pytest.mark.parametrize("s", [2, 3, 4])
+def test_k8_matches_k1_launches_and_plain(preset, s):
+    """K8 at 64x39x39 (2 x-segments, 3 y-tiles, 2 z-tiles of blocks):
+    bitwise equal to s K1 launches and to its plain version, the check
+    value equal to the last K1 launch's, every cell of both outputs
+    written."""
+    solver = _solver(64, preset)
+    g, rng = solver.grid, np.random.default_rng(6)
+    pr = solver.set_bc_pr(_rand(rng, g.shape_c, 100.0))
+    rhs = _rand(rng, g.shape_c, 1e5)
+    dpr = torch.zeros_like(pr)
+    dpr[1:-1, 1:-1, 1:-1] = _rand(rng, (g.nx - 2, g.ny - 2, g.nz - 2), 1e3)
+    op = solver._op
+    for check in (False, True):
+        po, do = (torch.full_like(pr, float("nan")) for _ in range(2))
+        ek = kp.poisson_iter_sweeps(pr, dpr, rhs, po, do, op, s, check)
+        p, d, e1 = pr.clone(), dpr.clone(), None
+        for j in range(s):
+            q = torch.empty_like(pr)
+            e1 = kp.poisson_iter(p, q, d, rhs, op, check and j == s - 1)
+            p = q
+        pp, dp = torch.empty_like(pr), torch.empty_like(pr)
+        ep = kp.poisson_iter_sweeps_plain(pr, dpr, rhs, pp, dp, op, s, check)
+        assert torch.equal(po.view(torch.int32), p.view(torch.int32))
+        assert torch.equal(do.view(torch.int32), d.view(torch.int32))
+        assert torch.equal(po, pp) and torch.equal(do, dp)
+        if check:
+            assert float(ek) == float(e1) == float(ep)
+    with pytest.raises(ValueError, match="alias"):
+        kp.poisson_iter_sweeps(pr, dpr, rhs, pr, do, op, s, False)
+
+
 def test_k2_matches_plain(multi):
     g, rng = multi.grid, np.random.default_rng(3)
     hi = multi.set_bc_pr(_rand(rng, g.shape_c, 50.0))
@@ -168,10 +201,38 @@ def test_step_on_card_matches_cpu(preset):
             sb.iters, sb.iters_ext, sb.advect_clamped)
         for name in ("pr", "vx", "vy", "vz", "c", "dprdtau", "pr_lo"):
             assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
+    # nx=15 is no wide grid: the sweep plan is off and K8 does not launch
     for k in kernels.KERNELS:
-        on_path = (k.name != "K7 poisson_iter_bc"
+        on_path = (k.name not in ("K7 poisson_iter_bc",
+                                  "K8 poisson_iter_sweeps")
                    and (preset == "multi" or k.name != "K2 poisson_iter_ext"))
         assert (k.wrapper.launches > 0) == on_path, k.name
+
+
+@pytest.mark.parametrize("preset", ["gpu", "multi"])
+def test_sweep_plan_step_on_card_matches_cpu(preset):
+    """Two steps at nx=15 with the sweep plan forced on (s=2, the depths
+    the JAX package's lane-tiled build offers): K8 launches, and every
+    field is bitwise equal to the CPU run and to the card's run with the
+    plan off."""
+    solver = _solver(15, preset)
+    cpu = nt.ChorinSolver(solver.cfg, device="cpu")
+    off = nt.ChorinSolver(solver.cfg, device="cuda")
+    solver._sweep_depths = cpu._sweep_depths = (2, 3)
+    assert off._sweep_depths == ()
+    kernels.reset_counts()
+    a, b, c = solver.init_state(), cpu.init_state(), off.init_state()
+    for _ in range(2):
+        a, sa = solver.step(a)
+        b, sb = cpu.step(b)
+        c, sc = off.step(c)
+        assert ((sa.iters, sa.iters_ext) == (sb.iters, sb.iters_ext)
+                == (sc.iters, sc.iters_ext))
+        for name in ("pr", "vx", "vy", "vz", "c", "dprdtau", "pr_lo"):
+            assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
+            assert torch.equal(getattr(a, name), getattr(c, name))
+    k8 = next(k for k in kernels.KERNELS if k.name == "K8 poisson_iter_sweeps")
+    assert k8.wrapper.launches > 0
 
 
 @pytest.mark.parametrize("preset", ["gpu", "multi"])

@@ -38,15 +38,21 @@ def sequence(values, lib):
 
 
 def run_both(make, x0, it0, niter, nchk, nchunks, eps, **kw):
+    """kw as the loops take it; err0 a number, tail_fn a maker as `make`."""
+    def args(lib):
+        out = dict(kw)
+        if "err0" in kw and lib == "jax":
+            out["err0"] = jnp.asarray(kw["err0"], jnp.float32)
+        if "tail_fn" in kw:
+            out["tail_fn"] = kw["tail_fn"](lib)
+        return out
     cj, ij, ej, hj = jax_loop(make("jax"), jnp.asarray(x0, jnp.float32),
                               it0, niter, nchk, nchunks, eps, jnp.float32,
-                              **{k: (jnp.asarray(v, jnp.float32)
-                                     if k == "err0" else v)
-                                 for k, v in kw.items()})
+                              **args("jax"))
     ct, it_, et, ht = torch_loop(make("torch"),
                                  torch.tensor(x0, dtype=torch.float32),
                                  it0, niter, nchk, nchunks, eps,
-                                 torch.float32, **kw)
+                                 torch.float32, **args("torch"))
     assert int(ij) == it_
     assert np.float32(ej) == et or (np.isnan(ej) and np.isnan(et))
     assert et.dtype == np.float32
@@ -105,6 +111,46 @@ def test_err0_seeding(err0):
     it, err, _ = run_both(lambda lib: geometric(0.7, lib), 1.0, 0, 40, 4,
                           10, 1e-3, stall=(0.96, 5), err0=err0)
     assert (it == 0) == (err0 < 1e-3)
+
+
+def _tail(lib):
+    """The trailing partial chunk: scales the carry, so the result shows
+    whether it ran."""
+    return lambda c: c * 0.25
+
+
+def _checked(values, nchk=4, n=24):
+    """A scripted residual whose k-th check (entering iteration k*nchk)
+    reads values[k-1], the last value from then on."""
+    out = [values[0]] * n
+    for k in range(1, n // nchk + 1):
+        out[k * nchk - 1] = values[min(k, len(values)) - 1]
+    return out
+
+
+@pytest.mark.parametrize("make,eps,stall,rem,ran", [
+    # the budget runs out unconverged: the tail runs
+    (lambda lib: geometric(0.99, lib), 1e-8, None, 3, True),
+    (lambda lib: geometric(0.99, lib), 1e-8, (0.999, 2), 5, True),
+    # converged at a check, or no tail to run: it does not
+    (lambda lib: geometric(0.5, lib), 1e-3, None, 3, False),
+    (lambda lib: geometric(0.99, lib), 1e-8, None, 0, False),
+    # stalled at the last check, or a non-finite err: it does not
+    (lambda lib: sequence(_checked([1.0, 0.5, 0.25, 0.125, 0.3]), lib),
+     1e-8, (0.95, 2), 3, False),
+    (lambda lib: sequence(_checked([1.0, float("nan")]), lib), 1e-8, None,
+     3, False),
+])
+def test_tail_runs_only_on_unconverged_exhaustion(make, eps, stall, rem,
+                                                  ran):
+    """rem/tail_fn (JAX ptloop.py:118-129): after a loop over the checked
+    budget, the tail's `rem` iterations run only where the budget ran out
+    without convergence, a non-finite err or a stall: the same iteration
+    count, err, history and carry in both packages."""
+    nchk, nchunks = 4, 5
+    it, err, hist = run_both(make, 1.0, 0, nchunks * nchk, nchk, nchunks,
+                             eps, stall=stall, rem=rem, tail_fn=_tail)
+    assert (it == nchunks * nchk + rem and rem > 0) == ran
 
 
 def test_plain_python_scalars_as_err():
