@@ -60,6 +60,22 @@ Phases (any failure exits non-zero; nothing is caught):
      err below eps_it, finite fields; step 1 again with the plan off must
      take the same counts and give bitwise-equal pr and pr_lo; one more
      step traced with torch.profiler
+ 11. dist kernels: K7-dist (the gpu and multi compat BC specs) and K2-dist
+     (the split gpu and multi specs) on the shards of 255x153x153 over 3
+     (x_off = 0, 85, 170), and K2-dist on the whole grid at x_off = 0 (K2's
+     unfolded single-device form), each against its plain version with
+     and without the check: every output and the check value bitwise;
+     ms per launch (its device time from torch.profiler, and CUDA events
+     around launches issued back to back), the plain version's, bytes and
+     bound
+ 12. dist path: preset_multi(nx=255, dtype='float32') on a (3,1,1) mesh of
+     cuda:0 shards (ChorinSolver.step_shard_map), 4 steps with compat off
+     (K2-dist) and 2 with it on (K7-dist), launch counts set to 0 just
+     before each run and read just after: its dist kernel the only kernel
+     launched, no plain version; every field finite, every compat-off
+     solve converged. Step 1's Poisson solve again on a (1,1,1) mesh from
+     the same (pr, dprdtau, rhs): equal iterations and err, pr and dprdtau
+     bitwise. Then one more step of each traced with torch.profiler
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -84,6 +100,8 @@ from navierstokes3d_tpu_torch.kernels import _build  # noqa: E402
 from navierstokes3d_tpu_torch.kernels import advect as k_advect  # noqa: E402
 from navierstokes3d_tpu_torch.kernels import fused_step as k_step  # noqa: E402
 from navierstokes3d_tpu_torch.kernels import poisson as k_poisson  # noqa: E402
+from navierstokes3d_tpu_torch.parallel import (  # noqa: E402
+    build_poisson_shard_map, make_mesh)
 
 NX = 255
 NSTEPS = 4
@@ -119,11 +137,24 @@ F32_FLOP_PER_S = 67e12
 # bytes for more than 5x as long as it computes, whatever the exact count
 FLOPS_PER_CELL = {"K1 poisson_iter": 22, "K2 poisson_iter_ext": 45,
                   "K3 predict": 71, "K4 correct": 12, "K5 advect": 50,
-                  "K7 poisson_iter_bc": 20, "K8 poisson_iter_sweeps": 22}
+                  "K7 poisson_iter_bc": 20, "K8 poisson_iter_sweeps": 22,
+                  "K7-dist poisson_iter_bc_dist": 20,
+                  "K2-dist poisson_iter_ext_bc_dist": 45}
 K1_NAME = "K1 poisson_iter"
 K2_NAME = "K2 poisson_iter_ext"
 K7_NAME = "K7 poisson_iter_bc"
 K8_NAME = "K8 poisson_iter_sweeps"
+K7D_NAME = "K7-dist poisson_iter_bc_dist"
+K2D_NAME = "K2-dist poisson_iter_ext_bc_dist"
+# the dist kernels' device symbols as the profiler names them (K7-dist is
+# the halo instance of K7's kernel template)
+DIST_SYMBOLS = {"K7": "poisson_iter_bc_kernel<true>",
+                "K2": "poisson_iter_ext_bc_dist_kernel"}
+# the distributed path: the multi preset at 255 over an x-only mesh of 3
+# shards (bx = 85) on one card
+DIST_SHAPE = (3, 1, 1)
+DIST_STEPS = 4
+DIST_COMPAT_STEPS = 2
 # the wide grid of README.md's "Wide grids" (511x307x307), where the JAX
 # package lane-tiles its kernels and runs temporal 3-sweeps
 WIDE_NX = 511
@@ -190,6 +221,31 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int, kernel: str, warmup: int = 2) -> float:
+    """Mean device milliseconds of one launch of the kernel whose name
+    contains `kernel`, over reps calls of fn traced with torch.profiler:
+    the launches' own durations. (CUDA events around a run of launches
+    that each take less device time than the host needs to issue the
+    next one time the host's issue rate instead.)"""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in e.name]
+    # the tracer may drop a launch at the window's edge: the mean over
+    # those it kept
+    require(len(durs) >= reps // 2, f"traced {len(durs)} launches of "
+            f"{kernel}, expected {reps}")
+    return sum(durs) / len(durs) / 1e3
 
 
 def bound(name: str, tensors_in, tensors_out, cells: int,
@@ -576,16 +632,18 @@ def stored_errs(solver, states, label, steps, required=True) -> list:
     return out
 
 
-def profile_step(solver, state, label) -> None:
-    """One more step of a main path traced with torch.profiler (after its
-    counts were read): device time per kernel name, biggest first, and
-    the device's idle share of the span from the first kernel's start to
-    the last one's end."""
+def profile_step(solver, state, label, step=None) -> dict:
+    """One more step of a main path (solver.step, or `step`) traced with
+    torch.profiler (after its counts were read): device time per kernel
+    name, biggest first, and the device's idle share of the span from the
+    first kernel's start to the last one's end. Returns the traced wall
+    (s), the iterations, the busy and span times (us) and the per-name
+    (us, launches)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        _, stats = solver.step(state)
+        _, stats = (solver.step if step is None else step)(state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ivs = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -595,7 +653,8 @@ def profile_step(solver, state, label) -> None:
           f"{stats.iters_ext}, wall {wall * 1e3:.2f} ms (traced)")
     if not ivs:
         print(f"[{label} trace] the profiler recorded no device time")
-        return
+        return dict(wall=wall, iters=stats.iters, busy=0.0, span=0.0,
+                    by_name={})
     by_name, busy, cur_s, cur_e = {}, 0.0, ivs[0][0], ivs[0][1]
     for s, e, name in ivs:
         us, n = by_name.get(name, (0.0, 0))
@@ -612,6 +671,8 @@ def profile_step(solver, state, label) -> None:
     print(f"[{label} trace] device busy {busy / 1e3:.3f} ms of a "
           f"{span / 1e3:.3f} ms kernel span: idle "
           f"{100 * (1 - busy / span):.2f}%; {len(ivs)} kernels")
+    return dict(wall=wall, iters=stats.iters, busy=busy, span=span,
+                by_name=by_name)
 
 
 def phase_gpu_path(solver) -> dict:
@@ -925,6 +986,214 @@ def phase_wide_path(wide, smi) -> dict:
     return counts
 
 
+def bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def dist_operators() -> dict:
+    """The dist kernels' BC operators at 255: K7-dist's with the compat
+    specs of both variants (the gpu one unsplit), K2-dist's with the main
+    paths' (the gpu one split)."""
+    ops = {}
+    for variant, make in (("gpu", nt.preset_gpu), ("multi", nt.preset_multi)):
+        cfg = make(nx=NX, dtype="float32")
+        g = nt.make_grid(cfg)
+        for kind, split in (("K7", False), ("K2", variant == "gpu")):
+            ops[(kind, variant)] = k_poisson.make_bc_operator(
+                k_poisson.poisson_bc_spec(variant, g, cfg.physics, split), g,
+                "cuda")
+    return ops
+
+
+def check_dist(kind, op, fields, x_off, bx, label) -> dict:
+    """One shard of K7-dist (kind 'K7') or K2-dist ('K2') at global offset
+    x_off against its plain version, with and without the check: every
+    output and the check value bitwise. Then its ms per launch, the plain
+    version's and its bound (the shard's planes, the halo planes it reads
+    and the Dirichlet planes of the faces it holds, each once; its
+    outputs)."""
+    pr, lo, dpr, rhs = fields
+    nx = pr.shape[0]
+    sl = slice(x_off, x_off + bx)
+
+    def halo(t):
+        return (t[x_off - 1] if x_off > 0 else None,
+                t[x_off + bx] if x_off + bx < nx else None)
+    if kind == "K7":
+        name, nout = K7D_NAME, 2
+        ins, halos = (pr[sl], dpr[sl], rhs[sl]), halo(pr)
+        fns = (k_poisson.poisson_iter_bc_dist,
+               k_poisson.poisson_iter_bc_dist_plain)
+    else:
+        name, nout = K2D_NAME, 3
+        ins, halos = (pr[sl], lo[sl], dpr[sl], rhs[sl]), (*halo(pr),
+                                                           *halo(lo))
+        fns = (k_poisson.poisson_iter_ext_bc_dist,
+               k_poisson.poisson_iter_ext_bc_dist_plain)
+
+    def run(fn, outs, check):
+        return fn(*ins, *outs, *halos, x_off, op, check)
+    worst = 0.0
+    for check in (False, True):
+        a = [torch.full_like(ins[0], float("nan")) for _ in range(nout)]
+        b = [torch.full_like(ins[0], float("nan")) for _ in range(nout)]
+        ea, eb = run(fns[0], a, check), run(fns[1], b, check)
+        torch.cuda.synchronize()
+        worst = max(worst, max_abs(zip(a, b)))
+        require(all(bitwise(x, y) for x, y in zip(a, b)),
+                f"{name} ({label}) differs from its plain version by "
+                f"{worst}")
+        if check:
+            require(float(ea) == float(eb), f"{name} ({label}) check err "
+                    f"{float(ea)} vs plain {float(eb)}")
+        del a, b
+    outs = [torch.empty_like(ins[0]) for _ in range(nout)]
+    kname = DIST_SYMBOLS[kind]
+    ms = device_ms(lambda: run(fns[0], outs, False), 50, kname)
+    ms_chk = device_ms(lambda: run(fns[0], outs, True), 20, kname)
+    issue_ms = cuda_ms(lambda: run(fns[0], outs, False), 50)
+    plain_ms = cuda_ms(lambda: run(fns[1], outs, False), 10)
+    planes = [t for t, held in ((op.xlo, x_off == 0), (op.xhi, x_off + bx
+                                                        == nx))
+              if t is not None and held]
+    b = bound(name, (*ins, *(h for h in halos if h is not None), *planes),
+              outs, ins[0].numel())
+    print(f"[dist kernels] {name} ({label}): bitwise equal to its plain "
+          f"version; {ms:.4f} ms of device time (check iteration "
+          f"{ms_chk:.4f} ms), {issue_ms:.4f} ms per launch issued back to "
+          f"back (CUDA events), plain {plain_ms:.4f} ms; bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {b['bytes'] / 1e6:.1f} "
+          f"MB per launch), kernel at {100 * b['bound_ms'] / ms:.1f}% of it")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                events_ms=issue_ms, **b)
+
+
+def phase_dist_kernels() -> dict:
+    """K7-dist and K2-dist on the first, middle and last shard of the
+    255 grid over DIST_SHAPE, for two BC specs each, and K2-dist on the
+    whole grid. The JSON row's numbers are the middle shard's with the
+    multi spec (the dist path's)."""
+    rng = np.random.default_rng(2027)
+    g = nt.make_grid(nt.preset_multi(nx=NX))
+    shape = g.shape_c
+    fields = (seeded(rng, *shape, scale=50.0),
+              seeded(rng, *shape, scale=50.0 * 2.0 ** -24),
+              interior_seeded(rng, shape, 1e3), seeded(rng, *shape, scale=1e5))
+    ops = dist_operators()
+    bx = NX // DIST_SHAPE[0]
+    rows = {}
+    for kind in ("K7", "K2"):
+        for variant in ("gpu", "multi"):
+            for x_off in range(0, NX, bx):
+                rows[(kind, variant, x_off)] = check_dist(
+                    kind, ops[(kind, variant)], fields, x_off, bx,
+                    f"{variant} spec, shard at x_off {x_off} of {bx} planes")
+    whole = check_dist("K2", ops[("K2", "multi")], fields, 0, NX,
+                       "multi spec, the whole grid (K2-unfolded)")
+    results = {}
+    for kind, name in (("K7", K7D_NAME), ("K2", K2D_NAME)):
+        r = dict(rows[(kind, "multi", bx)])
+        r["max_abs_err"] = max(v["max_abs_err"] for k, v in rows.items()
+                               if k[0] == kind)
+        r["shards"] = {f"{v} x_off {x}": {key: rows[(kind, v, x)][key]
+                                          for key in ("ms", "events_ms",
+                                                      "plain_ms",
+                                                      "bound_ms")}
+                       for (k, v, x) in rows if k == kind}
+        results[name] = r
+    results[K2D_NAME]["whole_grid"] = {key: whole[key] for key in (
+        "max_abs_err", "ms", "events_ms", "plain_ms", "bound_ms",
+        "bound_by")}
+    return results
+
+
+def run_dist(compat: bool, nsteps: int, mesh, smi) -> dict:
+    """nsteps of the multi preset at 255 through step_shard_map(mesh), the
+    launch counts set to 0 just before and read just after; then step 1's
+    solve on a one-shard mesh, and one more step traced."""
+    label = "dist compat" if compat else "dist"
+    s = nt.ChorinSolver(nt.preset_multi(nx=NX, compat=compat,
+                                        dtype="float32"), device="cuda")
+    g, eps_it = s.grid, s.cfg.numerics.eps_it
+    on = K7D_NAME if compat else K2D_NAME
+    print(f"[{label}] grid {g.nx}x{g.ny}x{g.nz} float32 on a "
+          f"{'x'.join(map(str, mesh.shape))} mesh of {mesh.devices[0]} "
+          f"shards, niter {g.niter}, nchk {g.nchk}, stall exit {s._stall}, "
+          f"{on} per shard ({smi})")
+    step = s.step_shard_map(mesh)
+    state = s.init_state()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    states, all_stats, wall = [state], [], []
+    for k in range(nsteps):
+        t0 = time.perf_counter()
+        state, stats = step(state)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        states.append(state)
+        all_stats.append(stats)
+        print(f"[{label}] step {k + 1}: iters {stats.iters} err "
+              f"{float(stats.err):.6e} advect_clamped {stats.advect_clamped}"
+              f" {wall[-1]:.4f} s/step, "
+              f"{1e3 * wall[-1] / max(stats.iters, 1):.4f} ms per iteration",
+              flush=True)
+        require(finite_state(state), f"{label} step {k + 1}: non-finite "
+                "fields")
+        if not compat:
+            require(bool(np.isfinite(stats.err)) and stats.err < eps_it
+                    and stats.iters < g.niter,
+                    f"{label} step {k + 1} did not converge "
+                    f"(iters {stats.iters}, err {stats.err})")
+    counts = {kk.name: (kk.wrapper.launches, kk.plain.calls)
+              for kk in kernels.KERNELS}
+    iters = sum(st.iters for st in all_stats)
+    print(f"[{label}] {sum(wall) / nsteps:.4f} s/step, "
+          f"{1e3 * sum(wall) / iters:.4f} ms per iteration, "
+          f"{iters / sum(wall):.1f} Poisson iterations/s ({iters} "
+          f"iterations in {sum(wall):.3f} s; {smi})")
+    for name, (launches, plain) in counts.items():
+        print(f"[{label}] {name}: {launches} launches ({launches / nsteps:.1f}"
+              f" per step), plain version {plain} calls")
+        require(plain == 0, f"{label}: {name} ran its plain version")
+        require((launches > 0) == (name == on),
+                f"{label}: {name} launched {launches} times")
+    # step 1's solve again on one shard: the same algorithm undecomposed
+    solve1 = build_poisson_shard_map(
+        make_mesh((1, 1, 1), mesh.devices[0]), g, s.cfg.physics, eps_it,
+        s.cfg.variant, torch.float32, pressure_split=s.pressure_split,
+        stall=s._stall, use_pallas=True, extended=s.extended)
+    st0 = states[0]
+    divv = k_step.predict_ops(st0.vx, st0.vy, st0.vz, s.masks, s._consts)[3]
+    t0 = time.perf_counter()
+    p1, d1, it1, err1, _ = solve1(st0.pr, st0.dprdtau,
+                                  (s.cfg.physics.rho / g.dt) * divv)
+    torch.cuda.synchronize()
+    w1 = time.perf_counter() - t0
+    same = bitwise(p1, states[1].pr) and bitwise(d1, states[1].dprdtau)
+    print(f"[{label}] step 1's solve on a 1x1x1 mesh: iters {it1} err "
+          f"{float(err1):.6e} ({all_stats[0].iters}, "
+          f"{float(all_stats[0].err):.6e} on {mesh.size} shards), pr and "
+          f"dprdtau bitwise equal: {same}; {w1:.4f} s, "
+          f"{1e3 * w1 / max(it1, 1):.4f} ms per iteration")
+    require(it1 == all_stats[0].iters and err1 == all_stats[0].err and same,
+            f"{label}: the one-shard solve differs from the sharded one")
+    tr = profile_step(s, states[-1], label, step=step)
+    n = max(tr["iters"], 1)
+    kern_us = sum(us for name, (us, _) in tr["by_name"].items()
+                  if DIST_SYMBOLS["K7" if compat else "K2"] in name)
+    print(f"[{label} trace] per iteration: wall {1e3 * tr['wall'] / n:.4f} "
+          f"ms, the dist kernel {kern_us / 1e3 / n:.4f} ms of device time, "
+          f"device busy {tr['busy'] / 1e3 / n:.4f} ms ({tr['iters']} "
+          f"iterations; {smi})")
+    return counts
+
+
+def phase_dist_path(smi) -> list:
+    mesh = make_mesh(DIST_SHAPE, "cuda:0")
+    return [run_dist(False, DIST_STEPS, mesh, smi),
+            run_dist(True, DIST_COMPAT_STEPS, mesh, smi)]
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -952,6 +1221,8 @@ def main() -> int:
     phase_golden()
     phase_reference()
     del gpu, multi, compat
+    results.update(phase_dist_kernels())
+    runs += phase_dist_path(smi)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     wide = nt.ChorinSolver(nt.preset_gpu(nx=WIDE_NX, compat=False,
@@ -975,6 +1246,11 @@ def main() -> int:
         if "at_255_s2" in r:
             row["at_255_s2"] = {label: {key: v[key] for key in keys}
                                 for label, v in r["at_255_s2"].items()}
+        # the dist kernels: the middle shard's numbers (multi spec), every
+        # shard's and K2-dist's on the whole grid beside them
+        for extra in ("shards", "whole_grid"):
+            if extra in r:
+                row[extra] = r[extra]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -141,8 +141,9 @@ class IOConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Device mesh layout for spatial domain decomposition (the port runs
-    one device; the distributed paths are not ported yet)."""
+    """Device mesh layout for spatial domain decomposition: the mesh shape
+    (px, py, pz) and the halo width of the distributed Poisson solve
+    (iterations per exchange; parallel/halo.py)."""
 
     mesh_shape: Tuple[int, int, int] = (1, 1, 1)
     halo: int = 1

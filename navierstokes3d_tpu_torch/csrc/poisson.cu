@@ -98,6 +98,34 @@
 // writes every cell of both outputs. It reduces nothing: compat's check
 // value is a separate residual evaluation (torch ops), once per chunk.
 // Bound: device-memory bytes, as K1 (~120 MB per launch at 255x153x153).
+//
+// K7-dist and K2-dist replace the same call sites built for one shard of
+// an x-decomposed mesh (build_poisson_iter(local_rows=bx): `rows_of` :503,
+// `p_ext_of` :515, the `dist` operands :874-883 and :1193-1202), which the
+// distributed Poisson solve runs per shard (parallel/halo.py:310-393).
+// K7-dist is K7 on a shard of bx owned x-planes at global offset x_off
+// (one kernel template: K7 is its x_off = 0, bx = nx instance without
+// halo reads and without the check reduction); K2-dist iterates the (hi, lo) pair there with the unfolded Laplacian
+// (`compute_slab_ext` :353):
+//   resid = (lap_h - rhs) + lap_l;  d = dpr*decay + dtau*resid
+//   u = lo + dtau*d;  (hi', lo') = two_sum(hi, u)
+// then set_bc_Pr!'s sequence on hi with the BC constants and on lo with
+// their lo words: the z offsets' (hi, lo) split, 0 on the Dirichlet x
+// planes. A cell updates only where its GLOBAL position x_off + lx is
+// interior, and every BC guard keys on the global position, so each shard
+// applies exactly its own piece of the sequence. Layout: native 3D, x
+// slowest; the shard's two x-halo planes (the -x neighbour's last owned
+// plane and the +x neighbour's first) are separate (ny, nz) operands, one
+// pair per word, null at an open global face (nothing reads them there:
+// only interior cells take the Laplacian). A ring thread recomputes its
+// clamped source's update exactly as K7 does; a source on the shard's
+// first or last plane reads the halo planes like any other cell (bx >= 2
+// keeps every source owned). On a check iteration the kernel reduces the
+// max |resid| over the shard's interior cells (the residual of the state
+// entering the iteration, as K1), which the caller max-reduces over the
+// mesh. Bytes bound as K7 (5 x 4 B per cell) and K2 (8 x 4 B per cell:
+// hi, lo, dpr, rhs in; hi', lo', dpr' out) plus the halo planes; one
+// thread per cell, as K7.
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -375,64 +403,207 @@ struct BCConsts {
   int zero_grad_x;
   const float* xlo;  // (ny, nz) Dirichlet plane at x = 0, or null
   const float* xhi;  // (ny, nz) Dirichlet plane at x = nx-1, or null
+  float zlo_lo, zhi_lo;  // K2-dist: the lo words of z_lo_add, z_hi_add
 };
-
-// q = pc + dtau*d at interior cell i (x-stride sx, y-stride nz), with d the
-// updated dpr, in compute_slab's expression order.
-__device__ inline float bc_update(const float* __restrict__ pr,
-                                  const float* __restrict__ dpr,
-                                  const float* __restrict__ rhs, long i,
-                                  long sx, int nz, const BCConsts& k,
-                                  float* d_out) {
-  const float pc = pr[i];
-  float lap = ((pr[i + sx] - pc) + (pr[i - sx] - pc)) * k.inv_dx2;
-  lap = lap + ((pr[i + nz] - pc) + (pr[i - nz] - pc)) * k.inv_dy2;
-  lap = lap + ((pr[i + 1] - pc) + (pr[i - 1] - pc)) * k.inv_dz2;
-  const float resid = lap - rhs[i];
-  const float d = dpr[i] * k.decay + k.dtau * resid;
-  *d_out = d;
-  return pc + k.dtau * d;
-}
 
 __device__ inline int clamp_int(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// ---- K7, K7-dist and K2-dist: the unfolded iteration with set_bc_Pr! ----
+// K7 is the one-shard case of K7-dist (x_off = 0, bx = nx, no halo planes):
+// one kernel body, instantiated without the halo reads for K7.
+
+// One shard's view of a field: its bx owned planes (bx, ny, nz) and the
+// halo planes at local x = -1 (lo) and x = bx (hi), null at an open face.
+struct Slab {
+  const float* p;
+  const float* lo;
+  const float* hi;
+};
+
+// The shard: global x offset and extent, owned planes, y and z extents.
+struct DistShape {
+  int x_off, nx, bx, ny, nz;
+};
+
+// Plane lx of the shard at (y, z) offset yz; kHalo reads the halo planes
+// at lx = -1 and lx = bx (without it every plane read is owned).
+template <bool kHalo>
+__device__ inline float slab_at(const Slab& s, int lx, long yz, long sx,
+                                int bx) {
+  if (kHalo && lx < 0) return s.lo[yz];
+  if (kHalo && lx >= bx) return s.hi[yz];
+  return s.p[lx * sx + yz];
+}
+
+// The unfolded Laplacian at owned cell (lx, yz) of the shard in
+// lap_of_rows's order (x+ then x-, y+ then y-, z+ then z-), the x
+// neighbours through the halo planes where they are not owned.
+template <bool kHalo>
+__device__ inline float lap_dist(const Slab& s, int lx, long yz,
+                                 const DistShape& sh, const BCConsts& k,
+                                 float pc) {
+  const long sx = static_cast<long>(sh.ny) * sh.nz;
+  const long i = lx * sx + yz;
+  float lap = ((slab_at<kHalo>(s, lx + 1, yz, sx, sh.bx) - pc) +
+               (slab_at<kHalo>(s, lx - 1, yz, sx, sh.bx) - pc)) * k.inv_dx2;
+  lap = lap + ((s.p[i + sh.nz] - pc) + (s.p[i - sh.nz] - pc)) * k.inv_dy2;
+  lap = lap + ((s.p[i + 1] - pc) + (s.p[i - 1] - pc)) * k.inv_dz2;
+  return lap;
+}
+
+// K7's update at owned cell (lx, y, z), in compute_slab's expression
+// order: q = pc + dtau*d, with d (and the residual) from the Laplacian
+// where the cell is globally interior, d = 0 elsewhere.
+template <bool kHalo>
+__device__ inline float dist_update(const Slab& pr,
+                                    const float* __restrict__ dpr,
+                                    const float* __restrict__ rhs, int lx,
+                                    int y, int z, const DistShape& sh,
+                                    const BCConsts& k, float* d_out,
+                                    float* resid_out) {
+  const long yz = static_cast<long>(y) * sh.nz + z;
+  const long i = lx * static_cast<long>(sh.ny) * sh.nz + yz;
+  const float pc = pr.p[i];
+  float d = 0.0f;
+  if (interior(sh.x_off + lx, y, z, sh.nx, sh.ny, sh.nz)) {
+    const float resid = lap_dist<kHalo>(pr, lx, yz, sh, k, pc) - rhs[i];
+    d = dpr[i] * k.decay + k.dtau * resid;
+    *resid_out = resid;
+  }
+  *d_out = d;
+  return pc + k.dtau * d;
+}
+
+// K2-dist's update at owned cell (lx, y, z): the pair's residual and d as
+// above, then u = lo + dtau*d and (hi', lo') = two_sum(hi, u) (every
+// cell: off the interior d = 0 renormalizes the pair).
+__device__ inline void dist_update_ext(const Slab& hi, const Slab& lo,
+                                       const float* __restrict__ dpr,
+                                       const float* __restrict__ rhs, int lx,
+                                       int y, int z, const DistShape& sh,
+                                       const BCConsts& k, float* h_out,
+                                       float* l_out, float* d_out,
+                                       float* resid_out) {
+  const long yz = static_cast<long>(y) * sh.nz + z;
+  const long i = lx * static_cast<long>(sh.ny) * sh.nz + yz;
+  const float hc = hi.p[i];
+  const float lc = lo.p[i];
+  float d = 0.0f;
+  if (interior(sh.x_off + lx, y, z, sh.nx, sh.ny, sh.nz)) {
+    const float lap_h = lap_dist<true>(hi, lx, yz, sh, k, hc);
+    const float lap_l = lap_dist<true>(lo, lx, yz, sh, k, lc);
+    const float resid = (lap_h - rhs[i]) + lap_l;
+    d = dpr[i] * k.decay + k.dtau * resid;
+    *resid_out = resid;
+  }
+  *d_out = d;
+  const float u = lc + k.dtau * d;
+  const float s = hc + u;
+  const float ap = s - u;
+  const float bp = s - ap;
+  *h_out = s;
+  *l_out = (hc - ap) + (u - bp);
+}
+
+// The clamped source of ring cell (gx, y, z) in local coordinates: the
+// x clamp only where x is zero-gradient (a Dirichlet face is written
+// before any source is read).
+__device__ inline void ring_source(int gx, int y, int z, const DistShape& sh,
+                                   const BCConsts& k, int* lx, int* cy,
+                                   int* cz) {
+  const int cgx = k.zero_grad_x ? clamp_int(gx, 1, sh.nx - 2) : gx;
+  *lx = cgx - sh.x_off;
+  *cy = clamp_int(y, 1, sh.ny - 2);
+  *cz = clamp_int(z, 1, sh.nz - 2);
+}
+
+// K7 (kHalo false: the whole grid, err_bits null) and K7-dist.
+template <bool kHalo>
 __global__ void poisson_iter_bc_kernel(
-    const float* __restrict__ pr, const float* __restrict__ dpr,
-    const float* __restrict__ rhs, float* __restrict__ pr_out,
-    float* __restrict__ dpr_out, BCConsts k, int nx, int ny, int nz) {
+    Slab pr, const float* __restrict__ dpr, const float* __restrict__ rhs,
+    float* __restrict__ pr_out, float* __restrict__ dpr_out, BCConsts k,
+    DistShape sh, unsigned int* __restrict__ err_bits) {
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  const int x = blockIdx.z;
-  if (y >= ny || z >= nz) return;
-  const long sx = static_cast<long>(ny) * nz;
-  const long i = x * sx + static_cast<long>(y) * nz + z;
-  float d;
-  if (interior(x, y, z, nx, ny, nz)) {
-    pr_out[i] = bc_update(pr, dpr, rhs, i, sx, nz, k, &d);
-    dpr_out[i] = d;
-    return;
+  const int lx = blockIdx.z;
+  const int gx = sh.x_off + lx;
+  unsigned int bits = 0u;
+  if (y < sh.ny && z < sh.nz) {
+    const long yz = static_cast<long>(y) * sh.nz + z;
+    const long i = lx * static_cast<long>(sh.ny) * sh.nz + yz;
+    float d, resid;
+    if (interior(gx, y, z, sh.nx, sh.ny, sh.nz)) {
+      pr_out[i] = dist_update<kHalo>(pr, dpr, rhs, lx, y, z, sh, k, &d,
+                                     &resid);
+      dpr_out[i] = d;
+      bits = __float_as_uint(fabsf(resid));
+    } else {
+      dpr_out[i] = 0.0f;
+      float v;
+      if (gx == 0 && k.xlo != nullptr) {
+        v = k.xlo[yz];
+      } else if (gx == sh.nx - 1 && k.xhi != nullptr) {
+        v = k.xhi[yz];
+      } else {
+        int sl, cy, cz;
+        ring_source(gx, y, z, sh, k, &sl, &cy, &cz);
+        v = dist_update<kHalo>(pr, dpr, rhs, sl, cy, cz, sh, k, &d, &resid);
+        if (z == 0 && k.z_lo_add != 0.0f) v = v + k.z_lo_add;
+        if (z == sh.nz - 1 && k.z_hi_add != 0.0f) v = v + k.z_hi_add;
+      }
+      pr_out[i] = v;
+    }
   }
-  dpr_out[i] = 0.0f;
-  if (x == 0 && k.xlo != nullptr) {
-    pr_out[i] = k.xlo[static_cast<long>(y) * nz + z];
-    return;
+  if (kHalo && err_bits != nullptr) ns3d::block_max_to(bits, err_bits);
+}
+
+__global__ void poisson_iter_ext_bc_dist_kernel(
+    Slab hi, Slab lo, const float* __restrict__ dpr,
+    const float* __restrict__ rhs, float* __restrict__ hi_out,
+    float* __restrict__ lo_out, float* __restrict__ dpr_out, BCConsts k,
+    DistShape sh, unsigned int* __restrict__ err_bits) {
+  const int z = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int lx = blockIdx.z;
+  const int gx = sh.x_off + lx;
+  unsigned int bits = 0u;
+  if (y < sh.ny && z < sh.nz) {
+    const long yz = static_cast<long>(y) * sh.nz + z;
+    const long i = lx * static_cast<long>(sh.ny) * sh.nz + yz;
+    float h, l, d, resid;
+    if (interior(gx, y, z, sh.nx, sh.ny, sh.nz)) {
+      dist_update_ext(hi, lo, dpr, rhs, lx, y, z, sh, k, &h, &l, &d, &resid);
+      dpr_out[i] = d;
+      bits = __float_as_uint(fabsf(resid));
+    } else {
+      dpr_out[i] = 0.0f;
+      if (gx == 0 && k.xlo != nullptr) {
+        h = k.xlo[yz];
+        l = 0.0f;
+      } else if (gx == sh.nx - 1 && k.xhi != nullptr) {
+        h = k.xhi[yz];
+        l = 0.0f;
+      } else {
+        int sl, cy, cz;
+        ring_source(gx, y, z, sh, k, &sl, &cy, &cz);
+        dist_update_ext(hi, lo, dpr, rhs, sl, cy, cz, sh, k, &h, &l, &d,
+                        &resid);
+        if (z == 0) {
+          if (k.z_lo_add != 0.0f) h = h + k.z_lo_add;
+          if (k.zlo_lo != 0.0f) l = l + k.zlo_lo;
+        }
+        if (z == sh.nz - 1) {
+          if (k.z_hi_add != 0.0f) h = h + k.z_hi_add;
+          if (k.zhi_lo != 0.0f) l = l + k.zhi_lo;
+        }
+      }
+    }
+    hi_out[i] = h;
+    lo_out[i] = l;
   }
-  if (x == nx - 1 && k.xhi != nullptr) {
-    pr_out[i] = k.xhi[static_cast<long>(y) * nz + z];
-    return;
-  }
-  const int cx = k.zero_grad_x ? clamp_int(x, 1, nx - 2) : x;
-  const int cy = clamp_int(y, 1, ny - 2);
-  const int cz = clamp_int(z, 1, nz - 2);
-  const long src = cx * sx + static_cast<long>(cy) * nz + cz;
-  float v = interior(cx, cy, cz, nx, ny, nz)
-                ? bc_update(pr, dpr, rhs, src, sx, nz, k, &d)
-                : pr[src] + k.dtau * 0.0f;
-  if (z == 0 && k.z_lo_add != 0.0f) v = v + k.z_lo_add;
-  if (z == nz - 1 && k.z_hi_add != 0.0f) v = v + k.z_hi_add;
-  pr_out[i] = v;
+  if (err_bits != nullptr) ns3d::block_max_to(bits, err_bits);
 }
 
 }  // namespace
@@ -503,7 +674,41 @@ extern "C" int ns3d_poisson_iter_bc(const float* pr, const float* dpr,
   const dim3 grid = ns3d::grid_for(nx, ny, nz);
   const dim3 block = ns3d::block_shape();
   const BCConsts k{inv_dx2, inv_dy2, inv_dz2, dtau, decay, z_lo_add,
-                   z_hi_add, zero_grad_x, xlo, xhi};
-  poisson_iter_bc_kernel<<<grid, block, 0, stream>>>(pr, dpr, rhs, pr_out, dpr_out, k, nx, ny, nz);
+                   z_hi_add, zero_grad_x, xlo, xhi, 0.0f, 0.0f};
+  const DistShape sh{0, nx, nx, ny, nz};
+  poisson_iter_bc_kernel<false><<<grid, block, 0, stream>>>(Slab{pr, nullptr, nullptr}, dpr, rhs, pr_out, dpr_out, k, sh, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ns3d_poisson_iter_bc_dist(
+    const float* pr, const float* pr_lo, const float* pr_hi, const float* dpr,
+    const float* rhs, float* pr_out, float* dpr_out, const float* xlo,
+    const float* xhi, float inv_dx2, float inv_dy2, float inv_dz2,
+    float dtau, float decay, float z_lo_add, float z_hi_add,
+    int zero_grad_x, int x_off, int nx, int bx, int ny, int nz,
+    unsigned int* err_bits, cudaStream_t stream) {
+  const dim3 grid = ns3d::grid_for(bx, ny, nz);
+  const dim3 block = ns3d::block_shape();
+  const BCConsts k{inv_dx2, inv_dy2, inv_dz2, dtau, decay, z_lo_add,
+                   z_hi_add, zero_grad_x, xlo, xhi, 0.0f, 0.0f};
+  const DistShape sh{x_off, nx, bx, ny, nz};
+  poisson_iter_bc_kernel<true><<<grid, block, 0, stream>>>(Slab{pr, pr_lo, pr_hi}, dpr, rhs, pr_out, dpr_out, k, sh, err_bits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ns3d_poisson_iter_ext_bc_dist(
+    const float* hi, const float* hi_lo, const float* hi_hi, const float* lo,
+    const float* lo_lo, const float* lo_hi, const float* dpr,
+    const float* rhs, float* hi_out, float* lo_out, float* dpr_out,
+    const float* xlo, const float* xhi, float inv_dx2, float inv_dy2,
+    float inv_dz2, float dtau, float decay, float zlo_hi, float zhi_hi,
+    float zlo_lo, float zhi_lo, int zero_grad_x, int x_off, int nx, int bx,
+    int ny, int nz, unsigned int* err_bits, cudaStream_t stream) {
+  const dim3 grid = ns3d::grid_for(bx, ny, nz);
+  const dim3 block = ns3d::block_shape();
+  const BCConsts k{inv_dx2, inv_dy2, inv_dz2, dtau, decay, zlo_hi,
+                   zhi_hi, zero_grad_x, xlo, xhi, zlo_lo, zhi_lo};
+  const DistShape sh{x_off, nx, bx, ny, nz};
+  poisson_iter_ext_bc_dist_kernel<<<grid, block, 0, stream>>>(Slab{hi, hi_lo, hi_hi}, Slab{lo, lo_lo, lo_hi}, dpr, rhs, hi_out, lo_out, dpr_out, k, sh, err_bits);
   return static_cast<int>(cudaGetLastError());
 }

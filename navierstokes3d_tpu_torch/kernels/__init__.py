@@ -48,6 +48,16 @@ KERNELS = (
            "navierstokes3d_tpu_torch/csrc/poisson.cu",
            "navierstokes3d_tpu/kernels/poisson.py:836 (K8a), :1007 (K8b)",
            poisson.poisson_iter_sweeps, poisson.poisson_iter_sweeps_plain),
+    Kernel("K7-dist poisson_iter_bc_dist",
+           "navierstokes3d_tpu_torch/csrc/poisson.cu",
+           "navierstokes3d_tpu/kernels/poisson.py:914 (local_rows)",
+           poisson.poisson_iter_bc_dist, poisson.poisson_iter_bc_dist_plain),
+    Kernel("K2-dist poisson_iter_ext_bc_dist",
+           "navierstokes3d_tpu_torch/csrc/poisson.cu",
+           "navierstokes3d_tpu/kernels/poisson.py:1230 (folded=False, "
+           "local_rows)",
+           poisson.poisson_iter_ext_bc_dist,
+           poisson.poisson_iter_ext_bc_dist_plain),
 )
 
 

@@ -43,6 +43,13 @@ planes are computed in float64 and rounded once, as the JAX kernel's
 `lanes()` does; they can differ by an ulp from bc.hydrostatic_x's, which
 evaluates the profile in the field's dtype.
 
+K7-dist (`poisson_iter_bc_dist`) and K2-dist (`poisson_iter_ext_bc_dist`)
+are the same call sites built with local_rows (`rows_of` :503, `p_ext_of`
+:515): one x-shard of the distributed solve (parallel/halo.py), K7's
+iteration and the (hi, lo) pair's unfolded one (`compute_slab_ext` :353),
+with every BC guard keyed on the global x position, the neighbours' face
+planes as operands and the check value of the shard's interior cells.
+
 `compensated_residual` (kernels/poisson.py:1311-1395) and `residual_max`
 (`residual_flat`, :1287-1309) stay torch ops, as XLA computes them in the
 JAX package; both run once per restart or check, not per iteration.
@@ -398,7 +405,11 @@ class BCOperator:
     """K7's constants on one device, float32: the inverse squared spacings,
     dtau and decay and the z constants rounded as the JAX kernel rounds
     them, and the Dirichlet planes (ny, nz) rounded once from float64
-    (None where that x face has no plane)."""
+    (None where that x face has no plane). K2-dist also takes the z
+    constants' lo words zlo_lo/zhi_lo (float64 minus its float32 rounding,
+    rounded: the JAX kernel's `zlo_lo`, kernels/poisson.py:234-239) and
+    writes 0 on the lo word's Dirichlet planes; the dist kernels key their
+    guards on the global x extent nx."""
     inv_dx2: float
     inv_dy2: float
     inv_dz2: float
@@ -409,10 +420,16 @@ class BCOperator:
     xhi: Optional[torch.Tensor]
     z_lo_add: float
     z_hi_add: float
+    zlo_lo: float
+    zhi_lo: float
+    nx: int
 
 
 def make_bc_operator(spec: PoissonBCSpec, grid, device) -> BCOperator:
     f32 = lambda v: float(np.float32(v))  # noqa: E731
+
+    def lo_word(v):
+        return f32(np.float64(v) - np.float64(np.float32(v)))
 
     def plane(p):
         if p is None:
@@ -425,30 +442,40 @@ def make_bc_operator(spec: PoissonBCSpec, grid, device) -> BCOperator:
         inv_dz2=f32(1.0 / grid.dz / grid.dz), dtau=f32(grid.dtau),
         decay=f32(1.0 - grid.damp), zero_grad_x=bool(spec.zero_grad_x),
         xlo=plane(spec.xlo_plane), xhi=plane(spec.xhi_plane),
-        z_lo_add=f32(spec.z_lo_add), z_hi_add=f32(spec.z_hi_add))
+        z_lo_add=f32(spec.z_lo_add), z_hi_add=f32(spec.z_hi_add),
+        zlo_lo=lo_word(spec.z_lo_add), zhi_lo=lo_word(spec.z_hi_add),
+        nx=grid.nx)
 
 
-def apply_bc_sequence(q, op: BCOperator):
+def apply_bc_sequence(q, op: BCOperator, lo_word: bool = False,
+                      x_lo: bool = True, x_hi: bool = True):
     """set_bc_Pr!'s sequence on the updated field (`apply_bc_rows`): x
     copies where x is zero-gradient, y copies, z copies plus their nonzero
-    constants, then the Dirichlet x planes. Returns a new tensor."""
+    constants, then the Dirichlet x planes. lo_word: the sequence of the
+    pair's lo word (the z constants' lo words, 0 on the Dirichlet planes).
+    x_lo / x_hi: whether q's first / last x-plane is the global x face (a
+    shard holds only its own). Returns a new tensor."""
     q = q.clone()
     if op.zero_grad_x:
-        q[0] = q[1]
-        q[-1] = q[-2]
+        if x_lo:
+            q[0] = q[1]
+        if x_hi:
+            q[-1] = q[-2]
     q[:, 0] = q[:, 1]
     q[:, -1] = q[:, -2]
+    za, zb = (op.zlo_lo, op.zhi_lo) if lo_word else (op.z_lo_add,
+                                                      op.z_hi_add)
     lo, hi = q[:, :, 1], q[:, :, -2]
-    if op.z_lo_add != 0.0:
-        lo = lo + op.z_lo_add
-    if op.z_hi_add != 0.0:
-        hi = hi + op.z_hi_add
+    if za != 0.0:
+        lo = lo + za
+    if zb != 0.0:
+        hi = hi + zb
     q[:, :, 0] = lo
     q[:, :, -1] = hi
-    if op.xlo is not None:
-        q[0] = op.xlo
-    if op.xhi is not None:
-        q[-1] = op.xhi
+    if op.xlo is not None and x_lo:
+        q[0] = 0.0 if lo_word else op.xlo
+    if op.xhi is not None and x_hi:
+        q[-1] = 0.0 if lo_word else op.xhi
     return q
 
 
@@ -508,6 +535,210 @@ def poisson_iter_bc(pr, dpr, rhs, pr_out, dpr_out, op: BCOperator) -> None:
 
 
 poisson_iter_bc.launches = 0
+
+
+# ---- K7-dist and K2-dist: one x-shard of the distributed solve ----
+
+def _x_ext(p, h_lo, h_hi):
+    """p with its -x and +x halo planes, (bx+2, ny, nz); an open face (None)
+    reads as zeros, as lax.ppermute's missing links give."""
+    def plane(h):
+        return torch.zeros_like(p[:1]) if h is None else h[None]
+    return torch.cat((plane(h_lo), p, plane(h_hi)))
+
+
+def _lap_unfolded(pe, op: BCOperator):
+    """K7's Laplacian (lap_of_rows's order) on every owned cell of a shard,
+    from its x-extended field pe: (lap, pc) over (bx, ny-2, nz-2)."""
+    pc = pe[1:-1, 1:-1, 1:-1]
+    lap = ((pe[2:, 1:-1, 1:-1] - pc) + (pe[:-2, 1:-1, 1:-1] - pc)) * op.inv_dx2
+    lap = lap + ((pe[1:-1, 2:, 1:-1] - pc)
+                 + (pe[1:-1, :-2, 1:-1] - pc)) * op.inv_dy2
+    lap = lap + ((pe[1:-1, 1:-1, 2:] - pc)
+                 + (pe[1:-1, 1:-1, :-2] - pc)) * op.inv_dz2
+    return lap, pc
+
+
+def _live_rows(bx: int, x_off: int, op: BCOperator, device):
+    """The shard's planes that update (`rows_of`): globally interior in x,
+    broadcast-shaped (bx, 1, 1)."""
+    gx = x_off + torch.arange(bx, device=device)
+    return ((gx >= 1) & (gx <= op.nx - 2)).reshape(bx, 1, 1)
+
+
+def _dist_step(fields, dpr, rhs, dpr_out, x_off, op: BCOperator, check):
+    """The damped update of a shard from its x-extended words `fields`
+    (one for K7-dist, (hi, lo) for K2-dist): dpr_out written (0 off the
+    interior); returns (the check value or None, the faces (x_lo, x_hi)
+    of the global domain the shard holds)."""
+    bx = dpr.shape[0]
+    live = _live_rows(bx, x_off, op, dpr.device)
+    laps = [_lap_unfolded(pe, op)[0] for pe in fields]
+    resid = laps[0] - rhs[:, 1:-1, 1:-1]
+    if len(laps) == 2:
+        resid = resid + laps[1]
+    d = dpr[:, 1:-1, 1:-1] * op.decay + op.dtau * resid
+    dpr_out.zero_()
+    dpr_out[:, 1:-1, 1:-1] = torch.where(live, d, torch.zeros_like(d))
+    err = (torch.max(torch.where(live, torch.abs(resid),
+                                 torch.zeros_like(resid)))
+           if check else None)
+    return err, (x_off == 0, x_off + bx == op.nx)
+
+
+def _check_dist(name, p, halos, x_off, op: BCOperator, outs, ins):
+    """Validate a dist launch: shapes, the shard's place in the global x
+    extent, a halo plane wherever a neighbour exists, Jacobi outputs."""
+    bx, ny, nz = p.shape
+    if bx < 2 or not 0 <= x_off <= op.nx - bx:
+        raise ValueError(f"{name}: a shard of {bx} planes at x_off={x_off} "
+                         f"does not fit nx={op.nx} with >= 2 planes")
+    for i, (lo, hi) in enumerate(halos):
+        for side, h, needed in (("lo", lo, x_off > 0),
+                                ("hi", hi, x_off + bx < op.nx)):
+            if h is None:
+                if needed:
+                    raise ValueError(f"{name}: halo plane {i} {side} is "
+                                     "missing where a neighbour exists")
+                continue
+            _build.require(f"halo {i} {side}", h, (ny, nz), torch.float32,
+                           p.device)
+    for fname, t in (("xlo", op.xlo), ("xhi", op.xhi)):
+        if t is not None:
+            _build.require(fname, t, (ny, nz), torch.float32, p.device)
+    optr = {t.data_ptr() for t in outs}
+    if len(optr) != len(outs) or optr & {t.data_ptr() for t in ins}:
+        raise ValueError(f"{name}: the outputs must be distinct and alias "
+                         "no input")
+
+
+def poisson_iter_bc_dist_plain(pr, dpr, rhs, pr_out, dpr_out, h_lo, h_hi,
+                               x_off: int, op: BCOperator,
+                               check: bool) -> Optional[torch.Tensor]:
+    """Plain PyTorch version of K7-dist (same arguments and effects as
+    poisson_iter_bc_dist)."""
+    poisson_iter_bc_dist_plain.calls += 1
+    err, (x_lo, x_hi) = _dist_step([_x_ext(pr, h_lo, h_hi)], dpr, rhs,
+                                   dpr_out, x_off, op, check)
+    # off the interior q = pc + dtau*0, as the kernels compute it
+    pr_out.copy_(apply_bc_sequence(pr + op.dtau * dpr_out, op, x_lo=x_lo,
+                                   x_hi=x_hi))
+    return err
+
+
+poisson_iter_bc_dist_plain.calls = 0
+
+
+def poisson_iter_bc_dist(pr, dpr, rhs, pr_out, dpr_out, h_lo, h_hi,
+                         x_off: int, op: BCOperator,
+                         check: bool) -> Optional[torch.Tensor]:
+    """K7 on one x-shard: pr, dpr, rhs are the shard's (bx, ny, nz) owned
+    planes at global x offset x_off, h_lo / h_hi the (ny, nz) planes of
+    its -x / +x neighbour (None at an open global face). Writes every cell
+    of pr_out and dpr_out (which must alias no input), updating the
+    globally interior cells and applying the BC sequence where the global
+    faces lie. With check=True returns the max |resid| over the shard's
+    interior cells (a 0-dim tensor, the residual of the state entering the
+    iteration), else None. CUDA tensors launch the kernel (or raise); CPU
+    tensors run the plain version."""
+    if not _build.on_cuda(pr, "poisson_iter_bc_dist"):
+        return poisson_iter_bc_dist_plain(pr, dpr, rhs, pr_out, dpr_out,
+                                          h_lo, h_hi, x_off, op, check)
+    dev = pr.device
+    for fname, t in (("dpr", dpr), ("rhs", rhs), ("pr_out", pr_out),
+                     ("dpr_out", dpr_out), ("pr", pr)):
+        _build.require(fname, t, pr.shape, torch.float32, dev)
+    ins = [t for t in (pr, dpr, rhs, h_lo, h_hi) if t is not None]
+    _check_dist("poisson_iter_bc_dist", pr, [(h_lo, h_hi)], x_off, op,
+                (pr_out, dpr_out), ins)
+    err = torch.zeros((1,), dtype=torch.int32, device=dev) if check else None
+    bx, ny, nz = pr.shape
+    lib = _build.load()
+    f = ctypes.c_float
+    rc = lib.ns3d_poisson_iter_bc_dist(
+        pr.data_ptr(), _build.ptr(h_lo), _build.ptr(h_hi), dpr.data_ptr(),
+        rhs.data_ptr(), pr_out.data_ptr(), dpr_out.data_ptr(),
+        _build.ptr(op.xlo), _build.ptr(op.xhi), f(op.inv_dx2),
+        f(op.inv_dy2), f(op.inv_dz2), f(op.dtau), f(op.decay),
+        f(op.z_lo_add), f(op.z_hi_add), int(op.zero_grad_x), x_off, op.nx,
+        bx, ny, nz, _build.ptr(err), _build.stream_of(pr))
+    _build.check(rc, "poisson_iter_bc_dist")
+    poisson_iter_bc_dist.launches += 1
+    return err.view(torch.float32)[0] if check else None
+
+
+poisson_iter_bc_dist.launches = 0
+
+
+def poisson_iter_ext_bc_dist_plain(hi, lo, dpr, rhs, hi_out, lo_out,
+                                   dpr_out, h_lo, h_hi, l_lo, l_hi,
+                                   x_off: int, op: BCOperator,
+                                   check: bool) -> Optional[torch.Tensor]:
+    """Plain PyTorch version of K2-dist (same arguments and effects as
+    poisson_iter_ext_bc_dist)."""
+    poisson_iter_ext_bc_dist_plain.calls += 1
+    err, (x_lo, x_hi) = _dist_step(
+        [_x_ext(hi, h_lo, h_hi), _x_ext(lo, l_lo, l_hi)], dpr, rhs, dpr_out,
+        x_off, op, check)
+    # every cell: u = lo + dtau*d (d = 0 off the interior), then two_sum
+    u = lo + op.dtau * dpr_out
+    s = hi + u
+    ap = s - u
+    bp = s - ap
+    ql = (hi - ap) + (u - bp)
+    hi_out.copy_(apply_bc_sequence(s, op, x_lo=x_lo, x_hi=x_hi))
+    lo_out.copy_(apply_bc_sequence(ql, op, lo_word=True, x_lo=x_lo,
+                                   x_hi=x_hi))
+    return err
+
+
+poisson_iter_ext_bc_dist_plain.calls = 0
+
+
+def poisson_iter_ext_bc_dist(hi, lo, dpr, rhs, hi_out, lo_out, dpr_out, h_lo,
+                             h_hi, l_lo, l_hi, x_off: int, op: BCOperator,
+                             check: bool) -> Optional[torch.Tensor]:
+    """K2's unfolded iteration of the (hi, lo) pressure pair on one
+    x-shard: the residual (lap(hi) - rhs) + lap(lo) and an exact two_sum
+    update, then the BC sequence on hi and, with the lo words of its
+    constants, on lo. Operands as poisson_iter_bc_dist's, with a halo pair
+    per word (h_lo, h_hi for hi; l_lo, l_hi for lo). Writes every cell of
+    hi_out, lo_out and dpr_out (which must alias no input). x_off = 0 on
+    the whole grid with no halo planes is K2's unfolded single-device form.
+    CUDA tensors launch the kernel (or raise); CPU tensors run the plain
+    version."""
+    if not _build.on_cuda(hi, "poisson_iter_ext_bc_dist"):
+        return poisson_iter_ext_bc_dist_plain(
+            hi, lo, dpr, rhs, hi_out, lo_out, dpr_out, h_lo, h_hi, l_lo,
+            l_hi, x_off, op, check)
+    dev = hi.device
+    for fname, t in (("lo", lo), ("dpr", dpr), ("rhs", rhs),
+                     ("hi_out", hi_out), ("lo_out", lo_out),
+                     ("dpr_out", dpr_out), ("hi", hi)):
+        _build.require(fname, t, hi.shape, torch.float32, dev)
+    ins = [t for t in (hi, lo, dpr, rhs, h_lo, h_hi, l_lo, l_hi)
+           if t is not None]
+    _check_dist("poisson_iter_ext_bc_dist", hi, [(h_lo, h_hi), (l_lo, l_hi)],
+                x_off, op, (hi_out, lo_out, dpr_out), ins)
+    err = torch.zeros((1,), dtype=torch.int32, device=dev) if check else None
+    bx, ny, nz = hi.shape
+    lib = _build.load()
+    f = ctypes.c_float
+    rc = lib.ns3d_poisson_iter_ext_bc_dist(
+        hi.data_ptr(), _build.ptr(h_lo), _build.ptr(h_hi), lo.data_ptr(),
+        _build.ptr(l_lo), _build.ptr(l_hi), dpr.data_ptr(), rhs.data_ptr(),
+        hi_out.data_ptr(), lo_out.data_ptr(), dpr_out.data_ptr(),
+        _build.ptr(op.xlo), _build.ptr(op.xhi), f(op.inv_dx2),
+        f(op.inv_dy2), f(op.inv_dz2), f(op.dtau), f(op.decay),
+        f(op.z_lo_add), f(op.z_hi_add), f(op.zlo_lo), f(op.zhi_lo),
+        int(op.zero_grad_x), x_off, op.nx, bx, ny, nz, _build.ptr(err),
+        _build.stream_of(hi))
+    _build.check(rc, "poisson_iter_ext_bc_dist")
+    poisson_iter_ext_bc_dist.launches += 1
+    return err.view(torch.float32)[0] if check else None
+
+
+poisson_iter_ext_bc_dist.launches = 0
 
 
 # ---- residual evaluations (torch ops, as XLA computes them in JAX) ----

@@ -44,6 +44,11 @@ compat mode, the reference's own semantics (the JAX package's unfused
   3. correct_v, cylinder mask, the compat velocity BCs (the multi
      reference's omitted bc_y!(Vy)/bc_z!(Vz)), as torch ops
   4. gather advection with the reference's Vz bug (Vz never advected)
+
+`step_shard_map(mesh)` is the distributed step (`--comm shard_map`): the
+Poisson solve runs over a mesh of shards (parallel/halo.py; per shard
+K2-dist on the (hi, lo) pair outside compat mode, K7-dist under it, on an
+x-only mesh), the rest of the step is the unfused chain as torch ops.
 """
 
 from __future__ import annotations
@@ -66,6 +71,8 @@ from ..ops import physics as ph
 from ..ops.stencil import div
 from ..ops.cylinder import (CylinderMasks, apply_cylinder, build_masks,
                             mask_tracer)
+from ..parallel.halo import build_poisson_shard_map
+from ..parallel.mesh import Mesh
 from ..ptloop import host_scalar, np_float, pt_loop, pt_loop_fused
 from ..state import FlowState, StepStats, zeros_state
 
@@ -107,6 +114,10 @@ class ChorinSolver:
     `predictor_divv` and `stored_residual_err`. The solver runs on the
     card unless the caller passes device="cpu"."""
 
+    # select-shift advection's window: k=2 is a 2x margin over the
+    # CFL_adv=1 displacement bound, clamp-counted beyond (ops/advect.py)
+    advect_k = 2
+
     def __init__(self, cfg: SimConfig, device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -145,11 +156,8 @@ class ChorinSolver:
         self._stall = ((cfg.numerics.stall_ratio, cfg.numerics.stall_checks)
                        if stall_on else None)
         # compat keeps the reference's gather advection (any displacement,
-        # clamped to the array bounds); otherwise select-shift, whose
-        # window k=2 is a 2x margin over the CFL_adv=1 displacement bound,
-        # clamp-counted beyond (ops/advect.py)
+        # clamped to the array bounds); otherwise select-shift (advect_k)
         self.advect_method = "gather" if cfg.compat else "selectshift"
-        self.advect_k = 2
         # use_pallas=False runs the plain PyTorch versions on every
         # device; otherwise the wrappers launch the hand-written kernels
         # for CUDA tensors (CPU tensors always take the plain versions)
@@ -690,26 +698,79 @@ class ChorinSolver:
             / ft(phys.psc)
 
     def step(self, state: FlowState) -> Tuple[FlowState, StepStats]:
+        return self._step_impl(state, self.poisson_solve)
+
+    def _step_impl(self, state: FlowState, poisson_fn: Callable,
+                   fused: bool = True) -> Tuple[FlowState, StepStats]:
+        """One step around `poisson_fn(pr, dprdtau, divv) -> (pr, dprdtau,
+        stats)`. fused=False runs the JAX package's unfused `_step_impl`
+        chain as torch ops (what its distributed step runs on a mesh of
+        more than one device, allow_pallas_advect=False): update_tau,
+        predict_v, cylinder mask, update_divv; correct_v, cylinder mask,
+        set_bc_vel; the configured advection method."""
         k = self._consts
-        vx, vy, vz, divv = self._predict(state.vx, state.vy, state.vz,
-                                         self.masks, k)
+        if fused:
+            predict, correct = self._predict, self._correct
+        else:
+            predict = k_step.predict_ops
+            correct = functools.partial(k_step.correct_ops,
+                                        set_bc_vel=self.set_bc_vel)
+        vx, vy, vz, divv = predict(state.vx, state.vy, state.vz, self.masks,
+                                   k)
         c = mask_tracer(state.c, self.masks)
-        pr, dprdtau, stats = self.poisson_solve(state.pr, state.dprdtau,
-                                                divv)
+        pr, dprdtau, stats = poisson_fn(state.pr, state.dprdtau, divv)
         # pop the stored-pair low word out of the stats channel into the
         # state (the corrector and the next solve use hi only)
         pr_lo, stats.pr_lo = stats.pr_lo, None
-        vx, vy, vz = self._correct(vx, vy, vz, pr, self.masks, k)
-        if self.advect_method == "gather":
+        vx, vy, vz = correct(vx, vy, vz, pr, self.masks, k)
+        if self.advect_method == "gather" or not fused:
             vx, vy, vz, c, n_clamped = adv.advect(
                 vx, vy, vz, c, k.dt, k.dx, k.dy, k.dz,
-                compat=self.cfg.compat, method="gather")
+                compat=self.cfg.compat, method=self.advect_method,
+                k=self.advect_k)
         else:
             vx, vy, vz, c, n_clamped = k_advect.advect(
                 vx, vy, vz, c, k, self.advect_k, plain=self.plain)
         stats.advect_clamped = int(n_clamped.item())
         return (FlowState(pr=pr, vx=vx, vy=vy, vz=vz, c=c, dprdtau=dprdtau,
                           pr_lo=pr_lo), stats)
+
+    def step_shard_map(self, mesh: Mesh, use_pallas: Optional[bool] = None
+                       ) -> Callable:
+        """A step whose Poisson solve runs distributed over `mesh`
+        (parallel/halo.py), the JAX package's `step_shard_map_jit`
+        (models/chorin.py:1642-1688). The state stays global-view on the
+        solver's device; the solve splits pr, dprdtau and the RHS into the
+        mesh's blocks at entry and joins them at exit. On a mesh of more
+        than one shard the rest of the step is the unfused chain as torch
+        ops; on one shard it is the solver's own (K3, K4, K5 outside
+        compat mode). The solve's iters, err and err_hist go into the
+        StepStats; there is no stored pair (pr_lo is None).
+
+        use_pallas (auto: the solver's kernels carry its hot path, i.e.
+        float32 and use_pallas not False, the mesh is x-only and the halo
+        width 1): the per-shard kernel loop, K2-dist on the (hi, lo) pair
+        where the solver is extended, else K7-dist; otherwise the plain
+        torch-ops loop (any 3D mesh, any halo width)."""
+        if use_pallas is None:
+            use_pallas = (self.dtype == torch.float32 and not self.plain
+                          and mesh.shape[1] == 1 and mesh.shape[2] == 1
+                          and self.cfg.parallel.halo == 1)
+        solve = build_poisson_shard_map(
+            mesh, self.grid, self.cfg.physics, self.cfg.numerics.eps_it,
+            self.cfg.variant, self.dtype, halo_width=self.cfg.parallel.halo,
+            pressure_split=self.pressure_split, stall=self._stall,
+            use_pallas=use_pallas, extended=self.extended and use_pallas)
+        rho_dt = self.cfg.physics.rho / self.grid.dt
+
+        def poisson(pr, dprdtau, divv):
+            pr, dprdtau, iters, err, hist = solve(pr, dprdtau, rho_dt * divv)
+            return pr, dprdtau, StepStats(iters=iters, err=err,
+                                          err_hist=hist)
+
+        def step(state: FlowState) -> Tuple[FlowState, StepStats]:
+            return self._step_impl(state, poisson, fused=mesh.size == 1)
+        return step
 
     def run(self, nt: Optional[int] = None,
             state: Optional[FlowState] = None,

@@ -23,6 +23,7 @@ import navierstokes3d_tpu_torch.config as tcfg
 import navierstokes3d_tpu_torch.grid as tgrid
 from navierstokes3d_tpu_torch import kernels
 from navierstokes3d_tpu_torch.kernels import _build
+from navierstokes3d_tpu_torch.parallel import make_mesh
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
@@ -146,6 +147,13 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
         assert stats.iters > 0
         if cfg is multi:
             assert stats.iters_ext > 0
+    # the sharded step on an x-only mesh runs K2-dist, and K7-dist in
+    # compat mode
+    mesh = make_mesh((3, 1, 1), "cpu")
+    for cfg in (multi, nt.preset_multi(nx=12, dtype="float32")):
+        s = nt.ChorinSolver(cfg, device="cpu")
+        state, stats = s.step_shard_map(mesh)(s.init_state())
+        assert stats.iters > 0
     for k in kernels.KERNELS:
         assert k.wrapper.launches == 0, k.name
         assert k.plain.calls > 0, k.name
@@ -175,4 +183,5 @@ def test_build_sources_and_key():
     assert set(_build.SIGNATURES) == {
         "ns3d_poisson_iter", "ns3d_poisson_iter_ext", "ns3d_poisson_iter_bc",
         "ns3d_poisson_iter_sweeps", "ns3d_predict", "ns3d_correct",
-        "ns3d_advect"}
+        "ns3d_advect", "ns3d_poisson_iter_bc_dist",
+        "ns3d_poisson_iter_ext_bc_dist"}

@@ -201,12 +201,13 @@ def test_step_on_card_matches_cpu(preset):
             sb.iters, sb.iters_ext, sb.advect_clamped)
         for name in ("pr", "vx", "vy", "vz", "c", "dprdtau", "pr_lo"):
             assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
-    # nx=15 is no wide grid: the sweep plan is off and K8 does not launch
+    # nx=15 is no wide grid: the sweep plan is off and K8 does not launch;
+    # K7 (compat) and the dist kernels (sharded solves) are off this path
+    on_path = {"K1", "K3", "K4", "K5"} | ({"K2"} if preset == "multi"
+                                          else set())
     for k in kernels.KERNELS:
-        on_path = (k.name not in ("K7 poisson_iter_bc",
-                                  "K8 poisson_iter_sweeps")
-                   and (preset == "multi" or k.name != "K2 poisson_iter_ext"))
-        assert (k.wrapper.launches > 0) == on_path, k.name
+        assert ((k.wrapper.launches > 0)
+                == (k.name.split()[0] in on_path)), k.name
 
 
 @pytest.mark.parametrize("preset", ["gpu", "multi"])
@@ -256,3 +257,86 @@ def test_compat_step_on_card_matches_cpu(preset):
             assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
     for k in kernels.KERNELS:
         assert (k.wrapper.launches > 0) == (k.name == "K7 poisson_iter_bc")
+
+
+@pytest.mark.parametrize("variant,split", [("multi", False),
+                                           ("gpu", False), ("gpu", True)])
+def test_dist_kernels_match_plain(variant, split):
+    """K7-dist and K2-dist on every shard of 40x24x37 over 4 shards (and
+    the 2-plane shards of 20), with and without the check: every output
+    and the check value bitwise equal to the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    make = nt.preset_gpu if variant == "gpu" else nt.preset_multi
+    cfg = make(nx=40, dtype="float32")
+    cfg = cfg.replace(numerics=dataclasses.replace(cfg.numerics,
+                                                   nz_override=37))
+    g = nt.make_grid(cfg)
+    op = kp.make_bc_operator(kp.poisson_bc_spec(variant, g, cfg.physics,
+                                                split), g, "cuda")
+    rng = np.random.default_rng(7)
+    pr = _rand(rng, g.shape_c, 50.0)
+    lo = _rand(rng, g.shape_c, 50.0 * 2.0 ** -24)
+    rhs = _rand(rng, g.shape_c, 1e5)
+    dpr = torch.zeros_like(pr)
+    dpr[1:-1, 1:-1, 1:-1] = _rand(rng, (g.nx - 2, g.ny - 2, g.nz - 2), 1e3)
+    for nshards in (4, 20):
+        bx = g.nx // nshards
+        for s in range(nshards):
+            x0, x1 = s * bx, (s + 1) * bx
+            halo = [(f[x0 - 1] if s else None,
+                     f[x1] if s < nshards - 1 else None) for f in (pr, lo)]
+            for check in (False, True):
+                a = [torch.full_like(pr[x0:x1], float("nan"))
+                     for _ in range(2)]
+                b = [torch.empty_like(pr[x0:x1]) for _ in range(2)]
+                ea = kp.poisson_iter_bc_dist(pr[x0:x1], dpr[x0:x1],
+                                             rhs[x0:x1], *a, *halo[0], x0,
+                                             op, check)
+                eb = kp.poisson_iter_bc_dist_plain(
+                    pr[x0:x1], dpr[x0:x1], rhs[x0:x1], *b, *halo[0], x0,
+                    op, check)
+                assert all(torch.equal(x, y) for x, y in zip(a, b)), s
+                a = [torch.full_like(pr[x0:x1], float("nan"))
+                     for _ in range(3)]
+                b = [torch.empty_like(pr[x0:x1]) for _ in range(3)]
+                fa = kp.poisson_iter_ext_bc_dist(
+                    pr[x0:x1], lo[x0:x1], dpr[x0:x1], rhs[x0:x1], *a,
+                    *halo[0], *halo[1], x0, op, check)
+                fb = kp.poisson_iter_ext_bc_dist_plain(
+                    pr[x0:x1], lo[x0:x1], dpr[x0:x1], rhs[x0:x1], *b,
+                    *halo[0], *halo[1], x0, op, check)
+                assert all(torch.equal(x, y) for x, y in zip(a, b)), s
+                if check:
+                    assert float(ea) == float(eb) and float(fa) == float(fb)
+    with pytest.raises(ValueError, match="halo plane"):
+        kp.poisson_iter_bc_dist(pr[10:20], dpr[10:20], rhs[10:20],
+                                *(torch.empty_like(pr[:10]) for _ in
+                                  range(2)), None, pr[20], 10, op, False)
+
+
+@pytest.mark.parametrize("compat", [False, True])
+def test_sharded_step_on_card_matches_cpu(compat):
+    """Two sharded multi steps at nx=16 on a (4,1,1) mesh of card shards
+    against the same on CPU shards: equal counts, every field bitwise; the
+    solve launches only its dist kernel (K7-dist under compat, K2-dist
+    otherwise) and the rest of the step no kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    from navierstokes3d_tpu_torch.parallel import make_mesh
+    cfg = nt.preset_multi(nx=16, compat=compat, dtype="float32")
+    card = nt.ChorinSolver(cfg, device="cuda")
+    cpu = nt.ChorinSolver(cfg, device="cpu")
+    sa = card.step_shard_map(make_mesh((4, 1, 1), "cuda:0"))
+    sb = cpu.step_shard_map(make_mesh((4, 1, 1), "cpu"))
+    kernels.reset_counts()
+    a, b = card.init_state(), cpu.init_state()
+    for _ in range(2):
+        a, ta = sa(a)
+        b, tb = sb(b)
+        assert (ta.iters, ta.advect_clamped) == (tb.iters, tb.advect_clamped)
+        for name in ("pr", "vx", "vy", "vz", "c", "dprdtau"):
+            assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+    on = "K7-dist" if compat else "K2-dist"
+    for k in kernels.KERNELS:
+        assert (k.wrapper.launches > 0) == k.name.startswith(on), k.name
