@@ -76,6 +76,36 @@ Phases (any failure exits non-zero; nothing is caught):
      solve converged. Step 1's Poisson solve again on a (1,1,1) mesh from
      the same (pr, dprdtau, rhs): equal iterations and err, pr and dprdtau
      bitwise. Then one more step of each traced with torch.profiler
+ 13. unchained kernels: K6 (advect_branch_pre) at 255x153x153 float32 on
+     seeded velocities at two scales (one with clamps): each branch from
+     its torch-op face averages (kernels/advect.py pre_velocities, NaN in
+     the pads, which it must not read) against its plain version and
+     against K5 on the same velocities: bitwise, equal clamp counts; ms
+     per branch, the plain version's, MB per launch and the bound
+ 14. unchained path: ChorinSolver(preset_gpu(nx=255, compat=False,
+     dtype='float32'), fused_step=False) for 4 steps from init_state,
+     launch counts set to 0 just before and read just after: K6 4
+     launches a step, K1 launched, K3, K4 and K5 not, no plain version;
+     every solve converges, stored-state err below eps_it, finite fields;
+     the counts printed beside phase 4's; one more step traced
+ 15. dma path: ChorinSolver(preset_gpu(nx=255, ...), poisson_mode='dma')
+     for 4 steps from init_state, counts as in 14: K7 the only Poisson
+     kernel, K3, K4 and K5 launched, no plain version; each step's
+     iterations, err and exit (converged, stalled or the budget; no
+     accuracy phase, so a float32 stall is a result); finite fields;
+     step 1 again with use_pallas=False: equal counts, pr within MAX_ULP;
+     K7 under the split gpu spec against its plain version (the function
+     of the dma-mode kernel K11); one more step traced
+ 16. resident: K10 (poisson_iter_resident, one cooperative launch of nit
+     iterations) at 63x38x38 with nit = 37 and at 255x153x153 with nit =
+     152 on resident_probe.py's seeded inputs (gpu operator): pr, dpr and
+     the check value bitwise equal to nit K1 launches and to the plain
+     version; K10's time and that of the nit K1 launches (device time from
+     torch.profiler, and CUDA events); at 63 one Poisson solve (the gpu
+     preset's first, K1 over its budget) whose first chunk runs on K10 and
+     the rest in pt_loop_fused(seed0=True) on K1, with the launch counts
+     set to 0 just before and read just after: the unseeded K1 loop's
+     iterations, err and fields, bitwise
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -102,6 +132,7 @@ from navierstokes3d_tpu_torch.kernels import fused_step as k_step  # noqa: E402
 from navierstokes3d_tpu_torch.kernels import poisson as k_poisson  # noqa: E402
 from navierstokes3d_tpu_torch.parallel import (  # noqa: E402
     build_poisson_shard_map, make_mesh)
+from navierstokes3d_tpu_torch.ptloop import pt_loop_fused  # noqa: E402
 
 NX = 255
 NSTEPS = 4
@@ -139,13 +170,27 @@ FLOPS_PER_CELL = {"K1 poisson_iter": 22, "K2 poisson_iter_ext": 45,
                   "K3 predict": 71, "K4 correct": 12, "K5 advect": 50,
                   "K7 poisson_iter_bc": 20, "K8 poisson_iter_sweeps": 22,
                   "K7-dist poisson_iter_bc_dist": 20,
-                  "K2-dist poisson_iter_ext_bc_dist": 45}
+                  "K2-dist poisson_iter_ext_bc_dist": 45,
+                  "K6 advect_pre": 40, "K10 poisson_iter_resident": 22}
 K1_NAME = "K1 poisson_iter"
 K2_NAME = "K2 poisson_iter_ext"
 K7_NAME = "K7 poisson_iter_bc"
 K8_NAME = "K8 poisson_iter_sweeps"
 K7D_NAME = "K7-dist poisson_iter_bc_dist"
 K2D_NAME = "K2-dist poisson_iter_ext_bc_dist"
+K6_NAME = "K6 advect_pre"
+K10_NAME = "K10 poisson_iter_resident"
+# the dma-mode kernel, whose function K7's kernel computes: its row in the
+# JSON line carries K7's numbers under the split gpu spec and K7's
+# launches on the dma path
+K11_ROW = {"name": "K11 poisson_iter_bc (dma mode)",
+           "source": "navierstokes3d_tpu_torch/csrc/poisson.cu",
+           "replaces": "navierstokes3d_tpu/kernels/poisson.py:1451"}
+# K10's phase: the 63x38x38 grid with nit = nchk, and 255 with nit = 152
+RESIDENT_NX = (63, 255)
+RESIDENT_NIT = {63: 37, 255: 152}
+UNCHAINED_STEPS = 4
+DMA_STEPS = 4
 # the dist kernels' device symbols as the profiler names them (K7-dist is
 # the halo instance of K7's kernel template)
 DIST_SYMBOLS = {"K7": "poisson_iter_bc_kernel<true>",
@@ -234,18 +279,22 @@ def device_ms(fn, reps: int, kernel: str, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    durs = [e.time_range.end - e.time_range.start for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and kernel in e.name]
-    # the tracer may drop a launch at the window's edge: the mean over
-    # those it kept
-    require(len(durs) >= reps // 2, f"traced {len(durs)} launches of "
-            f"{kernel}, expected {reps}")
-    return sum(durs) / len(durs) / 1e3
+    # the tracer may drop a launch at the window's edge (the mean is over
+    # those it kept) and now and then a whole window: trace it again then
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        durs = [e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.name]
+        if len(durs) >= reps // 2:
+            return sum(durs) / len(durs) / 1e3
+        print(f"[trace] {len(durs)} launches of {kernel} traced, expected "
+              f"{reps}: tracing again")
+    raise RuntimeError(f"chip_smoke: traced {len(durs)} launches of "
+                       f"{kernel}, expected {reps}")
 
 
 def bound(name: str, tensors_in, tensors_out, cells: int,
@@ -528,38 +577,11 @@ def phase_kernels(gpu, multi) -> dict:
 def phase_k7(solvers) -> dict:
     """K7 against its plain version with each compat solver's BC spec (the
     unsplit gpu one first: its Dirichlet planes are two more inputs)."""
-    rng = np.random.default_rng(2025)
-    g = solvers[0].grid
-    shape = (g.nx, g.ny, g.nz)
-    pr = seeded(rng, *shape, scale=50.0)
-    rhs = seeded(rng, *shape, scale=1e5)
-    dpr = interior_seeded(rng, shape, 1e3)
-    worst, times = 0.0, []
-    for s in solvers:
-        op = s._bc_op
-        a = [torch.full_like(pr, float("nan")) for _ in range(2)]
-        b = [torch.empty_like(pr) for _ in range(2)]
-        k_poisson.poisson_iter_bc(pr, dpr, rhs, *a, op)
-        k_poisson.poisson_iter_bc_plain(pr, dpr, rhs, *b, op)
-        torch.cuda.synchronize()
-        u = max(max_ulp(x, y) for x, y in zip(a, b))
-        require(u <= MAX_ULP, f"K7 ({s.cfg.variant}) differs by {u} ulp")
-        worst = max(worst, max_abs(zip(a, b)))
-        ms = cuda_ms(lambda: k_poisson.poisson_iter_bc(pr, dpr, rhs, *a, op),
-                     50)
-        plain_ms = cuda_ms(
-            lambda: k_poisson.poisson_iter_bc_plain(pr, dpr, rhs, *b, op), 10)
-        times.append((ms, plain_ms))
-        print(f"[kernels] K7 poisson_iter_bc ({s.cfg.variant} compat spec): "
-              f"max ulp {u} max abs {worst:.3e}; {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms")
-    op = solvers[0]._bc_op
-    r = dict(max_abs_err=worst, ms=times[0][0], plain_ms=times[0][1],
-             **bound(K7_NAME, (pr, dpr, rhs, op.xlo, op.xhi), (pr, dpr),
-                     pr.numel()))
-    print(f"[kernels] {K7_NAME}: bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB per launch); kernel "
-          f"at {100 * r['bound_ms'] / r['ms']:.1f}% of it")
+    fields = k7_inputs(solvers[0].grid.shape_c)
+    rows = [check_k7_spec(s._bc_op, fields, f"{s.cfg.variant} compat spec",
+                          "kernels") for s in solvers]
+    r = dict(rows[0])
+    r["max_abs_err"] = max(row["max_abs_err"] for row in rows)
     return {K7_NAME: r}
 
 
@@ -1194,6 +1216,356 @@ def phase_dist_path(smi) -> list:
             run_dist(True, DIST_COMPAT_STEPS, mesh, smi)]
 
 
+def nan_pads(branch, vels):
+    """K6's operands with NaN in the pads of the branch's staggered axis
+    (its write mask must keep them unread)."""
+    axis = k_advect._PAD_AXIS[branch]
+    out = []
+    for v in vels:
+        v = v.clone()
+        if axis is not None:
+            v.select(axis, 0).fill_(float("nan"))
+            v.select(axis, -1).fill_(float("nan"))
+        out.append(v)
+    return out
+
+
+def phase_unchained_kernels(solver) -> dict:
+    """K6 on each branch from its torch-op face averages against its plain
+    version and against K5 on the same velocities, at the main path's
+    shapes, once with sub-window displacements and once with clamps."""
+    rng = np.random.default_rng(2028)
+    g, k, w = solver.grid, solver._consts, solver.advect_k
+    nx, ny, nz = g.nx, g.ny, g.nz
+    vx0 = seeded(rng, nx + 1, ny, nz, scale=0.5) + 1.0
+    vy0 = seeded(rng, nx, ny + 1, nz, scale=0.3)
+    vz0 = seeded(rng, nx, ny, nz + 1, scale=0.3)
+    c = torch.tensor(rng.uniform(size=(nx, ny, nz)).astype(np.float32),
+                     device="cuda")
+    worst = 0.0
+    for scale in (0.5, 2.5):
+        vx, vy, vz = vx0 * scale, vy0 * scale, vz0 * scale
+        n6 = torch.zeros((1,), dtype=torch.int32, device="cuda")
+        n5 = torch.zeros_like(n6)
+        n_plain = 0
+        for name, a in zip(("vx", "vy", "vz", "c"), (vx, vy, vz, c)):
+            vels = k_advect.pre_velocities(name, vx, vy, vz)
+            o6 = k_advect.advect_branch_pre(name, a, *nan_pads(name, vels),
+                                            k, w, n6)
+            o5 = k_advect.advect_branch(name, a, vx, vy, vz, k, w, n5)
+            op, ncl = k_advect.advect_branch_pre_plain(name, a, *vels, k, w)
+            torch.cuda.synchronize()
+            n_plain += int(ncl.item())
+            worst = max(worst, float((o6 - op).abs().max()))
+            require(bitwise(o6, op), f"K6 {name} (scale {scale}) differs "
+                    f"from its plain version by {worst}")
+            require(bitwise(o6, o5), f"K6 {name} (scale {scale}) differs "
+                    "from K5")
+            del o6, o5, op, vels
+        n6, n5 = int(n6.item()), int(n5.item())
+        require(n6 == n_plain == n5, f"K6 clamp count {n6}, plain "
+                f"{n_plain}, K5 {n5} (scale {scale})")
+        require((n6 > 0) == (scale > 1.0),
+                f"K6 case of velocity scale {scale}: {n6} clamped points")
+        print(f"[unchained kernels] K6 advect_pre (velocity scale {scale}):"
+              f" four branches bitwise equal to the plain version and to "
+              f"K5, clamped {n6} in all three")
+    ms, plain_ms, per = 0.0, 0.0, []
+    for name, a in zip(("vx", "vy", "vz", "c"), (vx0, vy0, vz0, c)):
+        vels = k_advect.pre_velocities(name, vx0, vy0, vz0)
+        ms += cuda_ms(lambda: k_advect.advect_branch_pre(name, a, *vels, k,
+                                                         w), 20) / 4
+        plain_ms += cuda_ms(lambda: k_advect.advect_branch_pre_plain(
+            name, a, *vels, k, w), 3) / 4
+        per.append(bound(K6_NAME, (a, *vels), (a,), a.numel()))
+    fields = (vx0, vy0, vz0, c)
+    step_ms = cuda_ms(lambda: k_advect.advect_unchained(*fields, k, w), 10)
+    k5_ms = cuda_ms(lambda: k_advect.advect(*fields, k, w), 10)
+    r = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+             bytes=sum(b["bytes"] for b in per) / 4,
+             bound_ms=sum(b["bound_ms"] for b in per) / 4,
+             bound_by=per[0]["bound_by"], four_branches_ms=step_ms,
+             k5_four_branches_ms=k5_ms)
+    print(f"[unchained kernels] {K6_NAME}: {ms:.4f} ms per branch (the "
+          f"mean of the four), plain {plain_ms:.4f} ms; bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e6:.1f} "
+          f"MB per launch), kernel at {100 * r['bound_ms'] / ms:.1f}% of it;"
+          f" advect_unchained (torch-op face averages + 4 K6) {step_ms:.4f} "
+          f"ms against K5's four branches {k5_ms:.4f} ms")
+    return {K6_NAME: r}
+
+
+def phase_unchained_path(solver, smi) -> dict:
+    """The unchained step (fused_step=False) at 255: K6 four launches a
+    step, K1 launched, K3, K4 and K5 not."""
+    g = solver.grid
+    print(f"[unchained] grid {g.nx}x{g.ny}x{g.nz} float32, fused_step "
+          f"{solver.fused_step}, accuracy phase {solver.acc} ({smi})")
+    counts, iters, states, _ = run_steps(solver, UNCHAINED_STEPS,
+                                         "unchained", REF_ITERS)
+    require(counts[K6_NAME][0] == 4 * UNCHAINED_STEPS,
+            f"unchained: K6 launched {counts[K6_NAME][0]} times")
+    require(counts[K1_NAME][0] > 0, "unchained: K1 never launched")
+    for name in ("K3 predict", "K4 correct", "K5 advect"):
+        require(counts[name][0] == 0, f"unchained: {name} launched")
+    stored_errs(solver, states, "unchained",
+                range(1, UNCHAINED_STEPS + 1))
+    print(f"[unchained] iterations {tuple(iters)}; the chained path's "
+          f"(phase 4, the JAX package's) {REF_ITERS}: equal "
+          f"{tuple(iters) == REF_ITERS}")
+    profile_step(solver, states[-1], "unchained")
+    return counts
+
+
+def k7_inputs(shape) -> tuple:
+    """Seeded pr, dpr (zero ring) and rhs for the K7 comparisons."""
+    rng = np.random.default_rng(2025)
+    return (seeded(rng, *shape, scale=50.0), interior_seeded(rng, shape, 1e3),
+            seeded(rng, *shape, scale=1e5))
+
+
+def check_k7_spec(op, fields, label, phase) -> dict:
+    """K7 against its plain version with one BC spec: both outputs
+    bitwise; ms, plain ms and the bound."""
+    pr, dpr, rhs = fields
+    a = [torch.full_like(pr, float("nan")) for _ in range(2)]
+    b = [torch.empty_like(pr) for _ in range(2)]
+    k_poisson.poisson_iter_bc(pr, dpr, rhs, *a, op)
+    k_poisson.poisson_iter_bc_plain(pr, dpr, rhs, *b, op)
+    torch.cuda.synchronize()
+    worst = max_abs(zip(a, b))
+    require(all(bitwise(x, y) for x, y in zip(a, b)),
+            f"K7 ({label}) differs from its plain version by {worst}")
+    ms = cuda_ms(lambda: k_poisson.poisson_iter_bc(pr, dpr, rhs, *a, op), 50)
+    plain_ms = cuda_ms(
+        lambda: k_poisson.poisson_iter_bc_plain(pr, dpr, rhs, *b, op), 10)
+    r = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+             **bound(K7_NAME, (pr, dpr, rhs, *(t for t in (op.xlo, op.xhi)
+                                               if t is not None)), a,
+                     pr.numel()))
+    print(f"[{phase}] {K7_NAME} ({label}): bitwise equal to its plain "
+          f"version; {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e6:.1f} "
+          f"MB per launch), kernel at {100 * r['bound_ms'] / ms:.1f}% of it")
+    return r
+
+
+def phase_dma_path(smi):
+    """The dma-mode solve (poisson_mode='dma') of the gpu preset at 255:
+    K7 under the split spec and the reference's loop, no accuracy phase.
+    Returns (counts, K7's numbers under the split spec)."""
+    s = nt.ChorinSolver(nt.preset_gpu(nx=NX, compat=False, dtype="float32"),
+                        device="cuda", poisson_mode="dma")
+    g, eps_it, op = s.grid, s.cfg.numerics.eps_it, s._bc_op
+    require(op is not None and op.z_lo_add != 0.0 and not op.zero_grad_x,
+            "dma: K7 under the split gpu spec")
+    print(f"[dma] grid {g.nx}x{g.ny}x{g.nz} float32, poisson_mode "
+          f"{s.poisson_mode}, niter {g.niter} = {g.niter // g.nchk} chunks "
+          f"of nchk {g.nchk} + {g.niter % g.nchk}, stall exit {s._stall}, "
+          f"split spec z_lo_add {op.z_lo_add} z_hi_add {op.z_hi_add} "
+          f"({smi})")
+    k7 = next(kk for kk in kernels.KERNELS if kk.name == K7_NAME)
+    state = s.init_state()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    states, all_stats, wall = [state], [], []
+    for step in range(DMA_STEPS):
+        n0 = k7.wrapper.launches
+        t0 = time.perf_counter()
+        state, stats = s.step(state)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        states.append(state)
+        all_stats.append(stats)
+        err = float(stats.err)
+        end = ("non-finite err" if not np.isfinite(err) else
+               "converged" if err < eps_it else
+               "the budget" if stats.iters >= g.niter else "stalled")
+        print(f"[dma] step {step + 1}: iters {stats.iters} err {err:.6e} "
+              f"({end}) advect_clamped {stats.advect_clamped} "
+              f"{wall[-1]:.4f} s, K7 launches {k7.wrapper.launches - n0}",
+              flush=True)
+        require(finite_state(state), f"dma step {step + 1}: non-finite "
+                "fields")
+        require(stats.pr_lo is None and state.pr_lo is None,
+                "dma: a stored pair")
+    counts = {kk.name: (kk.wrapper.launches, kk.plain.calls)
+              for kk in kernels.KERNELS}
+    iters = sum(st.iters for st in all_stats)
+    print(f"[dma] {sum(wall) / DMA_STEPS:.4f} s/step, "
+          f"{iters / sum(wall):.1f} Poisson iterations/s ({iters} "
+          f"iterations in {sum(wall):.3f} s; {smi})")
+    on_path = {K7_NAME, "K3 predict", "K4 correct", "K5 advect"}
+    for name, (launches, plain) in counts.items():
+        print(f"[dma] {name}: {launches} launches, plain version {plain} "
+              "calls")
+        require(plain == 0, f"dma: {name} ran its plain version")
+        require((launches > 0) == (name in on_path),
+                f"dma: {name} launched {launches} times")
+    plain = nt.ChorinSolver(s.cfg.replace(use_pallas=False), "cuda",
+                            poisson_mode="dma")
+    st, pstats = plain.step(plain.init_state())
+    u = max_ulp(st.pr, states[1].pr)
+    print(f"[dma] step 1 with use_pallas=False: iters {pstats.iters} "
+          f"(kernels {all_stats[0].iters}), err {float(pstats.err):.6e}, pr "
+          f"max ulp {u}")
+    require(pstats.iters == all_stats[0].iters,
+            f"dma: plain run iterations {pstats.iters}")
+    require(u <= MAX_ULP, f"dma: plain run's pr differs by {u} ulp")
+    del st, plain
+    profile_step(s, states[-1], "dma")
+    k11 = check_k7_spec(op, k7_inputs(g.shape_c),
+                        "split gpu spec, the dma path's", "dma kernels")
+    return counts, k11
+
+
+def resident_inputs(g):
+    """benchmarks/resident_probe.py's inputs: randn pr, 0.01 randn dpr,
+    randn rhs from RandomState(0), float32, on the card."""
+    rng = np.random.RandomState(0)
+    shape = (g.nx, g.ny, g.nz)
+    pr = rng.randn(*shape).astype(np.float32)
+    dpr = (rng.randn(*shape).astype(np.float32) * 0.01).astype(np.float32)
+    rhs = rng.randn(*shape).astype(np.float32)
+    return tuple(torch.tensor(a, device="cuda") for a in (pr, dpr, rhs))
+
+
+def check_k10(solver, nit, smi) -> dict:
+    """K10 against nit K1 launches and its plain version (bitwise), then
+    the times of K10 and of the nit K1 launches: device time from
+    torch.profiler and CUDA events."""
+    g, op = solver.grid, solver._op
+    label = f"{g.nx}x{g.ny}x{g.nz}, nit {nit}"
+    pr0, dpr0, rhs = resident_inputs(g)
+    p, d = pr0.clone(), dpr0.clone()
+    scratch = torch.full_like(p, float("nan"))
+    e = k_poisson.poisson_iter_resident(p, d, rhs, op, nit, scratch)
+    q, dq = pr0.clone(), dpr0.clone()
+    for j in range(nit):
+        o = torch.empty_like(q)
+        e1 = k_poisson.poisson_iter(q, o, dq, rhs, op, j == nit - 1)
+        q = o
+    pp, dp = pr0.clone(), dpr0.clone()
+    ep = k_poisson.poisson_iter_resident_plain(pp, dp, rhs, op, nit)
+    torch.cuda.synchronize()
+    worst = max_abs(((p, pp), (d, dp)))
+    require(bitwise(p, q) and bitwise(d, dq) and float(e) == float(e1),
+            f"K10 ({label}) differs from {nit} K1 launches")
+    require(bitwise(p, pp) and bitwise(d, dp) and float(e) == float(ep),
+            f"K10 ({label}) differs from its plain version by {worst}")
+    print(f"[resident] K10 ({label}): pr, dpr and the check value "
+          f"{float(e):.9e} bitwise equal to {nit} K1 launches and to the "
+          "plain version")
+    del q, dq, pp, dp
+    bufs = [pr0.clone(), torch.empty_like(pr0)]
+
+    def k1_chain():
+        for j in range(nit):
+            k_poisson.poisson_iter(bufs[j % 2], bufs[(j + 1) % 2], d, rhs,
+                                   op, j == nit - 1)
+
+    def k10(n=nit):
+        return k_poisson.poisson_iter_resident(p, d, rhs, op, n, scratch)
+    reps = 20 if g.nx < 100 else 5
+    ms = device_ms(k10, reps, "poisson_resident_kernel")
+    ms1 = device_ms(lambda: k10(1), reps, "poisson_resident_kernel")
+    events_ms = cuda_ms(k10, reps)
+    k1_ms = nit * device_ms(k1_chain, reps, "poisson_iter_kernel")
+    k1_events_ms = cuda_ms(k1_chain, reps)
+    plain_ms = cuda_ms(lambda: k_poisson.poisson_iter_resident_plain(
+        p, d, rhs, op, nit, scratch), 3, warmup=1)
+    b = bound(K10_NAME, (pr0, dpr0, rhs), (p, d), p.numel(), iters=nit)
+    # what the fields actually move where they do not stay in L2: K1's
+    # bytes (5 x 4 B per cell) every iteration
+    stream_ms = nit * 5 * 4 * p.numel() / HBM_BYTES_PER_S * 1e3
+    per_iter = (ms - ms1) / (nit - 1)
+    print(f"[resident] K10 ({label}): {ms:.4f} ms of device time "
+          f"({events_ms:.4f} ms by CUDA events), {per_iter * 1e3:.2f} us per "
+          f"added iteration (nit 1: {ms1:.4f} ms); {nit} K1 launches "
+          f"{k1_ms:.4f} ms of device time ({k1_events_ms:.4f} ms by CUDA "
+          f"events, issued back to back); plain {plain_ms:.4f} ms; bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: one pass "
+          f"{b['bytes'] / 1e6:.2f} MB, {nit} iterations of operations), "
+          f"kernel at {100 * b['bound_ms'] / ms:.1f}% of it; {nit} passes "
+          f"through HBM {stream_ms:.4f} ms; K10 {'beats' if ms < k1_ms else 'does not beat'} "
+          f"the {nit} K1 launches in device time ({smi})")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                events_ms=events_ms, k1_launches_ms=k1_ms,
+                k1_launches_events_ms=k1_events_ms, ms_nit1=ms1,
+                per_iteration_ms=per_iter, hbm_passes_ms=stream_ms, **b)
+
+
+def resident_solve(smi) -> dict:
+    """One Poisson solve at 63x38x38 (the gpu preset's first, from
+    init_state: the folded protocol's exact first iteration, then K1 over
+    the budget) twice: all on K1, and with its first chunk (nchk - 1
+    iterations after the exact one) on one K10 launch and the rest in
+    pt_loop_fused(seed0=True) on K1, the launch counts set to 0 just
+    before and read just after. Iterations, err, history and fields must
+    be the unseeded loop's, bitwise."""
+    s = nt.ChorinSolver(nt.preset_gpu(nx=RESIDENT_NX[0], compat=False,
+                                      dtype="float32"), device="cuda")
+    g, eps_it = s.grid, s.cfg.numerics.eps_it
+    nchunks, rem = s._budget()
+    st = s.init_state()
+    divv = s.predictor_divv(st)
+    rhs, es = s._rhs3d(divv), s._err_scale()
+    chain = s._kernel_chain(rhs, es)
+
+    def loop(p, d, it0, **kw):
+        (p, _, d, _), it, err, hist = pt_loop_fused(
+            chain, (p, torch.empty_like(p), d, None), it0,
+            nchunks * g.nchk + rem, g.nchk, nchunks, eps_it, s.dtype,
+            stall=s._stall, **kw)
+        return p, d, it, err, hist
+    t0 = time.perf_counter()
+    pu, du, itu, erru, histu = loop(*s._first_iteration(st.pr, st.dprdtau,
+                                                        divv), 1)
+    torch.cuda.synchronize()
+    wall_u = time.perf_counter() - t0
+    p, d = s._first_iteration(st.pr, st.dprdtau, divv)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    p, d, e = k_poisson.make_resident(g.nchk - 1)(p, d, rhs, s._op)
+    ps, ds_, its, errs, hists = loop(p, d, g.nchk, err0=e * es, seed0=True)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = {kk.name: (kk.wrapper.launches, kk.plain.calls)
+              for kk in kernels.KERNELS}
+    same = (bitwise(ps, pu) and bitwise(ds_, du)
+            and np.array_equal(hists, histu, equal_nan=True))
+    print(f"[resident solve] {g.nx}x{g.ny}x{g.nz}, nchk {g.nchk}: unseeded "
+          f"K1 loop {itu} iterations err {float(erru):.6e} ({wall_u:.4f} s); "
+          f"K10 ({g.nchk - 1} iterations) + seeded loop {its} iterations "
+          f"err {float(errs):.6e} ({wall_s:.4f} s); fields and history "
+          f"bitwise equal: {same}; K10 {counts[K10_NAME][0]} launch, K1 "
+          f"{counts[K1_NAME][0]} launches ({smi})")
+    require(its == itu and errs == erru and same,
+            "resident solve: the seeded loop differs from the unseeded one")
+    for name, (launches, plain) in counts.items():
+        require(plain == 0, f"resident solve: {name} ran its plain version")
+        require((launches > 0) == (name in (K10_NAME, K1_NAME)),
+                f"resident solve: {name} launched {launches} times")
+    return counts
+
+
+def phase_resident(smi):
+    """K10 at 63 (nit = nchk = 37) and 255 (nit = 152), and the seeded
+    solve at 63. Returns (results, counts of the seeded solve)."""
+    rows = {}
+    for nx in RESIDENT_NX:
+        s = nt.ChorinSolver(nt.preset_gpu(nx=nx, compat=False,
+                                          dtype="float32"), device="cuda")
+        rows[nx] = check_k10(s, RESIDENT_NIT[nx], smi)
+        del s
+    counts = resident_solve(smi)
+    r = dict(rows[RESIDENT_NX[1]])
+    r["max_abs_err"] = max(v["max_abs_err"] for v in rows.values())
+    r["at_63"] = rows[RESIDENT_NX[0]]
+    return {K10_NAME: r}, counts
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -1223,6 +1595,16 @@ def main() -> int:
     del gpu, multi, compat
     results.update(phase_dist_kernels())
     runs += phase_dist_path(smi)
+    unchained = nt.ChorinSolver(nt.preset_gpu(nx=NX, compat=False,
+                                              dtype="float32"),
+                                device="cuda", fused_step=False)
+    results.update(phase_unchained_kernels(unchained))
+    runs.append(phase_unchained_path(unchained, smi))
+    del unchained
+    dma_counts, k11 = phase_dma_path(smi)
+    k10_results, k10_counts = phase_resident(smi)
+    results.update(k10_results)
+    runs.append(k10_counts)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     wide = nt.ChorinSolver(nt.preset_gpu(nx=WIDE_NX, compat=False,
@@ -1248,10 +1630,18 @@ def main() -> int:
                                 for label, v in r["at_255_s2"].items()}
         # the dist kernels: the middle shard's numbers (multi spec), every
         # shard's and K2-dist's on the whole grid beside them
-        for extra in ("shards", "whole_grid"):
+        for extra in ("shards", "whole_grid", "at_63", "events_ms",
+                      "k1_launches_ms", "k1_launches_events_ms",
+                      "per_iteration_ms", "four_branches_ms",
+                      "k5_four_branches_ms"):
             if extra in r:
                 row[extra] = r[extra]
         rows.append(row)
+    # K11, the dma-mode kernel: K7's kernel under the split gpu spec, its
+    # launches those of the dma path
+    rows.append({**K11_ROW, "route": "cuda",
+                 "launches": dma_counts[K7_NAME][0],
+                 **{key: k11[key] for key in keys}, "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

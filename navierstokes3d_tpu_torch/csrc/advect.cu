@@ -1,11 +1,19 @@
-// K5: one semi-Lagrangian advection branch (select-shift semantics).
+// K5 and K6: one semi-Lagrangian advection branch (select-shift
+// semantics), two instances of one kernel template that differ only in
+// where the advecting velocities come from.
 //
-// Replaces the Pallas kernel of navierstokes3d_tpu/kernels/advect.py:537
+// K5 replaces the Pallas kernel of navierstokes3d_tpu/kernels/advect.py:537
 // (build_advect_branch_flat: `kernel` :423, `body` :380; the four
-// branches assembled by build_advect_flat :556-630). Per output point of
-// the branch's write region it
-//   * face-averages the advecting velocities from the post-BC snapshots
-//     (ops/advect.py's ((a+b)+c)+d expressions, times 0.25 or 0.5);
+// branches assembled by build_advect_flat :556-630), which forms the face
+// averages in-kernel. K6 replaces the one of kernels/advect.py:218
+// (build_advect_branch: `kernel` :138; assembled by build_advect
+// :245-310), which takes them precomputed: the three advecting velocities
+// arrive as arrays of the branch's staggered shape (computed outside, the
+// pads zero), and it reads them at the output point. Everything else is
+// one body. Per output point of the branch's write region it
+//   * takes the advecting velocities: K5 face-averages the post-BC
+//     snapshots (ops/advect.py's ((a+b)+c)+d expressions, times 0.25 or
+//     0.5), K6 reads its three operands;
 //   * per axis, computes the displacement dl = (dt*v)/h, clamps it to
 //     [-k, k] (counting points where |dl| exceeded k on any axis), and
 //     the departure cell i1 = clip(floor(idx - dl), 1, n), the corner
@@ -25,11 +33,17 @@
 // is a new tensor. Built with --fmad=false, so the accumulation rounds as
 // the plain version does.
 //
+// The write mask discards K6's padded rows, lanes and planes (the
+// Pallas kernel's `wmask`, kernels/advect.py:154, applied at :178): a
+// point outside the write region copies the input and never reads a
+// velocity, and its clamp is not counted.
+//
 // What bounds it on this card: gathers. Each output point reads up to 8
-// data-dependent samples plus 9-12 velocity values for its face
-// averages; the departure points lie within +-k cells, so the gathers of
-// a warp fall in a few cache lines of L1/L2 and DRAM traffic stays near
-// one read of the field and the velocities and one write. The design
+// data-dependent samples plus 3 (K6) or 9-12 (K5) velocity values; the
+// departure points lie within +-k cells, so the gathers of a warp fall in
+// a few cache lines of L1/L2 and DRAM traffic stays near one read of the
+// field and the velocities and one write (K6 reads three velocity arrays
+// of the field's size where K5 reads the three staggered velocities). The design
 // keeps the <= 8 live terms in registers instead of the TPU's 216-term
 // shifted-slab accumulation.
 #include "common.cuh"
@@ -84,6 +98,10 @@ __device__ inline int corner_offsets(const AxisTerms& a, int k, int* offs) {
 
 enum Branch { kVx = 0, kVy = 1, kVz = 2, kC = 3 };
 
+// kPre false (K5): vx, vy, vz are the post-BC velocities of the (nx, ny,
+// nz) grid, face-averaged here. kPre true (K6): they are the branch's
+// advecting velocities at the field's own shape.
+template <bool kPre>
 __global__ void advect_kernel(int branch, Field a, Field vx, Field vy,
                               Field vz, float* __restrict__ out,
                               int* __restrict__ n_clamped, float dt,
@@ -101,7 +119,11 @@ __global__ void advect_kernel(int branch, Field a, Field vx, Field vy,
   int clamped = 0;
   if (write) {
     float vxc, vyc, vzc;
-    if (branch == kVx) {
+    if (kPre) {
+      vxc = vx.at(X, Y, Z);
+      vyc = vy.at(X, Y, Z);
+      vzc = vz.at(X, Y, Z);
+    } else if (branch == kVx) {
       vxc = vx.at(X, Y, Z);
       vyc = 0.25f * (((vy.at(X - 1, Y, Z) + vy.at(X - 1, Y + 1, Z)) +
                       vy.at(X, Y, Z)) + vy.at(X, Y + 1, Z));
@@ -158,21 +180,29 @@ __global__ void advect_kernel(int branch, Field a, Field vx, Field vy,
 
 // branch 0..3 = Vx, Vy, Vz, C; a is that branch's field (its shape gives
 // the clamp bounds); vx/vy/vz the post-BC velocities of the (nx, ny, nz)
-// grid. n_clamped accumulates (the caller zeroes it once per step).
+// grid (K5) or the branch's advecting velocities at a's shape (K6, pre
+// nonzero). n_clamped accumulates (the caller zeroes it once per step).
 extern "C" int ns3d_advect(int branch, const float* a, const float* vx,
                            const float* vy, const float* vz, float* out,
                            int* n_clamped, float dt, float dx, float dy,
-                           float dz, int k, int nx, int ny, int nz,
+                           float dz, int k, int nx, int ny, int nz, int pre,
                            cudaStream_t stream) {
   const int n1 = nx + (branch == kVx ? 1 : 0);
   const int n2 = ny + (branch == kVy ? 1 : 0);
   const int n3 = nz + (branch == kVz ? 1 : 0);
   const Field fa{a, n1, n2, n3};
-  const Field fvx{vx, nx + 1, ny, nz};
-  const Field fvy{vy, nx, ny + 1, nz};
-  const Field fvz{vz, nx, ny, nz + 1};
   const dim3 grid = ns3d::grid_for(n1, n2, n3);
   const dim3 block = ns3d::block_shape();
-  advect_kernel<<<grid, block, 0, stream>>>(branch, fa, fvx, fvy, fvz, out, n_clamped, dt, dx, dy, dz, k);
+  if (pre) {
+    const Field fvx{vx, n1, n2, n3};
+    const Field fvy{vy, n1, n2, n3};
+    const Field fvz{vz, n1, n2, n3};
+    advect_kernel<true><<<grid, block, 0, stream>>>(branch, fa, fvx, fvy, fvz, out, n_clamped, dt, dx, dy, dz, k);
+  } else {
+    const Field fvx{vx, nx + 1, ny, nz};
+    const Field fvy{vy, nx, ny + 1, nz};
+    const Field fvz{vz, nx, ny, nz + 1};
+    advect_kernel<false><<<grid, block, 0, stream>>>(branch, fa, fvx, fvy, fvz, out, n_clamped, dt, dx, dy, dz, k);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,9 @@
 // K1: one damped pseudo-transient Poisson iteration with the boundary
 // conditions folded into the stencil, K2: the same iteration on a
-// double-single (hi, lo) pressure pair, and K7: the iteration followed by
-// the reference's boundary-condition sequence, as compat mode runs it.
+// double-single (hi, lo) pressure pair, K7: the iteration followed by the
+// reference's boundary-condition sequence, as compat mode and the
+// dma-mode solve run it, K8: s folded iterations per launch, and K10: nit
+// of them in one cooperative launch.
 //
 // K1 replaces the Pallas kernel of navierstokes3d_tpu/kernels/poisson.py:914
 // (build_poisson_iter(mode='blocked', folded=True): `kernel` :872,
@@ -74,6 +76,30 @@
 // recomputed halo (a ghost-zone form, which recomputes the x halo of
 // every small tile too, was slower; PERF.md).
 //
+// K10 replaces the Pallas kernel of navierstokes3d_tpu/kernels/poisson.py:1151
+// (`make_resident` :1066, `kernelR` :1116): nit folded iterations in ONE
+// launch, pr and dpr updated in place, emitting the check value of the
+// state entering the last iteration (what the flagged K1 launch closing a
+// chunk emits). The TPU kernel keeps pr, dpr and rhs resident in VMEM
+// (72 MB at 255x153x153); the H100 has no memory of that kind (a block's
+// shared memory is 227 KB, L2 is 50 MB), so this design keeps the fields
+// in device memory and removes what a chain of nit K1 launches pays
+// besides its bytes: the launches themselves. It is a cooperative
+// persistent kernel: as many blocks as the card holds co-resident, each
+// walking K1's tiles in a grid-stride loop, with a grid-wide barrier
+// (cooperative_groups' this_grid().sync()) between iterations. pr
+// ping-pongs between the caller's tensor and one scratch tensor (a Jacobi
+// update cannot overwrite a plane its neighbours still read); for an odd
+// nit the input is first copied to the scratch, so that the last
+// iteration writes the caller's tensor. dpr updates in place, as in K1
+// (a cell's update reads only its own dpr). Per cell and iteration the
+// arithmetic is K1's, in K1's order, so a launch is bitwise nit K1
+// launches; the check value is reduced as K1 reduces it (float bits as
+// unsigned, block max, one atomic word). Bound: at 63x38x38 the three
+// fields (1.1 MB) stay in L2 and the nit grid barriers are the floor; at
+// 255x153x153 the working set exceeds L2, so each iteration moves K1's
+// 5 x 4 B per cell through device memory.
+//
 // K7 replaces the Pallas kernel of navierstokes3d_tpu/kernels/poisson.py:914
 // built with folded=False (`kernel` :872, `compute_slab` :334,
 // `lap_of_rows` :241, `apply_bc_rows` :257). Per interior cell, in
@@ -126,6 +152,7 @@
 // mesh. Bytes bound as K7 (5 x 4 B per cell) and K2 (8 x 4 B per cell:
 // hi, lo, dpr, rhs in; hi', lo', dpr' out) plus the halo planes; one
 // thread per cell, as K7.
+#include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -396,6 +423,85 @@ cudaError_t launch_sweeps(const float* pr, const float* dpr, const float* rhs,
   const dim3 block = ns3d::block_shape();
   poisson_sweeps_kernel<S><<<grid, block, smem, stream>>>(pr, dpr, rhs, pr_out, dpr_out, w, inv_dx2, dtau, decay, zero_grad_x, nx, ny, nz, err_bits);
   return cudaGetLastError();
+}
+
+// ---- K10: nit folded iterations in one cooperative launch ----
+// Every block walks K1's (32 x 8)-cell tiles of the grid in a grid-stride
+// loop, so the grid can be as large as the card holds co-resident and no
+// larger; a grid-wide barrier separates the iterations.
+
+__device__ inline void tile_of(int t, int tiles_z, int tiles_y, int* x,
+                               int* y, int* z) {
+  *z = (t % tiles_z) * ns3d::kBlockX + threadIdx.x;
+  *y = ((t / tiles_z) % tiles_y) * ns3d::kBlockY + threadIdx.y;
+  *x = t / (tiles_z * tiles_y);
+}
+
+// pr ping-pongs between pr_a (the caller's tensor, which holds the result
+// at the end) and pr_b (scratch); dpr updates in place. None of the three
+// is declared const or __restrict__: each is written during the launch,
+// so none may be read through the read-only (non-coherent) cache, whose
+// lines a grid barrier does not refresh.
+__global__ void __launch_bounds__(ns3d::kBlockThreads) poisson_resident_kernel(
+    float* pr_a, float* pr_b, float* dpr, const float* __restrict__ rhs,
+    Weights w, float inv_dx2, float dtau, float decay, int zero_grad_x,
+    int nx, int ny, int nz, int nit, unsigned int* __restrict__ err_bits) {
+  namespace cg = cooperative_groups;
+  const cg::grid_group grid = cg::this_grid();
+  const int tiles_z = (nz + ns3d::kBlockX - 1) / ns3d::kBlockX;
+  const int tiles_y = (ny + ns3d::kBlockY - 1) / ns3d::kBlockY;
+  const int tiles = tiles_z * tiles_y * nx;
+  const long sx = static_cast<long>(ny) * nz;
+  // an even iteration j reads `even` and writes `odd`, an odd one the
+  // reverse; for an odd nit the input is first copied into pr_b, so that
+  // the last iteration (j = nit - 1) writes pr_a either way
+  float* const even = nit % 2 == 0 ? pr_a : pr_b;
+  float* const odd = nit % 2 == 0 ? pr_b : pr_a;
+  if (nit % 2 != 0) {
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int x, y, z;
+      tile_of(t, tiles_z, tiles_y, &x, &y, &z);
+      if (y < ny && z < nz) {
+        const long i = x * sx + static_cast<long>(y) * nz + z;
+        pr_b[i] = pr_a[i];
+      }
+    }
+    grid.sync();
+  }
+  unsigned int bits = 0u;
+  for (int j = 0; j < nit; ++j) {
+    const float* const p = j % 2 == 0 ? even : odd;
+    float* const q = j % 2 == 0 ? odd : even;
+    const bool last = j == nit - 1;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int x, y, z;
+      tile_of(t, tiles_z, tiles_y, &x, &y, &z);
+      if (y >= ny || z >= nz) continue;
+      const long i = x * sx + static_cast<long>(y) * nz + z;
+      const float pc = p[i];
+      // K1's expressions in K1's order (poisson_iter_kernel), so nit
+      // iterations here are bitwise nit K1 launches
+      if (interior(x, y, z, nx, ny, nz)) {
+        const float lap = lap_folded(p[i + sx], p[i - sx], p[i + nz],
+                                     p[i - nz], p[i + 1], p[i - 1], pc,
+                                     zero_grad_x && x == 1, inv_dx2, w.yp[y],
+                                     w.ym[y], w.zp[z], w.zm[z]);
+        const float resid = lap - rhs[i];
+        const float d = dpr[i] * decay + dtau * resid;
+        dpr[i] = d;
+        q[i] = pc + dtau * d;
+        if (last) {
+          const unsigned int b = __float_as_uint(fabsf(resid));
+          bits = b > bits ? b : bits;
+        }
+      } else {
+        dpr[i] = 0.0f;
+        q[i] = pc + dtau * 0.0f;
+      }
+    }
+    if (!last) grid.sync();
+  }
+  ns3d::block_max_to(bits, err_bits);
 }
 
 struct BCConsts {
@@ -710,5 +816,46 @@ extern "C" int ns3d_poisson_iter_ext_bc_dist(
                    zhi_hi, zero_grad_x, xlo, xhi, zlo_lo, zhi_lo};
   const DistShape sh{x_off, nx, bx, ny, nz};
   poisson_iter_ext_bc_dist_kernel<<<grid, block, 0, stream>>>(Slab{hi, hi_lo, hi_hi}, Slab{lo, lo_lo, lo_hi}, dpr, rhs, hi_out, lo_out, dpr_out, k, sh, err_bits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10: nit iterations in one cooperative launch, the result in pr (the
+// caller's tensor; scratch is a second buffer of its shape) and dpr, the
+// check value of the state entering the last iteration max-reduced into
+// err_bits (zeroed by the caller). The grid is as many blocks as the card
+// holds co-resident (occupancy x SMs), at most one per tile. It returns
+// cudaErrorNotSupported where the device has no cooperative launch and
+// cudaErrorCooperativeLaunchTooLarge where not one block fits on an SM;
+// nothing falls back to K1 launches.
+extern "C" int ns3d_poisson_iter_resident(
+    float* pr, float* scratch, float* dpr, const float* rhs,
+    const float* wyp, const float* wym, const float* wzp, const float* wzm,
+    float inv_dx2, float dtau, float decay, int zero_grad_x, int nx, int ny,
+    int nz, int nit, unsigned int* err_bits, cudaStream_t stream) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, poisson_resident_kernel, ns3d::kBlockThreads, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const long tiles = static_cast<long>((nz + ns3d::kBlockX - 1) /
+                                       ns3d::kBlockX) *
+                     ((ny + ns3d::kBlockY - 1) / ns3d::kBlockY) * nx;
+  const long resident = static_cast<long>(per_sm) * sms;
+  const dim3 grid(static_cast<unsigned>(tiles < resident ? tiles : resident));
+  const dim3 block = ns3d::block_shape();
+  Weights w{wyp, wym, wzp, wzm};
+  void* args[] = {&pr, &scratch, &dpr, &rhs, &w, &inv_dx2, &dtau, &decay,
+                  &zero_grad_x, &nx, &ny, &nz, &nit, &err_bits};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(poisson_resident_kernel), grid, block,
+      args, 0, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,6 +41,9 @@ KERNELS = (
     Kernel("K5 advect", "navierstokes3d_tpu_torch/csrc/advect.cu",
            "navierstokes3d_tpu/kernels/advect.py:537",
            advect.advect_branch, advect.advect_branch_plain),
+    Kernel("K6 advect_pre", "navierstokes3d_tpu_torch/csrc/advect.cu",
+           "navierstokes3d_tpu/kernels/advect.py:218",
+           advect.advect_branch_pre, advect.advect_branch_pre_plain),
     Kernel("K7 poisson_iter_bc", "navierstokes3d_tpu_torch/csrc/poisson.cu",
            "navierstokes3d_tpu/kernels/poisson.py:914",
            poisson.poisson_iter_bc, poisson.poisson_iter_bc_plain),
@@ -48,6 +51,10 @@ KERNELS = (
            "navierstokes3d_tpu_torch/csrc/poisson.cu",
            "navierstokes3d_tpu/kernels/poisson.py:836 (K8a), :1007 (K8b)",
            poisson.poisson_iter_sweeps, poisson.poisson_iter_sweeps_plain),
+    Kernel("K10 poisson_iter_resident",
+           "navierstokes3d_tpu_torch/csrc/poisson.cu",
+           "navierstokes3d_tpu/kernels/poisson.py:1151",
+           poisson.poisson_iter_resident, poisson.poisson_iter_resident_plain),
     Kernel("K7-dist poisson_iter_bc_dist",
            "navierstokes3d_tpu_torch/csrc/poisson.cu",
            "navierstokes3d_tpu/kernels/poisson.py:914 (local_rows)",

@@ -53,6 +53,10 @@ SIGNATURES = {
     # decay, zero_grad_x, nx, ny, nz, s, err_bits (nullable), stream
     "ns3d_poisson_iter_sweeps": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F,
                                  _F, _I, _I, _I, _I, _I, _P, _P),
+    # pr, scratch, dpr, rhs, wyp, wym, wzp, wzm, inv_dx2, dtau, decay,
+    # zero_grad_x, nx, ny, nz, nit, err_bits, stream
+    "ns3d_poisson_iter_resident": (_P, _P, _P, _P, _P, _P, _P, _P, _F, _F,
+                                   _F, _I, _I, _I, _I, _I, _P, _P),
     # pr, dpr, rhs, pr_out, dpr_out, xlo (nullable), xhi (nullable),
     # inv_dx2, inv_dy2, inv_dz2, dtau, decay, z_lo_add, z_hi_add,
     # zero_grad_x, nx, ny, nz, stream
@@ -80,9 +84,10 @@ SIGNATURES = {
     "ns3d_correct": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F,
                      _F, _I, _F, _I, _I, _I, _P),
     # branch, a, vx, vy, vz, out, n_clamped, dt, dx, dy, dz, k, nx, ny,
-    # nz, stream
+    # nz, pre (0: K5, the post-BC velocities; 1: K6, the branch's
+    # precomputed advecting velocities), stream
     "ns3d_advect": (_I, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _I, _I,
-                    _I, _I, _P),
+                    _I, _I, _I, _P),
 }
 
 

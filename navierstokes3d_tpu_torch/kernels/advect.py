@@ -1,13 +1,19 @@
-"""K5: semi-Lagrangian advection, one launch per advected field.
+"""K5 and K6: semi-Lagrangian advection, one launch per advected field.
 
-`advect_branch` launches the CUDA kernel of csrc/advect.cu for CUDA
-tensors and runs `advect_branch_plain` for CPU tensors. It replaces the
-Pallas kernel of navierstokes3d_tpu/kernels/advect.py:537
+`advect_branch` (K5) and `advect_branch_pre` (K6) launch the two
+instances of the CUDA kernel of csrc/advect.cu for CUDA tensors and run
+`advect_branch_plain` / `advect_branch_pre_plain` for CPU tensors. K5
+replaces the Pallas kernel of navierstokes3d_tpu/kernels/advect.py:537
 (`build_advect_branch_flat`, assembled into the four reference branches
 by `build_advect_flat` :556-630): face averages of the advecting
 velocities, departure displacement clamped to ±k (k=2 on the main path)
 with a clamp count, and the trilinear interpolant in the select-shift
-(p, q, o) term order. The plain version is ops/advect.py.
+(p, q, o) term order. K6 replaces the one of :218
+(`build_advect_branch`, assembled by `build_advect` :245-310), which
+takes the advecting velocities precomputed, zero-padded to the branch's
+staggered shape (`pre_velocities`); `advect_unchained` is `build_advect`'s
+`advect_fn`, which the unchained step runs. The plain versions are
+ops/advect.py.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops import advect as adv
 from . import _build
@@ -57,18 +64,122 @@ def advect_branch(branch: str, a, vx, vy, vz, k: StepConsts, window: int,
         n_clamped = torch.zeros((1,), dtype=torch.int32, device=dev)
     _build.require("n_clamped", n_clamped, (1,), torch.int32, dev)
     out = torch.empty_like(a)
-    f32 = lambda x: ctypes.c_float(float(np.float32(x)))  # noqa: E731
-    lib = _build.load()
-    rc = lib.ns3d_advect(b, a.data_ptr(), vx.data_ptr(), vy.data_ptr(),
-                         vz.data_ptr(), out.data_ptr(), n_clamped.data_ptr(),
-                         f32(k.dt), f32(k.dx), f32(k.dy), f32(k.dz), window,
-                         nx, ny, nz, _build.stream_of(a))
-    _build.check(rc, "advect")
+    _launch(b, a, vx, vy, vz, out, n_clamped, k, window, (nx, ny, nz),
+            False)
     advect_branch.launches += 1
     return out
 
 
 advect_branch.launches = 0
+
+
+def _launch(b, a, vx, vy, vz, out, n_clamped, k: StepConsts, window,
+            grid_shape, pre: bool) -> None:
+    f32 = lambda x: ctypes.c_float(float(np.float32(x)))  # noqa: E731
+    lib = _build.load()
+    rc = lib.ns3d_advect(b, a.data_ptr(), vx.data_ptr(), vy.data_ptr(),
+                         vz.data_ptr(), out.data_ptr(), n_clamped.data_ptr(),
+                         f32(k.dt), f32(k.dx), f32(k.dy), f32(k.dz), window,
+                         *grid_shape, int(pre), _build.stream_of(a))
+    _build.check(rc, "advect_pre" if pre else "advect")
+
+
+# ---- K6: the branch from precomputed advecting velocities ----
+
+# each branch's staggered axis, whose face velocities are zero-padded by
+# one at both ends (None: the tracer's region is the whole field)
+_PAD_AXIS = {"vx": 0, "vy": 1, "vz": 2, "c": None}
+
+
+def pre_velocities(branch: str, vx, vy, vz):
+    """The advecting velocities K6 takes for one branch: ops/advect.py's
+    face averages on the branch's write region (the JAX package's
+    `build_advect` expressions, 0.25 * (((a + b) + c) + d) and
+    0.5 * (a + b)), zero-padded to the branch's staggered shape as
+    jnp.pad does there."""
+    vels = adv.face_velocities(branch, vx, vy, vz)
+    axis = _PAD_AXIS[branch]
+    if axis is None:
+        return tuple(v.contiguous() for v in vels)
+    pad = [0] * 6
+    pad[2 * (2 - axis)] = pad[2 * (2 - axis) + 1] = 1
+    return tuple(F.pad(v, pad) for v in vels)
+
+
+def advect_branch_pre_plain(branch: str, a, vxc, vyc, vzc, k: StepConsts,
+                            window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of one K6 launch: ops/advect.py's select-shift
+    backtrack (`backtrack_selectshift`) on the given velocities, cropped
+    to the branch's write region (the pads are never read); (a',
+    n_clamped)."""
+    advect_branch_pre_plain.calls += 1
+    starts = adv._STARTS[branch]
+    axis = _PAD_AXIS[branch]
+    crop = [slice(None)] * 3
+    if axis is not None:
+        crop[axis] = slice(1, -1)
+    vels = tuple(v[tuple(crop)] for v in (vxc, vyc, vzc))
+    vals, ncl = adv.backtrack_selectshift(a, *vels, starts, k.dt, k.dx, k.dy,
+                                          k.dz, window)
+    return adv._place(a, starts, vals), ncl
+
+
+advect_branch_pre_plain.calls = 0
+
+
+def advect_branch_pre(branch: str, a, vxc, vyc, vzc, k: StepConsts,
+                      window: int, n_clamped: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+    """Advect field `a` of branch 'vx', 'vy', 'vz' or 'c' with the
+    advecting velocities vxc, vyc, vzc given at a's shape (see
+    `pre_velocities`; the values outside the write region are not read);
+    returns the new field (the inputs are read only). The clamp count is
+    added into n_clamped (an int32 tensor of shape (1,) on the device,
+    zeroed by the caller) when given."""
+    if not _build.on_cuda(a, "advect_pre"):
+        out, ncl = advect_branch_pre_plain(branch, a, vxc, vyc, vzc, k,
+                                           window)
+        if n_clamped is not None:
+            n_clamped += ncl
+        return out
+    b = adv.BRANCHES.index(branch)
+    n1, n2, n3 = a.shape
+    grid_shape = (n1 - (b == 0), n2 - (b == 1), n3 - (b == 2))
+    dev = a.device
+    for name, t in (("a", a), ("vxc", vxc), ("vyc", vyc), ("vzc", vzc)):
+        _build.require(name, t, a.shape, torch.float32, dev)
+    if n_clamped is None:
+        n_clamped = torch.zeros((1,), dtype=torch.int32, device=dev)
+    _build.require("n_clamped", n_clamped, (1,), torch.int32, dev)
+    out = torch.empty_like(a)
+    _launch(b, a, vxc, vyc, vzc, out, n_clamped, k, window, grid_shape,
+            True)
+    advect_branch_pre.launches += 1
+    return out
+
+
+advect_branch_pre.launches = 0
+
+
+def advect_unchained(vx, vy, vz, c, k: StepConsts, window: int = 2,
+                     plain: bool = False):
+    """The four reference branches as the JAX package's `build_advect`
+    runs them (its `advect_fn`, kernels/advect.py:263-310): per branch the
+    face-averaged velocities as torch ops, zero-padded to the branch's
+    shape, then one K6 launch. Returns (vx', vy', vz', c', n_clamped) with
+    n_clamped an int32 tensor of shape (1,) on the fields' device.
+    plain=True runs the plain version on every device."""
+    n_clamped = torch.zeros((1,), dtype=torch.int32, device=vx.device)
+    outs = []
+    for name, a in zip(adv.BRANCHES, (vx, vy, vz, c)):
+        vels = pre_velocities(name, vx, vy, vz)
+        if plain:
+            out, ncl = advect_branch_pre_plain(name, a, *vels, k, window)
+            n_clamped += ncl
+        else:
+            out = advect_branch_pre(name, a, *vels, k, window, n_clamped)
+        outs.append(out)
+    return (*outs, n_clamped)
 
 
 def advect(vx, vy, vz, c, k: StepConsts, window: int = 2,

@@ -1,11 +1,13 @@
 """K1, the folded-BC pseudo-transient Poisson iteration, K8, s of them per
-launch, K2, its double-single (hi, lo) form, K7, the iteration with the
-boundary conditions applied in-kernel (compat mode), and the residual
+launch, K10, nit of them in one cooperative launch, K2, its double-single
+(hi, lo) form, K7, the iteration with the boundary conditions applied
+in-kernel (compat mode and the dma-mode solve), and the residual
 evaluations of the Poisson solve.
 
-`poisson_iter`, `poisson_iter_sweeps`, `poisson_iter_ext` and
-`poisson_iter_bc` launch the CUDA kernels of csrc/poisson.cu for CUDA
-tensors and run `poisson_iter_plain`, `poisson_iter_sweeps_plain`,
+`poisson_iter`, `poisson_iter_sweeps`, `poisson_iter_resident`,
+`poisson_iter_ext` and `poisson_iter_bc` launch the CUDA kernels of
+csrc/poisson.cu for CUDA tensors and run `poisson_iter_plain`,
+`poisson_iter_sweeps_plain`, `poisson_iter_resident_plain`,
 `poisson_iter_ext_plain` and `poisson_iter_bc_plain`, their plain PyTorch
 versions, for CPU tensors.
 K1 computes the Pallas kernel's iteration (navierstokes3d_tpu/kernels/
@@ -35,13 +37,23 @@ dpr both ping-ponged, bitwise equal to s K1 launches, and emits the
 residual entering the last one: the check value the s-th K1 launch would
 emit, so the convergence loop takes the same decisions.
 
+K10 (:1151, `kernelR` :1116, `make_resident` :1066) advances nit folded
+iterations in one launch with pr and dpr updated in place, bitwise equal
+to nit K1 launches, and emits the check value entering the last one;
+no solver path runs it (as in the JAX package): `make_resident` and
+ptloop.pt_loop_fused's `seed0` compose it with a K1 loop.
+
 K7 (:914 with folded=False, `compute_slab` :334, `apply_bc_rows` :257) is
 the reference's own loop body: the unfolded iteration on every interior
 cell, then set_bc_Pr!'s sequence in-kernel, described by a PoissonBCSpec
 (`poisson_bc_spec`, a copy of the JAX package's :43-80). Its Dirichlet
 planes are computed in float64 and rounded once, as the JAX kernel's
 `lanes()` does; they can differ by an ulp from bc.hydrostatic_x's, which
-evaluates the profile in the field's dtype.
+evaluates the profile in the field's dtype. K7 also computes the dma-mode
+kernel K11 (:1451, `kernel` :1398, the same `compute_slab` and
+`apply_bc_rows` behind a manual DMA pipeline, with no check value): the
+interpreted K11 is bitwise equal to `poisson_iter_bc_plain` under the
+split gpu spec and the multi spec (tests/test_torch_dma.py).
 
 K7-dist (`poisson_iter_bc_dist`) and K2-dist (`poisson_iter_ext_bc_dist`)
 are the same call sites built with local_rows (`rows_of` :503, `p_ext_of`
@@ -292,6 +304,98 @@ def poisson_iter_sweeps(pr, dpr, rhs, pr_out, dpr_out, op: PoissonOperator,
 
 
 poisson_iter_sweeps.launches = 0
+
+
+# ---- K10: nit folded iterations in one cooperative launch ----
+
+def _check_nit(nit: int, name: str) -> None:
+    if int(nit) < 1:
+        raise ValueError(f"{name}: nit={nit}, expected >= 1")
+
+
+def poisson_iter_resident_plain(pr, dpr, rhs, op: PoissonOperator, nit: int,
+                                scratch=None) -> torch.Tensor:
+    """Plain PyTorch version of K10 (same arguments and effects as
+    poisson_iter_resident): K1's arithmetic nit times, only the last
+    iteration checked, pr ping-ponging with scratch."""
+    _check_nit(nit, "poisson_iter_resident_plain")
+    poisson_iter_resident_plain.calls += 1
+    spare = torch.empty_like(pr) if scratch is None else scratch
+    # as the kernel: iteration j reads src and writes dst, then they swap;
+    # for an odd nit the input is first copied into the scratch, so that
+    # the last iteration writes the caller's pr
+    src, dst = pr, spare
+    if nit % 2:
+        spare.copy_(pr)
+        src, dst = spare, pr
+    for j in range(nit):
+        err = _iter_math(src, dst, dpr, rhs, op, j == nit - 1)
+        src, dst = dst, src
+    return err
+
+
+poisson_iter_resident_plain.calls = 0
+
+
+def poisson_iter_resident(pr, dpr, rhs, op: PoissonOperator, nit: int,
+                          scratch=None) -> torch.Tensor:
+    """nit folded PT iterations in one cooperative launch, bitwise equal to
+    nit poisson_iter calls: pr and dpr are updated in place (the result
+    lands in the caller's pr; `scratch`, a tensor of pr's shape that
+    aliases no operand, takes the other half of the ping-pong and is
+    allocated when None). Returns the max |resid| over interior cells of
+    the state entering the LAST iteration (a 0-dim tensor on the device):
+    the check value the flagged K1 launch closing a chunk emits. CUDA
+    tensors launch the kernel (or raise, also where the card cannot run
+    a cooperative launch); CPU tensors run the plain version."""
+    _check_nit(nit, "poisson_iter_resident")
+    if not _build.on_cuda(pr, "poisson_iter_resident"):
+        return poisson_iter_resident_plain(pr, dpr, rhs, op, nit, scratch)
+    dev = pr.device
+    if scratch is None:
+        scratch = torch.empty_like(pr)
+    _check_operands(op, pr.shape, dev, pr=pr, dpr=dpr, rhs=rhs,
+                    scratch=scratch)
+    ptrs = [t.data_ptr() for t in (pr, dpr, rhs, scratch)]
+    if len(set(ptrs)) != 4:
+        raise ValueError("poisson_iter_resident: pr, dpr, rhs and scratch "
+                         "must be distinct")
+    err = torch.zeros((1,), dtype=torch.int32, device=dev)
+    nx, ny, nz = pr.shape
+    lib = _build.load()
+    rc = lib.ns3d_poisson_iter_resident(
+        pr.data_ptr(), scratch.data_ptr(), dpr.data_ptr(), rhs.data_ptr(),
+        op.wyp.data_ptr(), op.wym.data_ptr(), op.wzp.data_ptr(),
+        op.wzm.data_ptr(), ctypes.c_float(op.inv_dx2),
+        ctypes.c_float(op.dtau), ctypes.c_float(op.decay),
+        int(op.zero_grad_x), nx, ny, nz, int(nit), err.data_ptr(),
+        _build.stream_of(pr))
+    _build.check(rc, "poisson_iter_resident")
+    poisson_iter_resident.launches += 1
+    return err.view(torch.float32)[0]
+
+
+poisson_iter_resident.launches = 0
+
+
+def make_resident(nit: int):
+    """The counterpart of the JAX package's `make_resident`
+    (kernels/poisson.py:1066): a callable run(pr, dpr, rhs, op) -> (pr,
+    dpr, err) that advances nit folded iterations in one K10 launch, with
+    the result in the caller's pr and dpr (K10's aliasing) and err the
+    check value of the state entering the last iteration. The scratch
+    half of the ping-pong is kept between calls of one shape."""
+    _check_nit(nit, "make_resident")
+    scratch = {}
+
+    def run(pr, dpr, rhs, op: PoissonOperator):
+        key = (tuple(pr.shape), pr.dtype, pr.device)
+        if key not in scratch:
+            scratch.clear()
+            scratch[key] = torch.empty_like(pr)
+        err = poisson_iter_resident(pr, dpr, rhs, op, nit, scratch[key])
+        return pr, dpr, err
+    return run
 
 
 # ---- K2: the double-single iteration ----

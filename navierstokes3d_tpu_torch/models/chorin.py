@@ -45,6 +45,28 @@ compat mode, the reference's own semantics (the JAX package's unfused
      reference's omitted bc_y!(Vy)/bc_z!(Vz)), as torch ops
   4. gather advection with the reference's Vz bug (Vz never advected)
 
+Two keyword arguments of ChorinSolver pick the JAX package's other
+single-device paths, which it picks with environment variables:
+
+  fused_step=False (its NS3D_FUSED_STEP=0, `_step_impl`'s unchained
+  branch, chorin.py:1806-1841): steps 1 and 3 as torch ops (update_tau,
+  predict_v with g_eff, the cylinder mask, update_divv; correct_v, the
+  cylinder mask, set_bc_vel), the same Poisson solve, and the four
+  advection branches on K6, each from face-averaged velocities computed
+  as torch ops outside the kernel (kernels/advect.py advect_unchained);
+  poisson_mode='dma' (its NS3D_PALLAS_MODE=dma, chorin.py:331): no
+  folded protocol (:382) and no extended kernel (:397). The float32
+  solves without an extended accuracy phase (the gpu preset) run K7
+  under the reference's loop with the stall exit, on the variant's BC
+  spec (split under the hydrostatic split): the non-folded branch of
+  `_poisson_solve_pallas` (:1274-1295), no accuracy phase, no stored
+  pair. Where the accuracy phase is the extended pair (the multi preset)
+  the JAX package drops to its folded jnp solve (:726-735), whose
+  extended branch iterates the (hi, lo) pair from the first iteration
+  and finishes with a compensated defect correction: XLA code there,
+  torch ops here (`_poisson_solve_pair`), so no kernel runs in that
+  solve. compat is non-folded in both modes.
+
 `step_shard_map(mesh)` is the distributed step (`--comm shard_map`): the
 Poisson solve runs over a mesh of shards (parallel/halo.py; per shard
 K2-dist on the (hi, lo) pair outside compat mode, K7-dist under it, on an
@@ -77,6 +99,10 @@ from ..ptloop import host_scalar, np_float, pt_loop, pt_loop_fused
 from ..state import FlowState, StepStats, zeros_state
 
 INNER = (slice(1, -1),) * 3
+# the Poisson kernel modes (the JAX package's NS3D_PALLAS_MODE): 'blocked'
+# runs the folded protocol (K1, K8, K2), 'dma' the non-folded iteration
+# with in-kernel BCs (K7, the counterpart of the dma-mode kernel K11)
+POISSON_MODES = ("blocked", "dma")
 # the JAX package's default temporal-sweep depth (kernels/poisson.py SWD)
 SWEEP_DEPTH = 3
 
@@ -118,16 +144,23 @@ class ChorinSolver:
     # CFL_adv=1 displacement bound, clamp-counted beyond (ops/advect.py)
     advect_k = 2
 
-    def __init__(self, cfg: SimConfig, device: torch.device | str = "cuda"):
+    def __init__(self, cfg: SimConfig, device: torch.device | str = "cuda",
+                 *, fused_step: bool = True, poisson_mode: str = "blocked"):
         self.cfg = cfg
         self.device = torch.device(device)
+        if poisson_mode not in POISSON_MODES:
+            raise ValueError(f"poisson_mode must be one of {POISSON_MODES}, "
+                             f"got {poisson_mode!r}")
+        # the JAX package's NS3D_FUSED_STEP=0 and NS3D_PALLAS_MODE
+        self.fused_step = bool(fused_step)
+        self.poisson_mode = poisson_mode
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not "
                                "available")
         if cfg.numerics.poisson_backend != "pt":
             raise NotImplementedError(
                 "the fdm Poisson backend is not ported yet (ROADMAP queue "
-                "1, item 8)")
+                "1, item 2)")
         self.grid: Grid = make_grid(cfg)
         self.dtype = cfg.numerics.torch_dtype
         if (self.dtype == torch.float64 and self.device.type != "cpu"
@@ -162,10 +195,18 @@ class ChorinSolver:
         # device; otherwise the wrappers launch the hand-written kernels
         # for CUDA tensors (CPU tensors always take the plain versions)
         self.plain = cfg.use_pallas is False
-        # K7's constants: compat float32 only (float64 iterates the
-        # reference's exact form)
+        # K7's constants: the float32 solves that iterate with the BCs
+        # applied in-kernel (the JAX package's non-folded kernel, which it
+        # builds under compat and in dma mode, chorin.py:382): compat, and
+        # dma mode wherever no extended kernel is wanted (it has none in
+        # that mode, :397, and solves the extended accuracy phase's
+        # configurations with its folded jnp solve: `_poisson_solve_pair`).
+        # float64 iterates the reference's exact form (compat) or the plain
+        # folded solve.
         self._bc_op = None
-        if cfg.compat and self.dtype == torch.float32:
+        if self.dtype == torch.float32 and (
+                cfg.compat or (poisson_mode == "dma"
+                               and self.acc != "extended")):
             self._bc_op = k_poisson.make_bc_operator(
                 k_poisson.poisson_bc_spec(cfg.variant, grid, phys,
                                           self.pressure_split),
@@ -277,12 +318,14 @@ class ChorinSolver:
                       ) -> Tuple[torch.Tensor, torch.Tensor, StepStats]:
         """(pr, dprdtau, stats); stats.pr_lo carries the stored pair's low
         word on the float32 accuracy paths."""
+        if self._bc_op is not None:
+            return self._poisson_solve_bc(pr, dprdtau, divv)
         if self.cfg.compat:
-            if self._bc_op is not None:
-                return self._poisson_solve_bc(pr, dprdtau, divv)
             return self._poisson_solve_exact(pr, dprdtau, divv)
         if self.dtype == torch.float64:
             return self._poisson_solve_folded(pr, dprdtau, divv)
+        if self.poisson_mode == "dma" and self.acc == "extended":
+            return self._poisson_solve_pair(pr, dprdtau, divv)
         return {"defect": self._poisson_solve_defect,
                 "extended": self._poisson_solve_extended,
                 "none": self._poisson_solve_plain}[self.acc](
@@ -303,11 +346,15 @@ class ChorinSolver:
         return (self.cfg.physics.rho / self.grid.dt) * divv - zh
 
     def _poisson_solve_bc(self, pr, dprdtau, divv):
-        """compat in float32: K7 under the reference's loop, the non-folded
-        branch of the JAX package's `_poisson_solve_pallas`
-        (chorin.py:1274-1295): the unhoisted RHS (rho/dt)*divv, no exact
-        first iteration, and after each chunk the check value
-        max|poisson_residual(pr)| * ly^2/psc."""
+        """K7 under the reference's loop, the non-folded branch of the JAX
+        package's `_poisson_solve_pallas` (chorin.py:1274-1295), which it
+        runs under compat and in dma mode (there on its K11): the unhoisted
+        RHS (rho/dt)*divv, no exact first iteration, after each chunk the
+        check value max|poisson_residual(pr)| * ly^2/psc, the stall exit
+        where it is on (outside compat), the trailing partial chunk on an
+        unconverged budget exhaustion; no accuracy phase and no stored
+        pair. K7's BC spec is the variant's, split where the solver splits
+        the pressure (the gpu preset outside compat)."""
         grid, phys, num = self.grid, self.cfg.physics, self.cfg.numerics
         nchunks, rem = self._budget()
         rhs = (phys.rho / grid.dt) * divv
@@ -401,6 +448,69 @@ class ChorinSolver:
             num.eps_it, self.dtype, stall=self._stall)
         return self.set_bc_pr(pr), dprdtau, StepStats(
             iters=it1, err=err1, err_hist=hist1)
+
+    def _poisson_solve_pair(self, pr, dprdtau, divv):
+        """dma mode where the accuracy phase is the extended pair (the
+        multi preset): the JAX package has no extended kernel in that mode
+        (chorin.py:397), so its poisson_solve drops to the extended branch
+        of `_poisson_solve_jnp_folded` (:975-1124), XLA code, here torch
+        ops: the exact first iteration, then the (hi, lo) pair iterated
+        from lo = 0 with the jnp folded Laplacian over the whole budget,
+        then one compensated residual r0 of the pair and a plain folded
+        correction solve of lap(delta) = -r0 (err0-seeded, dpr carried
+        over), the pair (hi, lo + delta) renormalized. err is the
+        correction loop's exit residual, or the compensated one where the
+        pair loop had converged."""
+        grid, phys, num = self.grid, self.cfg.physics, self.cfg.numerics
+        nchunks, rem = self._budget()
+        nchk, eps_it = grid.nchk, num.eps_it
+        dtau, decay = grid.dtau, 1.0 - grid.damp
+        ft = np_float(self.dtype)
+        err_scale = self._err_scale()
+        op = self._op
+        zh = self._z_hoist[1:-1] if self.pressure_split else None
+        rhs, rhs_lo = ds.rhs_pair(divv[INNER], phys.rho / grid.dt, zh)
+
+        def update(dpr, resid):
+            dpr = dpr.clone()
+            dpr[INNER] = dpr[INNER] * decay + dtau * resid
+            return dpr
+
+        def check(resid, it):
+            return (torch.max(torch.abs(resid)) * err_scale
+                    if (it + 1) % nchk == 0 else None)
+
+        def pair_step(carry, it):
+            hi, lo, dpr = carry
+            resid = ((k_poisson.folded_lap(hi, op) - rhs)
+                     + k_poisson.folded_lap(lo, op))
+            dpr = update(dpr, resid)
+            hi, lo = _two_sum(hi, lo + dtau * dpr)
+            return (hi, lo, dpr), check(resid, it), 1
+
+        def correction_step(carry, it):
+            d, dpr = carry
+            resid = k_poisson.folded_lap(d, op) - rhs_c
+            dpr = update(dpr, resid)
+            return (d + dtau * dpr, dpr), check(resid, it), 1
+
+        p1, dpr = self._first_iteration(pr, dprdtau, divv)
+        (hi1, lo1, dpr), it1, _, hist1 = pt_loop_fused(
+            pair_step, (p1, torch.zeros_like(p1), dpr), 1,
+            nchunks * nchk + rem, nchk, nchunks, eps_it, self.dtype,
+            stall=self._stall)
+        r0, emax = self._comp_residual(hi1, lo1, rhs, rhs_lo)
+        errh = host_scalar(emax * err_scale, ft)
+        rhs_c = -r0
+        (dl, dpr), it2, err2, hist2 = pt_loop_fused(
+            correction_step, (torch.zeros_like(hi1), dpr), 0,
+            nchunks * nchk + rem, nchk, nchunks, eps_it, self.dtype,
+            stall=self._stall, err0=errh)
+        hist = np.where(np.isnan(hist1), np.roll(hist2, it1 // nchk), hist1)
+        hi, lo = self.set_bc_pr_pair(*_two_sum(hi1, lo1 + dl))
+        return hi, dpr, StepStats(iters=it1 + it2,
+                                  err=err2 if it2 > 0 else errh,
+                                  err_hist=hist, iters_ext=it2, pr_lo=lo)
 
     def _kernel_chain(self, rhs, err_scale) -> Callable:
         """Loop body of one K1 iteration on the carry (p_in, p_out, d_in,
@@ -673,8 +783,9 @@ class ChorinSolver:
         """The predictor-velocity divergence a step taken FROM `state`
         hands to its Poisson solve (the step's own prelude); snapshot it
         before stepping to feed stored_residual_err."""
-        return self._predict(state.vx, state.vy, state.vz, self.masks,
-                             self._consts)[3]
+        predict = self._predict if self.fused_step else k_step.predict_ops
+        return predict(state.vx, state.vy, state.vz, self.masks,
+                       self._consts)[3]
 
     def stored_residual_err(self, state_after: FlowState, *,
                             state_before: Optional[FlowState] = None,
@@ -698,18 +809,23 @@ class ChorinSolver:
             / ft(phys.psc)
 
     def step(self, state: FlowState) -> Tuple[FlowState, StepStats]:
-        return self._step_impl(state, self.poisson_solve)
+        return self._step_impl(state, self.poisson_solve,
+                               chained=self.fused_step)
 
     def _step_impl(self, state: FlowState, poisson_fn: Callable,
-                   fused: bool = True) -> Tuple[FlowState, StepStats]:
+                   chained: bool = True, advect_kernel: bool = True
+                   ) -> Tuple[FlowState, StepStats]:
         """One step around `poisson_fn(pr, dprdtau, divv) -> (pr, dprdtau,
-        stats)`. fused=False runs the JAX package's unfused `_step_impl`
-        chain as torch ops (what its distributed step runs on a mesh of
-        more than one device, allow_pallas_advect=False): update_tau,
-        predict_v, cylinder mask, update_divv; correct_v, cylinder mask,
-        set_bc_vel; the configured advection method."""
+        stats)`, the JAX package's `_step_impl` (chorin.py:1776-1841).
+        chained=False runs its unchained branch: the chain as torch ops
+        (update_tau, predict_v, cylinder mask, update_divv; correct_v,
+        cylinder mask, set_bc_vel) and select-shift advection on K6 from
+        face averages computed outside it (`_advect_pallas`).
+        advect_kernel=False advects with torch ops instead (what its
+        distributed step runs on a mesh of more than one device,
+        allow_pallas_advect=False); compat always advects by gather."""
         k = self._consts
-        if fused:
+        if chained:
             predict, correct = self._predict, self._correct
         else:
             predict = k_step.predict_ops
@@ -723,13 +839,16 @@ class ChorinSolver:
         # state (the corrector and the next solve use hi only)
         pr_lo, stats.pr_lo = stats.pr_lo, None
         vx, vy, vz = correct(vx, vy, vz, pr, self.masks, k)
-        if self.advect_method == "gather" or not fused:
+        if self.advect_method == "gather" or not advect_kernel:
             vx, vy, vz, c, n_clamped = adv.advect(
                 vx, vy, vz, c, k.dt, k.dx, k.dy, k.dz,
                 compat=self.cfg.compat, method=self.advect_method,
                 k=self.advect_k)
-        else:
+        elif chained:
             vx, vy, vz, c, n_clamped = k_advect.advect(
+                vx, vy, vz, c, k, self.advect_k, plain=self.plain)
+        else:
+            vx, vy, vz, c, n_clamped = k_advect.advect_unchained(
                 vx, vy, vz, c, k, self.advect_k, plain=self.plain)
         stats.advect_clamped = int(n_clamped.item())
         return (FlowState(pr=pr, vx=vx, vy=vy, vz=vz, c=c, dprdtau=dprdtau,
@@ -744,7 +863,8 @@ class ChorinSolver:
         mesh's blocks at entry and joins them at exit. On a mesh of more
         than one shard the rest of the step is the unfused chain as torch
         ops; on one shard it is the solver's own (K3, K4, K5 outside
-        compat mode). The solve's iters, err and err_hist go into the
+        compat mode, or with fused_step=False the torch-ops chain and
+        K6). The solve's iters, err and err_hist go into the
         StepStats; there is no stored pair (pr_lo is None).
 
         use_pallas (auto: the solver's kernels carry its hot path, i.e.
@@ -769,7 +889,9 @@ class ChorinSolver:
                                           err_hist=hist)
 
         def step(state: FlowState) -> Tuple[FlowState, StepStats]:
-            return self._step_impl(state, poisson, fused=mesh.size == 1)
+            return self._step_impl(
+                state, poisson, chained=self.fused_step and mesh.size == 1,
+                advect_kernel=mesh.size == 1)
         return step
 
     def run(self, nt: Optional[int] = None,

@@ -97,7 +97,8 @@ def pt_loop(run_iters: Callable, residual_err: Callable, pr, dpr,
 def pt_loop_fused(step_fn: Callable, carry, it0: int, niter: int, nchk: int,
                   nchunks: int, eps_it: float, dtype,
                   stall: Optional[Tuple[float, int]] = None, err0=None,
-                  rem: int = 0, tail_fn: Optional[Callable] = None):
+                  rem: int = 0, tail_fn: Optional[Callable] = None,
+                  seed0: bool = False):
     """Flat loop over ITERATIONS for backends whose iteration emits its own
     residual max.
 
@@ -119,6 +120,11 @@ def pt_loop_fused(step_fn: Callable, carry, it0: int, niter: int, nchk: int,
     body's advance) and only where the loop ran out of budget without
     converging, without a non-finite err and without stalling: the same
     predicate as pt_loop's tail.
+    seed0=True: err0 IS the k = 0 check (the caller ran the whole first
+    chunk outside the loop, e.g. one resident-chunk launch of nit = nchk
+    iterations, kernels/poisson.py make_resident): it goes into hist[0]
+    and the stall window, so the loop sees the check sequence of a loop
+    whose first body emitted it. Requires err0 and it0 == nchk.
     Returns (carry, iters, err, hist)."""
     ft = np_float(dtype)
     window = _Stall(stall, ft)
@@ -135,6 +141,11 @@ def pt_loop_fused(step_fn: Callable, carry, it0: int, niter: int, nchk: int,
     hist = np.full((nhist,), np.nan, ft)
     err = window.big if err0 is None else host_scalar(err0, ft)
     it = int(it0)
+    if seed0:
+        if err0 is None or it != nchk:
+            raise ValueError("seed0 requires err0 and it0 == nchk")
+        hist[0] = err
+        window.push(err)
     while running(it, err):
         carry, e, nadv = step_fn(carry, it)
         it += int(nadv)

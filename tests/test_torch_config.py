@@ -23,6 +23,7 @@ import navierstokes3d_tpu_torch.config as tcfg
 import navierstokes3d_tpu_torch.grid as tgrid
 from navierstokes3d_tpu_torch import kernels
 from navierstokes3d_tpu_torch.kernels import _build
+from navierstokes3d_tpu_torch.kernels import poisson as kp
 from navierstokes3d_tpu_torch.parallel import make_mesh
 
 torch.set_num_threads(2)
@@ -154,6 +155,12 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
         s = nt.ChorinSolver(cfg, device="cpu")
         state, stats = s.step_shard_map(mesh)(s.init_state())
         assert stats.iters > 0
+    # the unchained step runs K6, and K10 runs behind make_resident
+    s = nt.ChorinSolver(gpu, device="cpu", fused_step=False)
+    state, stats = s.step(s.init_state())
+    assert stats.iters > 0
+    p = state.pr.clone()
+    kp.make_resident(3)(p, state.dprdtau.clone(), p.clone(), s._op)
     for k in kernels.KERNELS:
         assert k.wrapper.launches == 0, k.name
         assert k.plain.calls > 0, k.name
@@ -184,4 +191,4 @@ def test_build_sources_and_key():
         "ns3d_poisson_iter", "ns3d_poisson_iter_ext", "ns3d_poisson_iter_bc",
         "ns3d_poisson_iter_sweeps", "ns3d_predict", "ns3d_correct",
         "ns3d_advect", "ns3d_poisson_iter_bc_dist",
-        "ns3d_poisson_iter_ext_bc_dist"}
+        "ns3d_poisson_iter_ext_bc_dist", "ns3d_poisson_iter_resident"}

@@ -340,3 +340,95 @@ def test_sharded_step_on_card_matches_cpu(compat):
     on = "K7-dist" if compat else "K2-dist"
     for k in kernels.KERNELS:
         assert (k.wrapper.launches > 0) == k.name.startswith(on), k.name
+
+
+@pytest.mark.parametrize("scale", [0.25, 3.0])
+def test_k6_matches_plain_and_k5(solver, scale):
+    """K6 on each branch from its torch-op face averages (NaN in the pads,
+    which its write mask keeps unread): bitwise equal to its plain version
+    and to K5 on the same velocities, equal clamp counts."""
+    g, rng = solver.grid, np.random.default_rng(3)
+    vx = _rand(rng, g.shape_vx, scale)
+    vy = _rand(rng, g.shape_vy, scale)
+    vz = _rand(rng, g.shape_vz, scale)
+    c = torch.tensor(rng.uniform(size=g.shape_c).astype(np.float32),
+                     device="cuda")
+    k, w = solver._consts, solver.advect_k
+    n6 = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    n5 = torch.zeros_like(n6)
+    n_plain = 0
+    for name, a in zip(("vx", "vy", "vz", "c"), (vx, vy, vz, c)):
+        vels = ka.pre_velocities(name, vx, vy, vz)
+        axis = ka._PAD_AXIS[name]
+        poisoned = []
+        for v in vels:
+            v = v.clone()
+            if axis is not None:
+                v.select(axis, 0).fill_(float("nan"))
+                v.select(axis, -1).fill_(float("nan"))
+            poisoned.append(v)
+        out = ka.advect_branch_pre(name, a, *poisoned, k, w, n6)
+        ref, ncl = ka.advect_branch_pre_plain(name, a, *vels, k, w)
+        k5 = ka.advect_branch(name, a, vx, vy, vz, k, w, n5)
+        n_plain += int(ncl)
+        assert torch.equal(out, ref) and torch.equal(out, k5), name
+    assert int(n6.item()) == n_plain == int(n5.item())
+    assert (n_plain > 0) == (scale > 1.0)
+
+
+@pytest.mark.parametrize("nit", [1, 2, 5, 38])
+def test_k10_matches_k1_launches_and_plain(nit):
+    """K10 at 64x39x39 (several tiles on every axis): one cooperative
+    launch bitwise equal to nit K1 launches and to its plain version, the
+    check value that of the last K1 launch, the result in the caller's
+    pr and dpr."""
+    solver = _solver(64)
+    g, rng = solver.grid, np.random.default_rng(8)
+    pr = _rand(rng, g.shape_c)
+    dpr = _rand(rng, g.shape_c, 0.01)
+    rhs = _rand(rng, g.shape_c)
+    p, d = pr.clone(), dpr.clone()
+    e = kp.poisson_iter_resident(p, d, rhs, solver._op, nit,
+                                 torch.full_like(pr, float("nan")))
+    q, dq = pr.clone(), dpr.clone()
+    for j in range(nit):
+        o = torch.empty_like(q)
+        e1 = kp.poisson_iter(q, o, dq, rhs, solver._op, j == nit - 1)
+        q = o
+    pp, dp = pr.clone(), dpr.clone()
+    ep = kp.poisson_iter_resident_plain(pp, dp, rhs, solver._op, nit)
+    assert torch.equal(p, q) and torch.equal(d, dq)
+    assert torch.equal(p, pp) and torch.equal(d, dp)
+    assert float(e) == float(e1) == float(ep)
+
+
+@pytest.mark.parametrize("preset", ["gpu", "multi"])
+@pytest.mark.parametrize("kw", [{"fused_step": False},
+                                {"poisson_mode": "dma"}])
+def test_unchained_and_dma_steps_on_card_match_cpu(preset, kw):
+    """Two steps at nx=15 of the unchained step (K6, the chain as torch
+    ops) and of the dma-mode solve (K7 under the gpu preset, the pair
+    solve as torch ops under the multi one): equal counts, every field
+    bitwise equal to the CPU run, and only the path's kernels launched."""
+    solver = _solver(15, preset)
+    card = nt.ChorinSolver(solver.cfg, device="cuda", **kw)
+    cpu = nt.ChorinSolver(solver.cfg, device="cpu", **kw)
+    kernels.reset_counts()
+    a, b = card.init_state(), cpu.init_state()
+    for _ in range(2):
+        a, sa = card.step(a)
+        b, sb = cpu.step(b)
+        assert (sa.iters, sa.iters_ext, sa.advect_clamped) == (
+            sb.iters, sb.iters_ext, sb.advect_clamped)
+        for name in ("pr", "vx", "vy", "vz", "c", "dprdtau", "pr_lo"):
+            x, y = getattr(a, name), getattr(b, name)
+            assert (x is None) == (y is None), name
+            assert x is None or torch.equal(x.cpu(), y), name
+    # at nx=15 the multi solves converge in phase 1 (no K2)
+    if "fused_step" in kw:
+        on_path = {"K1", "K6"}
+    else:
+        on_path = {"K3", "K4", "K5"} | ({"K7"} if preset == "gpu" else set())
+    launched = {k.name.split()[0] for k in kernels.KERNELS
+                if k.wrapper.launches > 0}
+    assert launched == on_path

@@ -161,6 +161,56 @@ def test_plain_python_scalars_as_err():
     assert it == 12 and isinstance(err, np.float32)
 
 
+@pytest.mark.parametrize("stall", [None, (0.95, 3)])
+def test_seed0_matches_unseeded_loop(stall):
+    """seed0=True (tests/test_ptloop.py:97-123): the caller ran the whole
+    first chunk (a resident-chunk launch of nit = nchk), err0 is the k = 0
+    check; the seeded loop gives the unseeded loop's (iters, err, hist)
+    in both packages, also for an err0 of shape (1, 1) like K10's."""
+    nchk, nchunks, rate = 4, 10, 0.9
+    it1, err1, hist1 = run_both(lambda lib: geometric(rate, lib), 1.0, 0,
+                                nchunks * nchk, nchk, nchunks, 1e-3,
+                                stall=stall)
+    carry_pre = np.float32(1.0) * np.float32(rate) ** nchk
+    err0 = np.float32(1.0) * np.float32(rate) ** (nchk - 1)
+    it2, err2, hist2 = run_both(lambda lib: geometric(rate, lib), carry_pre,
+                                nchk, nchunks * nchk, nchk, nchunks, 1e-3,
+                                stall=stall, err0=err0, seed0=True)
+    assert it1 == it2
+    np.testing.assert_allclose(err2, err1, rtol=1e-6)
+    np.testing.assert_allclose(hist2, hist1, rtol=1e-6)
+    _, it3, err3, hist3 = torch_loop(
+        geometric(rate, "torch"), torch.tensor(carry_pre), nchk,
+        nchunks * nchk, nchk, nchunks, 1e-3, torch.float32, stall=stall,
+        err0=torch.full((1, 1), float(err0)), seed0=True)
+    assert (it3, err3) == (it2, err2)
+    np.testing.assert_array_equal(hist3, hist2)
+
+
+def test_seed0_stall_window_is_seeded():
+    """tests/test_ptloop.py:126-142: the seeded k = 0 check enters the
+    stall window, so a flat residual exits at the same iteration."""
+    nchk, nchunks = 2, 50
+
+    def flat(lib):
+        if lib == "jax":
+            return lambda c, it: (c, c, jnp.int32(1))
+        return lambda c, it: (c, c, 1)
+    it1, err1, _ = run_both(flat, 1.0, 0, nchunks * nchk, nchk, nchunks,
+                            1e-8, stall=(0.95, 3))
+    it2, err2, _ = run_both(flat, 1.0, nchk, nchunks * nchk, nchk, nchunks,
+                            1e-8, stall=(0.95, 3), err0=1.0, seed0=True)
+    assert it1 == it2 < nchunks * nchk and err1 == err2
+
+
+@pytest.mark.parametrize("it0,err0", [(3, 0.5), (4, None)])
+def test_seed0_requires_full_first_chunk(it0, err0):
+    """tests/test_ptloop.py:145-153: seed0 needs err0 and it0 == nchk."""
+    with pytest.raises(ValueError, match="seed0"):
+        torch_loop(geometric(0.9, "torch"), torch.tensor(1.0), it0, 40, 4,
+                   10, 1e-3, torch.float32, err0=err0, seed0=True)
+
+
 # ---- pt_loop: the reference's chunk loop (compat) ----
 
 def chunks_both(values, nchunks, nchk, rem, eps, stall=None):
