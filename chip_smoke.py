@@ -48,8 +48,10 @@ Phases (any failure exits non-zero; nothing is caught):
      gpu nx=15, and multi nx=15 at eps_it=1e-9, where K2 runs
   9. wide kernels: at the wide grid's 511x307x307 float32 shapes, K8 at
      s = 2 and 3 with the gpu operator against its plain version and
-     against s K1 launches (bitwise), and one launch each of K1, K3, K4
-     and K5 against its plain version (the counterparts there of the JAX
+     against s K1 launches (bitwise, NaN-filled outputs, check value
+     equal; its time per iteration over K1's in the same run and its
+     launch plan printed), and one launch each of K1, K3, K4 and K5
+     against its plain version (the counterparts there of the JAX
      package's lane-tiled K9a, K3t, K4t and K5t); phase 3 also holds K8 at
      s = 2 on the 255 gpu and multi operators
  10. wide path: ChorinSolver(preset_gpu(nx=511, compat=False,
@@ -417,14 +419,20 @@ def check_k8(op, pr, dpr0, rhs, s, label) -> dict:
     k1_ms = cuda_ms(lambda: k_poisson.poisson_iter(pr, pa, da, rhs, op,
                                                    False), 20)
     b = bound(K8_NAME, (pr, dpr0, rhs), (po, do), pr.numel(), iters=s)
+    plan = k_poisson.sweep_plan(
+        tuple(pr.shape), s, torch.cuda.get_device_properties(
+            0).multi_processor_count)
     print(f"[kernels] {K8_NAME} s={s} ({label}): max ulp {worst_ulp}, "
           f"bitwise equal to {s} K1 launches; {ms:.4f} ms (check "
           f"{ms_chk:.4f} ms) = {ms / s:.4f} ms per iteration against K1's "
-          f"{k1_ms:.4f} ms; plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f}"
-          f" ms ({b['bound_by']}, {b['bytes'] / 1e6:.1f} MB), kernel at "
-          f"{100 * b['bound_ms'] / ms:.1f}% of it")
+          f"{k1_ms:.4f} ms ({ms / s / k1_ms:.3f} of it); plain "
+          f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}"
+          f", {b['bytes'] / 1e6:.1f} MB), kernel at "
+          f"{100 * b['bound_ms'] / ms:.1f}% of it; plan {plan.blocks} blocks"
+          f" of {plan.ry}x{plan.w} regions ({plan})")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, k1_ms=k1_ms,
-                **b)
+                per_iteration_over_k1=ms / s / k1_ms,
+                plan=dataclasses.asdict(plan), **b)
 
 
 def phase_kernels(gpu, multi) -> dict:
@@ -1630,7 +1638,8 @@ def main() -> int:
                                 for label, v in r["at_255_s2"].items()}
         # the dist kernels: the middle shard's numbers (multi spec), every
         # shard's and K2-dist's on the whole grid beside them
-        for extra in ("shards", "whole_grid", "at_63", "events_ms",
+        for extra in ("per_iteration_over_k1", "plan", "at_511_s2",
+                      "shards", "whole_grid", "at_63", "events_ms",
                       "k1_launches_ms", "k1_launches_events_ms",
                       "per_iteration_ms", "four_branches_ms",
                       "k5_four_branches_ms"):

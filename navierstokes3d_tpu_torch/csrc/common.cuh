@@ -5,6 +5,11 @@
 // consecutive addresses, threadIdx.y walks y, and blockIdx.z is the x
 // plane. The block reductions run once per block and are off the hot
 // path (the Poisson kernel reduces only on check iterations, one in nchk).
+//
+// Below them: the asynchronous copy K8 streams its planes with (a 4-byte
+// cp.async, commit and wait), each behind a small function so that a host
+// rehearsal of the kernels can map the copy onto a memcpy and the group
+// operations onto no-ops.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -77,6 +82,31 @@ __device__ inline void block_sum_to(int v, int* out) {
     v = warp_sum(t < kWarps ? per_warp[t] : 0);
     if (t == 0 && v != 0) atomicAdd(out, v);
   }
+}
+
+// ---- cp.async (Ampere and Hopper) ----
+
+// The shared-memory address of a generic pointer into shared memory.
+__device__ inline unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Copy 4 bytes from global src to shared dst, asynchronously.
+__device__ inline void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Close this thread's group of copies issued since the last commit.
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until every group of this thread's copies has landed.
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
 }  // namespace ns3d

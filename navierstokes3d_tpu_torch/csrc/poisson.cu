@@ -59,22 +59,13 @@
 // launches. The check value is the residual entering the LAST sweep,
 // reduced over each tile's own interior cells (a recomputed halo cell
 // holds partial data and never enters the max): the value the s-th K1
-// launch would emit. Design: streaming along x (a 2.5-D form of temporal
-// blocking). A block owns 16 rows in y and 32 - 2s lanes in z (with s halo
-// rows and lanes per side, so a row of the region is one warp) and 32
-// planes in x. It walks its planes in order: each step loads the next
-// plane of pr, dpr and rhs with cp.async while it computes, in shared
-// memory, level j of the plane j behind it, for j = 1..s. Level j of a
-// plane needs level j-1 of the planes on either side, so each level keeps
-// a ring of three planes (pr), and a plane's dpr is updated in place by
-// each level in turn; level s goes to pr_out and dpr_out. The y and z
-// halo shrinks by one per level; the only x halo is the s planes a block
-// recomputes at each end of its 32. Both outputs ping-pong: neighbouring
-// blocks read the inputs over their halos, so neither output may alias an
-// input. The bytes bound is K1's (5 x 4 B per cell) for s iterations;
-// this design is bound instead by the s + 1 barriers per plane and the
-// recomputed halo (a ghost-zone form, which recomputes the x halo of
-// every small tile too, was slower; PERF.md).
+// launch would emit. Design (the K8 section below: tile, region, bytes
+// per cell, pipeline): a block streams one (y, z) region of tiles along
+// a segment of x, each plane's copies landing one plane ahead, and
+// computes level j of the plane j behind the newest one, for j = 1..s,
+// with one block barrier per plane; a cell's x neighbours, dpr and rhs
+// stay in the registers of the thread that owns the cell at every level.
+// Bound: device-memory bytes, K1's 5 x 4 B per cell for s iterations.
 //
 // K10 replaces the Pallas kernel of navierstokes3d_tpu/kernels/poisson.py:1151
 // (`make_resident` :1066, `kernelR` :1116): nit folded iterations in ONE
@@ -153,7 +144,6 @@
 // hi, lo, dpr, rhs in; hi', lo', dpr' out) plus the halo planes; one
 // thread per cell, as K7.
 #include <cooperative_groups.h>
-#include <cuda_pipeline.h>
 
 #include "common.cuh"
 
@@ -265,163 +255,322 @@ __global__ void poisson_iter_ext_kernel(
   if (err_bits != nullptr) ns3d::block_max_to(bits, err_bits);
 }
 
-// K8's tile: a block owns kSweepTileY rows in y, 32 - 2S lanes in z (the
-// row plus S halo lanes per side is one warp) and kSweepSegX planes in x,
-// which it streams through plane by plane.
-constexpr int kSweepTileY = 16;
-constexpr int kSweepSegX = 32;
+// ---- K8: s folded iterations per launch, streamed along x ----
+//
+// What bounds it on this card: device-memory bytes. One launch reads pr,
+// dpr and rhs and writes pr_out and dpr_out, 5 x 4 B per cell for s
+// iterations (963 MB at 511x307x307, 0.2875 ms at 3.35 TB/s); its s x 22
+// flops per cell take a fifth of that at the float32 rate.
+//
+// Tile and region. The wrapper's plan (kernels/poisson.py `sweep_plan`)
+// cuts (y, z) into tiles of uy x uz cells and x into segments; a block
+// owns one tile and one segment. Level j of the s sweeps is needed on the
+// tile grown by s - j cells per side, so the block streams the REGION
+// (uy + 2s) x (uz + 2s) through shared memory, plane by plane, from s
+// planes before its segment to s planes after it. At 511x307x307, s = 3:
+// tiles of 28 x 52 in 34 x 58 regions, 11 x 6 tiles x 2 segments of 256
+// planes = 132 blocks, one per SM, one wave. The region's own bytes per
+// output cell: pr 34 x 58 / (28 x 52) = 1.35 reads, dpr and rhs 32 x 56 /
+// (28 x 52) = 1.23 (a region's edge cells take no update), times 262 / 256
+// planes: 15.6 B read + 8 B written = 23.6 B against the bound's 20 B, a
+// ceiling of 85% if every halo byte came from device memory. All blocks
+// start together and walk x at one rate, so the tiles on both sides of a
+// halo row read it within microseconds, the second time from L2.
+//
+// What held the design it replaces (16-row tiles of 32 lanes, 32-plane
+// segments, a 4-byte cp.async per cell one plane ahead, s + 1 block
+// barriers per plane, 4 blocks per SM) to 25% of the bound, and what this
+// one does: (1) 59% of its 22 x 32 regions was useful, 74% of 34 x 58 is;
+// (2) ONE block barrier per plane instead of s + 1 (below); (3) a cell's
+// x neighbours, dpr and rhs live in the registers of the thread that owns
+// the cell at every level, so shared memory holds only the pr planes the
+// y and z neighbours are read from; (4) host work per launch: the
+// shared-memory attribute is raised once per depth and device, and the
+// check word is reset by a stream-ordered memset. What bounds it now is
+// instruction issue: the address, predicate and queue work around the 25
+// flops per cell and level (PERF.md, scripts/k8_probe.py --sass).
+//
+// Loads. Each thread copies its own cells of plane t + 1 with 4-byte
+// cp.async (pr of every cell in the domain, dpr and rhs of the cells a
+// level updates) into a ring of three slots (planes t+1, t and t-1). One
+// plane in flight is enough: deeper rings measured no faster (PERF.md).
+// (A TMA form, one box of a rank-1 tensor map per region row completing
+// on an mbarrier, came first and took 1.27-1.33 ms per s = 3 launch: on
+// the H100 a box must start on a 16-byte boundary, which a row of the
+// native layout does not at nz = 307, and the ~90 small boxes a plane
+// needs are issued one by one; a 16-byte cp.async form with the same
+// row phases took 0.86 ms; PERF.md.)
+//
+// One block barrier per plane. Level j at step t computes plane t - j from
+// level j-1's planes t-j-1, t-j and t-j+1 of its own (y, z) cell, which
+// the same thread holds in registers (a queue three deep per level: the
+// thread-to-cell map is the same at every level), and from the y and z
+// neighbours of plane t-j, which level j-1 wrote to shared memory in step
+// t-1. Each level's plane is double-buffered by parity, so the barrier
+// that starts step t orders every write of step t-1 before its reads and
+// every read of step t-1 before the next write into the slot; it also
+// publishes plane t, whose copies each thread has waited for, and frees
+// the ring slot the next copies fill. A cell's dpr and rhs wait in
+// registers (a queue s deep each) for the level that needs them. Every
+// cell computes every level (branch-free, so a thread's cells interleave);
+// only the cells a level covers store. Both outputs ping-pong with the
+// inputs: neighbouring blocks read the inputs over their halos, so neither
+// output may alias an input.
 
-// Shared-memory layout of one K8 block at depth S, in planes of
-// (kSweepTileY + 2S) rows x 32 lanes: the ring of level-0 pr planes (the
-// three a level-1 plane reads, and the one being loaded), a ring of three
-// per level 1..S-1, and rings of S + 2 planes of dpr and rhs (a plane's
-// dpr is updated in place by each level, S steps after its load).
-template <int S>
-struct SweepLayout {
-  static constexpr int rows = kSweepTileY + 2 * S;
-  static constexpr int plane = rows * 32;
-  static constexpr int p0_slots = 4;
-  static constexpr int dr_slots = S + 2;
-  static constexpr int planes = p0_slots + 3 * (S - 1) + 2 * dr_slots;
-  static constexpr size_t bytes = sizeof(float) * plane * planes;
+constexpr int kSweepThreads = 512;  // threads of a K8 block (16 warps)
+constexpr int kSweepCols = 4;       // region cells per thread
+constexpr int kSweepRing = 3;       // ring slots: planes t+1, t and t-1
+
+// The wrapper's plan (kernels/poisson.py SweepPlan, same fields).
+struct SweepPlan {
+  int uy, uz;            // a tile's own rows (y) and lanes (z)
+  int tiles_y, tiles_z;  // tiles per axis
+  int seg;               // planes per x segment (the last may be shorter)
 };
 
-// ring slot of plane x in a ring of n planes; x >= -S >= -4 and 60 is a
-// multiple of every ring size (3, 4 and S + 2 <= 6), so the slot is the
-// plane's residue however negative x is
-__device__ inline int ring_slot(int x, int n) { return (x + 60) % n; }
-
-// S is a template parameter so that the ring sizes and row counts are
-// constants: the loops unroll and the slot arithmetic folds.
+// The region and shared-memory geometry of a plan at depth S: a plane is
+// the region's ry x w cells, row-major (cell c = r * w + zc).
 template <int S>
-__global__ void __launch_bounds__(ns3d::kBlockThreads) poisson_sweeps_kernel(
+struct SweepGeom {
+  int ry, w, plane;
+  size_t smem;
+  __host__ __device__ explicit SweepGeom(const SweepPlan& p)
+      : ry(p.uy + 2 * S), w(p.uz + 2 * S), plane(ry * w),
+        // the ring (three fields per slot), two planes per level 1..S-1,
+        // 32 words of reduction scratch
+        smem(sizeof(float) * plane * (3 * kSweepRing + 2 * (S - 1)) +
+             4 * 32) {}
+};
+
+template <int S>
+__global__ void __launch_bounds__(kSweepThreads, 1) poisson_sweeps_kernel(
     const float* __restrict__ pr, const float* __restrict__ dpr,
     const float* __restrict__ rhs, float* __restrict__ pr_out,
-    float* __restrict__ dpr_out, Weights w, float inv_dx2, float dtau,
-    float decay, int zero_grad_x, int nx, int ny, int nz,
+    float* __restrict__ dpr_out, Weights wt, float inv_dx2, float dtau,
+    float decay, int zero_grad_x, int nx, int ny, int nz, SweepPlan p,
     unsigned int* __restrict__ err_bits) {
-  using L = SweepLayout<S>;
-  constexpr int step = ns3d::kBlockY;  // row step of a block's warps
-  extern __shared__ float smem[];
-  float* const p0 = smem;                           // level 0
-  float* const pl = p0 + L::p0_slots * L::plane;    // levels 1..S-1
-  float* const sd = pl + 3 * (S - 1) * L::plane;    // dpr
-  float* const sr = sd + L::dr_slots * L::plane;    // rhs
-  const int lz = threadIdx.x;
-  const int xb = blockIdx.z * kSweepSegX;           // the block's planes
-  const int xe = min(xb + kSweepSegX, nx);
-  const int y0 = blockIdx.y * kSweepTileY - S;      // region's first row
-  const int gz = blockIdx.x * (32 - 2 * S) - S + lz;
-  const bool z_in = gz >= 0 && gz < nz;
+  constexpr int C = kSweepCols;
+  const SweepGeom<S> g(p);
+  extern __shared__ float ring[];  // [slot][field][plane]
+  float* const lev = ring + 3 * kSweepRing * g.plane;  // [level-1][parity]
+  unsigned int* const red =
+      reinterpret_cast<unsigned int*>(lev + 2 * (S - 1) * g.plane);
+
+  // the block's tile and segment
+  int b = blockIdx.x;
+  const int tz = b % p.tiles_z;
+  b /= p.tiles_z;
+  const int ty = b % p.tiles_y;
+  const int xb = b / p.tiles_y * p.seg;
+  const int xe = min(xb + p.seg, nx);
+  const int y0 = ty * p.uy - S;  // the region's first row and lane
+  const int z0 = tz * p.uz - S;
   const long sx = static_cast<long>(ny) * nz;
-  // the pr plane x of level j (0 <= j < S) in its ring
-  auto level = [&](int j, int x) -> float* {
-    return j == 0 ? p0 + ring_slot(x, L::p0_slots) * L::plane
-                  : pl + ((j - 1) * 3 + ring_slot(x, 3)) * L::plane;
-  };
-  // level j covers the planes [xb - (S - j), xe + (S - j)) of the domain
-  auto covers = [&](int j, int x) {
-    return x >= 0 && x < nx && x >= xb - (S - j) && x < xe + (S - j);
-  };
-  // level-0 plane x with its dpr and rhs, all in flight at once (cp.async)
-  auto load = [&](int x) {
-    if (!covers(0, x)) return;
-    float* const pp = level(0, x);
-    float* const dd = sd + ring_slot(x, L::dr_slots) * L::plane;
-    float* const rr = sr + ring_slot(x, L::dr_slots) * L::plane;
-    for (int r = threadIdx.y; r < L::rows; r += step) {
-      const int gy = y0 + r;
-      if (!z_in || gy < 0 || gy >= ny) continue;
-      const long i = x * sx + static_cast<long>(gy) * nz + gz;
-      const int l = r * 32 + lz;
-      __pipeline_memcpy_async(&pp[l], &pr[i], sizeof(float));
-      __pipeline_memcpy_async(&dd[l], &dpr[i], sizeof(float));
-      __pipeline_memcpy_async(&rr[l], &rhs[i], sizeof(float));
+  // planes loaded: [l0, l1)
+  const int l0 = max(xb - S, 0);
+  const int l1 = min(xe + S, nx);
+  const int tid = threadIdx.x;
+
+  // the thread's cells: c = tid + k * kSweepThreads of the region's ry x w,
+  // the same at every level and plane
+  int soff[C], goff[C], depth[C];  // depth: the deepest level the cell
+  bool yz_in[C];                   // takes, -1 outside the domain
+  float wyp[C], wym[C], wzp[C], wzm[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int c = tid + k * kSweepThreads;
+    const int r = c / g.w, zc = c % g.w;
+    const int gy = y0 + r, gz = z0 + zc;
+    const bool in = c < g.ry * g.w && gy >= 0 && gy < ny && gz >= 0 &&
+                    gz < nz;
+    depth[k] = in ? min(min(r, g.ry - 1 - r), min(zc, g.w - 1 - zc)) : -1;
+    // a cell that takes no level reads at row 1, lane 1 (every read in
+    // the region) and stores nothing
+    soff[k] = depth[k] >= 1 ? c : g.w + 1;
+    goff[k] = in ? gy * nz + gz : 0;
+    yz_in[k] = gy >= 1 && gy <= ny - 2 && gz >= 1 && gz <= nz - 2;
+    wyp[k] = in ? wt.yp[gy] : 0.0f;
+    wym[k] = in ? wt.ym[gy] : 0.0f;
+    wzp[k] = in ? wt.zp[gz] : 0.0f;
+    wzm[k] = in ? wt.zm[gz] : 0.0f;
+  }
+
+  // per level j-1 = 0..S-1, entering step t: its values of planes
+  // t-j (p1) and t-j-1 (p2); the dpr of plane t-j after j-1 levels (dq)
+  // and the rhs of plane t-j (rq)
+  float p1[S][C], p2[S][C], dq[S][C], rq[S][C];
+#pragma unroll
+  for (int j = 0; j < S; ++j)
+#pragma unroll
+    for (int k = 0; k < C; ++k) p1[j][k] = p2[j][k] = dq[j][k] = rq[j][k] = 0.0f;
+  unsigned int bits = 0u;
+
+  // plane x into ring slot `slot`: each thread copies its own cells (pr
+  // of every cell in the domain, dpr and rhs of those a level updates)
+  auto load = [&](int x, int slot) {
+    float* const dst = ring + slot * 3 * g.plane + tid;
+    const float* const px = pr + x * sx;
+    const float* const dx = dpr + x * sx;
+    const float* const rx = rhs + x * sx;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      if (depth[k] < 0) continue;
+      float* const d = dst + k * kSweepThreads;
+      ns3d::cp_async4(d, px + goff[k]);
+      if (depth[k] >= 1) {
+        ns3d::cp_async4(d + g.plane, dx + goff[k]);
+        ns3d::cp_async4(d + 2 * g.plane, rx + goff[k]);
+      }
     }
   };
-  // the lane's z weights, constant over the block
-  const float wzp = z_in ? w.zp[gz] : 0.0f;
-  const float wzm = z_in ? w.zm[gz] : 0.0f;
-  load(xb - S);
-  __pipeline_commit();
-  unsigned int bits = 0u;
-  // step t loads plane t + 1 and computes level j of plane t - j: level j
-  // reads level j-1's planes t-j-1, t-j and t-j+1, the last one computed
-  // (or loaded) just before it in the same step
-  for (int t = xb - S; t < xe + S; ++t) {
-    __syncthreads();  // step t-1 is done with the slots load(t+1) fills
-    load(t + 1);
-    __pipeline_commit();
-    __pipeline_wait_prior(1);
-    __syncthreads();  // every thread's copies of plane t have landed
+
+  load(l0, 0);
+  ns3d::cp_async_commit();
+  // step t loads plane t + 1 and computes level j of plane t - j, j =
+  // 1..S, from plane t (level 0) and the levels' planes of step t-1; plane
+  // t sits in ring slot `slot`, plane t - 1 in `prev`
+  int slot = 0, prev = kSweepRing - 1;
+  for (int t = l0; t < xe + S; ++t) {
+    ns3d::cp_async_wait_all();  // this thread's copies of plane t
+    __syncthreads();
+    if (t + 1 < l1) {
+      load(t + 1, slot + 1 < kSweepRing ? slot + 1 : 0);
+      ns3d::cp_async_commit();
+    }
+    float cur[S][C];  // level j's value of plane t - j (j = 0: loaded)
+    float dnew[S][C];
+    float rnew[C];
+    if (t < l1) {
+      const float* const s = ring + slot * 3 * g.plane;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const int o = soff[k];
+        cur[0][k] = s[o];
+        dnew[0][k] = s[g.plane + o];
+        rnew[k] = s[2 * g.plane + o];
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < C; ++k) cur[0][k] = dnew[0][k] = rnew[k] = 0.0f;
+    }
 #pragma unroll
     for (int j = 1; j <= S; ++j) {
       const int x = t - j;
-      const bool last = j == S;
-      const bool z_live = z_in && lz >= j && lz < 32 - j;
-      if (covers(j, x) && z_live) {
-        const float* const pm = level(j - 1, x - 1);
-        const float* const pc_row = level(j - 1, x);
-        const float* const pp = level(j - 1, x + 1);
-        float* const out = last ? nullptr : level(j, x);
-        float* const dd = sd + ring_slot(x, L::dr_slots) * L::plane;
-        const float* const rr = sr + ring_slot(x, L::dr_slots) * L::plane;
-        for (int r = j + threadIdx.y; r < L::rows - j; r += step) {
-          const int gy = y0 + r;
-          if (gy < 0 || gy >= ny) continue;
-          const int l = r * 32 + lz;
-          const float pc = pc_row[l];
-          float d = 0.0f;
-          float q;
-          if (interior(x, gy, gz, nx, ny, nz)) {
-            const float lap = lap_folded(
-                pp[l], pm[l], pc_row[l + 32], pc_row[l - 32], pc_row[l + 1],
-                pc_row[l - 1], pc, zero_grad_x && x == 1, inv_dx2, w.yp[gy],
-                w.ym[gy], wzp, wzm);
-            const float resid = lap - rr[l];
-            d = dd[l] * decay + dtau * resid;
-            q = pc + dtau * d;
-            if (last) {
-              const unsigned int b = __float_as_uint(fabsf(resid));
-              bits = b > bits ? b : bits;
-            }
-          } else {
-            q = pc + dtau * 0.0f;
-          }
-          if (last) {
-            const long i = x * sx + static_cast<long>(gy) * nz + gz;
-            pr_out[i] = q;
-            dpr_out[i] = d;
-          } else {
-            out[l] = q;
-            dd[l] = d;
+      const bool active =
+          x >= max(xb - (S - j), 0) && x < min(xe + (S - j), nx);
+      if (!active) {  // keep the queues defined
+        if (j < S) {
+#pragma unroll
+          for (int k = 0; k < C; ++k) {
+            cur[j][k] = p1[j][k];
+            dnew[j][k] = dq[j][k];
           }
         }
+        continue;
       }
-      if (!last) __syncthreads();  // level j+1 reads plane x of level j
+      const bool x_in = x >= 1 && x <= nx - 2;
+      const bool drop_xm = zero_grad_x && x == 1;
+      // level j-1's plane x: the ring slot (j = 1) or its parity buffer
+      const float* const src =
+          j == 1 ? ring + prev * 3 * g.plane
+                 : lev + (2 * (j - 2) + (x & 1)) * g.plane;
+      float* const dst = lev + (2 * (j - 1) + (x & 1)) * g.plane;
+      float* const pox = pr_out + x * sx;  // level S's outputs
+      float* const dox = dpr_out + x * sx;
+      // every cell computes (branch-free, so the C cells interleave);
+      // only the cells that take level j store
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const bool act = depth[k] >= j;
+        const int o = soff[k];
+        const float* const sc = src + o;
+        const float pc = p1[j - 1][k];
+        // K1's expressions in K1's order (poisson_iter_kernel)
+        const float lap = lap_folded(
+            cur[j - 1][k], p2[j - 1][k], sc[g.w], sc[-g.w], sc[1], sc[-1],
+            pc, drop_xm, inv_dx2, wyp[k], wym[k], wzp[k], wzm[k]);
+        const float resid = lap - rq[j - 1][k];
+        const bool in = x_in && yz_in[k];
+        const float d = in ? dq[j - 1][k] * decay + dtau * resid : 0.0f;
+        const float q = pc + dtau * d;
+        if (j < S) {
+          if (act) dst[o] = q;
+          cur[j][k] = q;
+          dnew[j][k] = d;
+        } else {
+          if (act) {
+            pox[goff[k]] = q;
+            dox[goff[k]] = d;
+          }
+          const unsigned int e = __float_as_uint(fabsf(resid));
+          bits = act && in && e > bits ? e : bits;
+        }
+      }
+    }
+    prev = slot;
+    slot = slot + 1 < kSweepRing ? slot + 1 : 0;
+    // advance the queues by one plane
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+#pragma unroll
+      for (int j = S - 1; j >= 1; --j) rq[j][k] = rq[j - 1][k];
+      rq[0][k] = rnew[k];
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        p2[j][k] = p1[j][k];
+        p1[j][k] = cur[j][k];
+        dq[j][k] = dnew[j][k];
+      }
     }
   }
-  if (err_bits != nullptr) ns3d::block_max_to(bits, err_bits);
+  if (err_bits == nullptr) return;
+  // the block's max into *err_bits (float bits as unsigned: the order of
+  // non-negative floats, a NaN above +inf)
+  bits = ns3d::warp_max(bits);
+  if ((tid & 31) == 0) red[tid >> 5] = bits;
+  __syncthreads();
+  if (tid < 32) {
+    bits = ns3d::warp_max(tid < kSweepThreads / 32 ? red[tid] : 0u);
+    if (tid == 0 && bits != 0u) atomicMax(err_bits, bits);
+  }
 }
 
-// One K8 launch at depth S (above 48 KB a block's dynamic shared memory
-// must be allowed explicitly).
+// One K8 launch at depth S under plan p.
 template <int S>
 cudaError_t launch_sweeps(const float* pr, const float* dpr, const float* rhs,
                           float* pr_out, float* dpr_out, const Weights& w,
                           float inv_dx2, float dtau, float decay,
                           int zero_grad_x, int nx, int ny, int nz,
-                          unsigned int* err_bits, cudaStream_t stream) {
-  constexpr size_t smem = SweepLayout<S>::bytes;
-  const cudaError_t e = cudaFuncSetAttribute(
-      poisson_sweeps_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                          const SweepPlan& p, unsigned int* err_bits,
+                          cudaStream_t stream) {
+  const SweepGeom<S> g(p);
+  // the plan must cover the grid with regions the block can hold
+  if (p.uy < 1 || p.uz < 1 || p.seg < 1 ||
+      static_cast<long>(p.tiles_y) * p.uy < ny ||
+      static_cast<long>(p.tiles_z) * p.uz < nz ||
+      g.ry * g.w > kSweepThreads * kSweepCols)
+    return cudaErrorInvalidValue;
+  const int segs = (nx + p.seg - 1) / p.seg;
+  // raise the block's shared-memory limit once per depth and device (past
+  // 48 KB it must be allowed explicitly)
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  constexpr int tz = 32 - 2 * S;
-  const dim3 grid((nz + tz - 1) / tz, (ny + kSweepTileY - 1) / kSweepTileY,
-                  (nx + kSweepSegX - 1) / kSweepSegX);
-  const dim3 block = ns3d::block_shape();
-  poisson_sweeps_kernel<S><<<grid, block, smem, stream>>>(pr, dpr, rhs, pr_out, dpr_out, w, inv_dx2, dtau, decay, zero_grad_x, nx, ny, nz, err_bits);
+  static size_t allowed[64] = {};
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (g.smem > allowed[dev]) {
+    e = cudaFuncSetAttribute(poisson_sweeps_kernel<S>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(g.smem));
+    if (e != cudaSuccess) return e;
+    allowed[dev] = g.smem;
+  }
+  if (err_bits != nullptr &&
+      (e = cudaMemsetAsync(err_bits, 0, sizeof(unsigned int), stream)) !=
+          cudaSuccess)
+    return e;
+  const int blocks = p.tiles_y * p.tiles_z * segs;
+  poisson_sweeps_kernel<S><<<blocks, kSweepThreads, g.smem, stream>>>(pr, dpr, rhs, pr_out, dpr_out, w, inv_dx2, dtau, decay, zero_grad_x, nx, ny, nz, p, err_bits);
   return cudaGetLastError();
 }
 
@@ -748,22 +897,27 @@ extern "C" int ns3d_poisson_iter_sweeps(
     const float* pr, const float* dpr, const float* rhs, float* pr_out,
     float* dpr_out, const float* wyp, const float* wym, const float* wzp,
     const float* wzm, float inv_dx2, float dtau, float decay,
-    int zero_grad_x, int nx, int ny, int nz, int s, unsigned int* err_bits,
+    int zero_grad_x, int nx, int ny, int nz, int s, int uy, int uz,
+    int tiles_y, int tiles_z, int seg, unsigned int* err_bits,
     cudaStream_t stream) {
   const Weights w{wyp, wym, wzp, wzm};
+  const SweepPlan p{uy, uz, tiles_y, tiles_z, seg};
   cudaError_t e = cudaErrorInvalidValue;
   switch (s) {
     case 2:
       e = launch_sweeps<2>(pr, dpr, rhs, pr_out, dpr_out, w, inv_dx2, dtau,
-                           decay, zero_grad_x, nx, ny, nz, err_bits, stream);
+                           decay, zero_grad_x, nx, ny, nz, p, err_bits,
+                           stream);
       break;
     case 3:
       e = launch_sweeps<3>(pr, dpr, rhs, pr_out, dpr_out, w, inv_dx2, dtau,
-                           decay, zero_grad_x, nx, ny, nz, err_bits, stream);
+                           decay, zero_grad_x, nx, ny, nz, p, err_bits,
+                           stream);
       break;
     case 4:
       e = launch_sweeps<4>(pr, dpr, rhs, pr_out, dpr_out, w, inv_dx2, dtau,
-                           decay, zero_grad_x, nx, ny, nz, err_bits, stream);
+                           decay, zero_grad_x, nx, ny, nz, p, err_bits,
+                           stream);
       break;
   }
   return static_cast<int>(e);

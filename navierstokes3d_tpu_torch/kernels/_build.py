@@ -50,9 +50,10 @@ SIGNATURES = {
     "ns3d_poisson_iter_ext": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
                               _F, _F, _I, _I, _I, _I, _P, _P),
     # pr, dpr, rhs, pr_out, dpr_out, wyp, wym, wzp, wzm, inv_dx2, dtau,
-    # decay, zero_grad_x, nx, ny, nz, s, err_bits (nullable), stream
-    "ns3d_poisson_iter_sweeps": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F,
-                                 _F, _I, _I, _I, _I, _I, _P, _P),
+    # decay, zero_grad_x, nx, ny, nz, s, then the plan: uy, uz, tiles_y,
+    # tiles_z, seg; err_bits (nullable), stream
+    "ns3d_poisson_iter_sweeps": (*(_P,) * 9, _F, _F, _F, *(_I,) * 10, _P,
+                                 _P),
     # pr, scratch, dpr, rhs, wyp, wym, wzp, wzm, inv_dx2, dtau, decay,
     # zero_grad_x, nx, ny, nz, nit, err_bits, stream
     "ns3d_poisson_iter_resident": (_P, _P, _P, _P, _P, _P, _P, _P, _F, _F,

@@ -71,6 +71,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -267,6 +268,103 @@ def poisson_iter_sweeps_plain(pr, dpr, rhs, pr_out, dpr_out,
 poisson_iter_sweeps_plain.calls = 0
 
 
+# K8's launch geometry (csrc/poisson.cu, the K8 section): a block of
+# SWEEP_THREADS threads holds SWEEP_COLS cells of its (y, z) region each
+# and a ring of SWEEP_RING planes of pr, dpr and rhs, within the block's
+# shared memory (SMEM_LIMIT, Hopper's 227 KB)
+SWEEP_THREADS = 512
+SWEEP_COLS = 4
+SWEEP_RING = 3
+SMEM_LIMIT = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """How one K8 launch at depth s cuts the grid: (y, z) tiles of uy x uz
+    cells (tiles_y x tiles_z of them, the last of each axis ragged) times
+    x segments of `seg` planes; one block per (tile, segment). A block
+    streams its region, the tile grown by s cells per side, through shared
+    memory. The kernel derives the same geometry (SweepGeom) and refuses a
+    plan whose region it cannot hold."""
+    s: int
+    uy: int
+    uz: int
+    tiles_y: int
+    tiles_z: int
+    seg: int
+    segs: int
+
+    @property
+    def ry(self) -> int:          # region rows
+        return self.uy + 2 * self.s
+
+    @property
+    def w(self) -> int:           # region lanes
+        return self.uz + 2 * self.s
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_y * self.tiles_z * self.segs
+
+    @property
+    def smem_bytes(self) -> int:
+        """SweepGeom::smem: the ring (three fields per slot), two planes
+        per level 1..s-1 (a plane: ry x w floats), reduction scratch."""
+        plane = self.ry * self.w
+        return 4 * plane * (3 * SWEEP_RING + 2 * (self.s - 1)) + 4 * 32
+
+
+@functools.lru_cache(maxsize=64)
+def sweep_plan(shape: Tuple[int, int, int], s: int, sms: int) -> SweepPlan:
+    """K8's plan for a grid of `shape` on a card of `sms` SMs (one block
+    per SM: a block's shared memory is most of an SM's). Among the region
+    shapes that fit a block (ry*w <= SWEEP_THREADS*SWEEP_COLS, shared
+    memory within SMEM_LIMIT) and the x cuts, it minimises the estimated
+    time: waves x the planes a block streams (its segment, the 2s
+    recomputed ones and one of fill) x the floats a plane of its region
+    moves (ry rows of w, plus 8 for the 32-byte sector a row at an
+    arbitrary offset adds). Ties go to fewer blocks. At 511x307x307, s =
+    3 on 132 SMs: tiles of 28 x 52 in 34 x 58 regions, 11 x 6 of them, 2
+    segments of 256 planes: 132 blocks, one wave."""
+    _check_sweeps(s, "sweep_plan")
+    nx, ny, nz = shape
+    if min(shape) < 1 or sms < 1:
+        raise ValueError(f"sweep_plan: shape {shape}, sms {sms}")
+    best, best_key = None, None
+    cap = SWEEP_THREADS * SWEEP_COLS
+    for uz in sorted({-(-nz // tz) for tz in range(1, nz + 1)}):
+        w = uz + 2 * s
+        if w * (2 * s + 1) > cap:
+            continue
+        uy = min(cap // w - 2 * s, ny)
+        tiles_y = -(-ny // uy)
+        uy = -(-ny // tiles_y)
+        tiles_z = -(-nz // uz)
+        plan = SweepPlan(s, uy, uz, tiles_y, tiles_z, nx, 1)
+        if plan.smem_bytes > SMEM_LIMIT:
+            continue
+        tiles = tiles_y * tiles_z
+        for waves in range(1, -(-tiles * nx // sms) + 1):
+            segs = min(waves * sms // tiles, nx)
+            if segs < 1:
+                continue
+            seg = -(-nx // segs)
+            segs = -(-nx // seg)
+            blocks = tiles * segs
+            cost = (-(-blocks // sms) * (seg + 2 * s + 1)
+                    * plan.ry * (w + 8))
+            key = (cost, blocks)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = dataclasses.replace(plan, seg=seg, segs=segs)
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def poisson_iter_sweeps(pr, dpr, rhs, pr_out, dpr_out, op: PoissonOperator,
                         s: int, check: bool) -> Optional[torch.Tensor]:
     """s folded PT iterations (2 <= s <= 4) in one launch, bitwise equal to
@@ -274,12 +372,22 @@ def poisson_iter_sweeps(pr, dpr, rhs, pr_out, dpr_out, op: PoissonOperator,
     pr_out and dpr_out, neither of which may alias an input (blocks read
     the inputs over their halos). With check=True returns the max |resid|
     over interior cells entering the LAST iteration (a 0-dim tensor on the
-    device), else None. CUDA tensors launch the kernel (or raise); CPU
-    tensors run the plain version."""
+    device), else None. CUDA tensors launch the kernel under
+    `sweep_plan` (or raise); CPU tensors run the plain version."""
     _check_sweeps(s, "poisson_iter_sweeps")
     if not _build.on_cuda(pr, "poisson_iter_sweeps"):
         return poisson_iter_sweeps_plain(pr, dpr, rhs, pr_out, dpr_out, op,
                                          s, check)
+    plan = sweep_plan(tuple(pr.shape), s, _sm_count(pr.device.index))
+    return launch_sweeps(pr, dpr, rhs, pr_out, dpr_out, op, plan, check)
+
+
+def launch_sweeps(pr, dpr, rhs, pr_out, dpr_out, op: PoissonOperator,
+                  plan: SweepPlan, check: bool) -> Optional[torch.Tensor]:
+    """One K8 launch under a given plan (poisson_iter_sweeps takes
+    `sweep_plan`'s; the card tests force others): the operand checks, the
+    launch, the count."""
+    _check_sweeps(plan.s, "launch_sweeps")
     dev = pr.device
     _check_operands(op, pr.shape, dev, pr=pr, dpr=dpr, rhs=rhs,
                     pr_out=pr_out, dpr_out=dpr_out)
@@ -288,7 +396,8 @@ def poisson_iter_sweeps(pr, dpr, rhs, pr_out, dpr_out, op: PoissonOperator,
                                  rhs.data_ptr()}:
         raise ValueError("poisson_iter_sweeps: pr_out and dpr_out must be "
                          "distinct and alias no input")
-    err = torch.zeros((1,), dtype=torch.int32, device=dev) if check else None
+    # the check word: reset by a stream-ordered memset in the C entry
+    err = torch.empty((1,), dtype=torch.int32, device=dev) if check else None
     nx, ny, nz = pr.shape
     lib = _build.load()
     rc = lib.ns3d_poisson_iter_sweeps(
@@ -296,7 +405,8 @@ def poisson_iter_sweeps(pr, dpr, rhs, pr_out, dpr_out, op: PoissonOperator,
         dpr_out.data_ptr(), op.wyp.data_ptr(), op.wym.data_ptr(),
         op.wzp.data_ptr(), op.wzm.data_ptr(), ctypes.c_float(op.inv_dx2),
         ctypes.c_float(op.dtau), ctypes.c_float(op.decay),
-        int(op.zero_grad_x), nx, ny, nz, s, _build.ptr(err),
+        int(op.zero_grad_x), nx, ny, nz, plan.s, plan.uy, plan.uz,
+        plan.tiles_y, plan.tiles_z, plan.seg, _build.ptr(err),
         _build.stream_of(pr))
     _build.check(rc, "poisson_iter_sweeps")
     poisson_iter_sweeps.launches += 1

@@ -96,7 +96,7 @@ from ..ops.cylinder import (CylinderMasks, apply_cylinder, build_masks,
 from ..parallel.halo import build_poisson_shard_map
 from ..parallel.mesh import Mesh
 from ..ptloop import host_scalar, np_float, pt_loop, pt_loop_fused
-from ..state import FlowState, StepStats, zeros_state
+from ..state import FIELDS, FlowState, StepStats, zeros_state
 
 INNER = (slice(1, -1),) * 3
 # the Poisson kernel modes (the JAX package's NS3D_PALLAS_MODE): 'blocked'
@@ -812,6 +812,21 @@ class ChorinSolver:
         return self._step_impl(state, self.poisson_solve,
                                chained=self.fused_step)
 
+    def _check_state_device(self, state: FlowState) -> None:
+        """Raise unless every tensor of `state` lies on the solver's
+        device (a state made with state_from_numpy's or zeros_state's
+        default lies on the card; pass the solver's device)."""
+        dev = self.device   # a CUDA tensor's device carries its index
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        for name in (*FIELDS, "pr_lo"):
+            t = getattr(state, name)
+            if t is not None and t.device != dev:
+                raise ValueError(
+                    f"state.{name} lies on {t.device}, the solver on "
+                    f"{self.device}: make the state on the solver's device "
+                    f"(state_from_numpy(..., device=...)) or move it there")
+
     def _step_impl(self, state: FlowState, poisson_fn: Callable,
                    chained: bool = True, advect_kernel: bool = True
                    ) -> Tuple[FlowState, StepStats]:
@@ -824,6 +839,7 @@ class ChorinSolver:
         advect_kernel=False advects with torch ops instead (what its
         distributed step runs on a mesh of more than one device,
         allow_pallas_advect=False); compat always advects by gather."""
+        self._check_state_device(state)
         k = self._consts
         if chained:
             predict, correct = self._predict, self._correct

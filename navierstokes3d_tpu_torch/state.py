@@ -56,7 +56,7 @@ class StepStats:
 
 
 def zeros_state(grid: Grid, dtype: torch.dtype,
-                device: torch.device | str = "cpu") -> FlowState:
+                device: torch.device | str = "cuda") -> FlowState:
     def z(shape):
         return torch.zeros(shape, dtype=dtype, device=device)
     return FlowState(
@@ -70,11 +70,12 @@ def zeros_state(grid: Grid, dtype: torch.dtype,
 
 
 def state_from_numpy(fields: Dict[str, np.ndarray],
-                     device: torch.device | str = "cpu",
+                     device: torch.device | str = "cuda",
                      dtype: Optional[torch.dtype] = None) -> FlowState:
     """FlowState from a dict of numpy arrays keyed by field name
     (pr, vx, vy, vz, c, dprdtau and optionally pr_lo; a missing or None
-    pr_lo stays None). The arrays are copied."""
+    pr_lo stays None). The arrays are copied onto `device`: the card
+    unless the caller asks for the CPU, as ChorinSolver's default."""
     def t(a):
         return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
                             device=device)

@@ -12,6 +12,7 @@ every operation in float32 in the same order (the kernels are built with
 --fmad=false), so the expected difference is zero."""
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -100,6 +101,90 @@ def test_k8_matches_k1_launches_and_plain(preset, s):
             assert float(ek) == float(e1) == float(ep)
     with pytest.raises(ValueError, match="alias"):
         kp.poisson_iter_sweeps(pr, dpr, rhs, pr, do, op, s, False)
+
+
+def _sweep_operator(shape, zero_grad_x):
+    """The folded operator on any grid: y and z zero-gradient at both
+    ends, x-hi Dirichlet, x-lo Dirichlet (the gpu operator) or
+    zero-gradient (zero_grad_x, the multi one)."""
+    nx, ny, nz = shape
+    m = {k: np.ones(n - 2) for k, n in zip(("xm", "xp", "ym", "yp", "zm",
+                                            "zp"), (nx, nx, ny, ny, nz, nz))}
+    m["ym"][0] = m["yp"][-1] = m["zm"][0] = m["zp"][-1] = 0.0
+    if zero_grad_x:
+        m["xm"][0] = 0.0
+    grid = types.SimpleNamespace(dx=0.1, dy=0.13, dz=0.07, dtau=0.01,
+                                 damp=0.9)
+    return kp.make_operator(m, grid, torch.float32, "cuda")
+
+
+def _check_k8(shape, s, zero_grad_x, plan=None, seed=7):
+    """K8 (under `plan`, or the wrapper's own) on seeded inputs with
+    NaN-filled outputs: pr_out and dpr_out bitwise equal to s K1 launches
+    and to the plain version, the check value equal to both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    op = _sweep_operator(shape, zero_grad_x)
+    rng = np.random.default_rng(seed)
+    nx, ny, nz = shape
+    pr = _rand(rng, shape, 50.0)
+    rhs = _rand(rng, shape, 1e5)
+    dpr = torch.zeros_like(pr)
+    dpr[1:-1, 1:-1, 1:-1] = _rand(rng, (nx - 2, ny - 2, nz - 2), 1e3)
+    for check in (False, True):
+        po, do = (torch.full_like(pr, float("nan")) for _ in range(2))
+        if plan is None:
+            ek = kp.poisson_iter_sweeps(pr, dpr, rhs, po, do, op, s, check)
+        else:
+            ek = kp.launch_sweeps(pr, dpr, rhs, po, do, op, plan, check)
+        p, d, e1 = pr.clone(), dpr.clone(), None
+        for j in range(s):
+            q = torch.empty_like(pr)
+            e1 = kp.poisson_iter(p, q, d, rhs, op, check and j == s - 1)
+            p = q
+        pp, dp = torch.empty_like(pr), torch.empty_like(pr)
+        ep = kp.poisson_iter_sweeps_plain(pr, dpr, rhs, pp, dp, op, s, check)
+        assert torch.equal(po.view(torch.int32), p.view(torch.int32))
+        assert torch.equal(do.view(torch.int32), d.view(torch.int32))
+        assert torch.equal(po.view(torch.int32), pp.view(torch.int32))
+        assert torch.equal(do.view(torch.int32), dp.view(torch.int32))
+        if check:
+            assert float(ek) == float(e1) == float(ep)
+
+
+def _forced_plan(shape, s, uy, uz, seg):
+    nx, ny, nz = shape
+    return kp.SweepPlan(s, uy, uz, -(-ny // uy), -(-nz // uz), seg,
+                        -(-nx // seg))
+
+
+# K8's tile edges, each a grid and a plan: ny and nz one more than a
+# multiple of the tile (the last tile one row and one lane wide) with
+# three x segments, the last short; an x segment longer than nx; nx =
+# 2s + 1 under the wrapper's own plan; rows of tiles wider than a warp
+K8_EDGES = {
+    "yz_one_past": lambda s: ((20, 3 * 6 + 1, 2 * 10 + 1),
+                              dict(uy=6, uz=10, seg=8)),
+    "seg_past_nx": lambda s: ((9, 17, 23), dict(uy=5, uz=7, seg=16)),
+    "nx_2s_plus_1": lambda s: ((2 * s + 1, 19, 21), None),
+    "long_rows": lambda s: ((30, 25, 70), dict(uy=9, uz=33, seg=11)),
+}
+
+
+@pytest.mark.parametrize("zero_grad_x", [False, True], ids=["gpu", "multi"])
+@pytest.mark.parametrize("s", [2, 3, 4])
+@pytest.mark.parametrize("edge", sorted(K8_EDGES))
+def test_k8_tile_edges(edge, s, zero_grad_x):
+    shape, kw = K8_EDGES[edge](s)
+    plan = None if kw is None else _forced_plan(shape, s, **kw)
+    _check_k8(shape, s, zero_grad_x, plan)
+
+
+@pytest.mark.parametrize("zero_grad_x", [False, True], ids=["gpu", "multi"])
+@pytest.mark.parametrize("s", [2, 3, 4])
+def test_k8_wide_grid(s, zero_grad_x):
+    """The wide grid 511x307x307 under the wrapper's plan (one wave)."""
+    _check_k8((511, 307, 307), s, zero_grad_x)
 
 
 def test_k2_matches_plain(multi):

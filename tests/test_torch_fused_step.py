@@ -114,6 +114,6 @@ def test_predictor_divv_matches_jax_solver():
     want = jax.jit(js.predictor_divv)(st)
     got = ts.predictor_divv(nt.state_from_numpy(
         {k: np.asarray(getattr(st, k)) for k in
-         ("pr", "vx", "vy", "vz", "c", "dprdtau")}))
+         ("pr", "vx", "vy", "vz", "c", "dprdtau")}, device="cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6)

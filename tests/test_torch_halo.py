@@ -124,7 +124,7 @@ def test_shard_state_matches_the_jax_layout(meshes):
     fields = {k: rng.standard_normal(s) for k, s in g.field_shapes().items()}
     jst = jmesh.shard_state(ns.FlowState(**{k: jnp.asarray(v) for k, v in
                                             fields.items()}), jm)
-    tst = nt.state_from_numpy(fields)
+    tst = nt.state_from_numpy(fields, device="cpu")
     shards = tmesh.shard_state(tst, tm)
     dev_pos = {d: pos for pos, d in np.ndenumerate(jm.devices)}
     for name in fields:

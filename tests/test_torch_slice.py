@@ -86,7 +86,7 @@ def test_state_carried_across(jax_run):
     step is the JAX step 2 from the same state."""
     states, stats = jax_run
     assert states[1]["pr_lo"] is not None
-    st = nt.state_from_numpy(states[1])
+    st = nt.state_from_numpy(states[1], device="cpu")
     back = nt.state_to_numpy(st)
     for k in FIELDS + ("pr_lo",):
         np.testing.assert_array_equal(back[k], states[1][k])

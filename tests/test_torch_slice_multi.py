@@ -157,7 +157,7 @@ def test_multi_f32_k2_path_matches_jax(jax_runs):
     s = _port("multi 1e-9")
     nchk = s.grid.nchk
     for step in range(NSTEPS):
-        st = nt.state_from_numpy(states[step])
+        st = nt.state_from_numpy(states[step], device="cpu")
         divv = s.predictor_divv(st)
         st, got = s.step(st)
         want = _counts(stats[step])
@@ -197,7 +197,7 @@ def test_multi_state_carried_across(jax_runs):
     1-ulp move of hi shifts it by the same amount)."""
     _, states, stats = jax_runs["multi 1e-9"]
     assert states[1]["pr_lo"] is not None and states[1]["pr_lo"].any()
-    st = nt.state_from_numpy(states[1])
+    st = nt.state_from_numpy(states[1], device="cpu")
     back = nt.state_to_numpy(st)
     for k in FIELDS + ("pr_lo",):
         np.testing.assert_array_equal(back[k], states[1][k])
@@ -221,7 +221,7 @@ def test_gpu_accuracy_setting_matches_jax(jax_runs, acc):
     s = _port(f"gpu {acc}")
     assert s.acc == js.acc_pallas == acc
     for step in range(2):
-        st = nt.state_from_numpy(states[step])
+        st = nt.state_from_numpy(states[step], device="cpu")
         divv = s.predictor_divv(st)
         st, got = s.step(st)
         want = _counts(stats[step])
@@ -251,7 +251,7 @@ def test_gpu_unsplit_matches_jax(jax_runs):
     np.testing.assert_array_equal(s.init_state().pr.numpy(),
                                   states[0]["pr"])
     for step in range(2):
-        st, got = s.step(nt.state_from_numpy(states[step]))
+        st, got = s.step(nt.state_from_numpy(states[step], device="cpu"))
         assert _counts(got) == _counts(stats[step])
         _compare_pr(st.pr.numpy(), states[step + 1]["pr"], 1e-5,
                     f"pr step {step}")
@@ -280,7 +280,7 @@ if __name__ == "__main__":
     st = port.init_state()
     for i, sts in enumerate(stats):
         st, own = port.step(st)
-        _, from_jax = port.step(nt.state_from_numpy(states[i]))
+        _, from_jax = port.step(nt.state_from_numpy(states[i], device="cpu"))
         print(f"step {i + 1}: JAX iters {int(sts.iters)} iters_ext "
               f"{int(sts.iters_ext)} err {float(sts.err):.6e} clamped "
               f"{int(sts.advect_clamped)}; port {_counts(own)}, "

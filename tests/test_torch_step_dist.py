@@ -102,7 +102,7 @@ def test_sharded_step_matches_jax(jax_meshes, variant, compat):
         jshard(ns.FlowState(**{k: jnp.asarray(v) for k, v in st.items()}),
                jax_meshes))
     tst, tstats = ts.step_shard_map(make_mesh((2, 2, 2), "cpu"))(
-        nt.state_from_numpy(st))
+        nt.state_from_numpy(st, device="cpu"))
     assert tstats.iters == int(jstats.iters)
     assert tstats.advect_clamped == int(jstats.advect_clamped)
     np.testing.assert_allclose(float(tstats.err), float(jstats.err),
