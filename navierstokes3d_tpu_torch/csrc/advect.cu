@@ -1,16 +1,18 @@
-// K5 and K6: one semi-Lagrangian advection branch (select-shift
-// semantics), two instances of one kernel template that differ only in
-// where the advecting velocities come from.
+// K5 and K6: semi-Lagrangian advection (select-shift semantics), one
+// per-point body (`backtrack`) behind two kernels that differ in where the
+// advecting velocities come from.
 //
-// K5 replaces the Pallas kernel of navierstokes3d_tpu/kernels/advect.py:537
-// (build_advect_branch_flat: `kernel` :423, `body` :380; the four
-// branches assembled by build_advect_flat :556-630), which forms the face
-// averages in-kernel. K6 replaces the one of kernels/advect.py:218
-// (build_advect_branch: `kernel` :138; assembled by build_advect
-// :245-310), which takes them precomputed: the three advecting velocities
-// arrive as arrays of the branch's staggered shape (computed outside, the
-// pads zero), and it reads them at the output point. Everything else is
-// one body. Per output point of the branch's write region it
+// K5 (`advect_kernel`) replaces the Pallas kernel of
+// navierstokes3d_tpu/kernels/advect.py:537 (build_advect_branch_flat:
+// `kernel` :423, `body` :380; its lane-tiled form :516; the four branches
+// assembled by build_advect_flat :556-630), which forms the face averages
+// in-kernel: one launch advects all four fields. K6 (`advect_pre_kernel`)
+// replaces the one of kernels/advect.py:218 (build_advect_branch: `kernel`
+// :138; assembled by build_advect :245-310), which takes them
+// precomputed: the three advecting velocities arrive as arrays of the
+// branch's staggered shape (computed outside, the pads zero), and it
+// reads them at the output point; one launch per branch. Per output point
+// of a branch's write region the body
 //   * takes the advecting velocities: K5 face-averages the post-BC
 //     snapshots (ops/advect.py's ((a+b)+c)+d expressions, times 0.25 or
 //     0.5), K6 reads its three operands;
@@ -18,7 +20,7 @@
 //     [-k, k] (counting points where |dl| exceeded k on any axis), and
 //     the departure cell i1 = clip(floor(idx - dl), 1, n), the corner
 //     offsets o1 = i1 - idx, o2 = min(i1+1, n) - idx and the fraction
-//     t = (dl > 0) - fmod(dl, 1);
+//     t = (dl > 0) - fmod(dl, 1), computed as (dl > 0) - (dl - trunc(dl));
 //   * sums the trilinear interpolant in the select-shift backend's
 //     (p, q, o) term order with its weight expressions
 //     w(o) = (o1==o ? 1-t : 0) + (o2==o ? t : 0) and terms
@@ -29,8 +31,8 @@
 // the (sorted) corner offsets gives the same sum bit for bit when the
 // samples are finite. Where i1+1 clamps to n, o1 == o2 and the single
 // weight is (1-t) + t, as in the select-shift form. Points outside the
-// write region copy the input. Inputs are read-only snapshots; the output
-// is a new tensor. Built with --fmad=false, so the accumulation rounds as
+// write region copy the input. Inputs are read-only snapshots; the outputs
+// are new tensors. Built with --fmad=false, so the accumulation rounds as
 // the plain version does.
 //
 // The write mask discards K6's padded rows, lanes and planes (the
@@ -38,24 +40,29 @@
 // point outside the write region copies the input and never reads a
 // velocity, and its clamp is not counted.
 //
-// What bounds it on this card: gathers. Each output point reads up to 8
-// data-dependent samples plus 3 (K6) or 9-12 (K5) velocity values; the
-// departure points lie within +-k cells, so the gathers of a warp fall in
-// a few cache lines of L1/L2 and DRAM traffic stays near one read of the
-// field and the velocities and one write (K6 reads three velocity arrays
-// of the field's size where K5 reads the three staggered velocities). The design
-// keeps the <= 8 live terms in registers instead of the TPU's 216-term
-// shifted-slab accumulation.
+// What bounds K5 on this card: instruction issue. One launch moves 8
+// field passes (191.8 MB at 255x153x153, 0.0573 ms at 3.35 TB/s; four
+// one-branch launches would move 17, a bound of 0.1218 ms), but each
+// branch-point issues three IEEE divisions, three clamped floors and
+// fractions, up to 8 gathers and their weights: the kernel is 1280 SASS
+// instructions for the four branches (cuobjdump). The design: one thread
+// per point of the union grid runs all four branches, so the velocities
+// come from device memory once and the 18 velocity values the four
+// branches' face averages read are loaded once; the fraction uses trunc
+// where CUDA's fmodf is a long branching sequence (~10% of the kernel's
+// time); indices are 32-bit, one multiply-add per gather; the gathers of
+// a warp fall within k+1 cells of its points, so they come from L1/L2.
+// K6 shares the body and its bounds (K5's face averages are torch ops
+// before it).
 #include "common.cuh"
 
 namespace {
 
+// Indices are 32-bit: the wrapper refuses arrays of 2^31 elements or
+// more, and an index then costs one multiply-add per load.
 struct Field {
-  const float* p;
+  const float* __restrict__ p;
   int n1, n2, n3;
-  __device__ float at(int a, int b, int c) const {
-    return p[(static_cast<long>(a) * n2 + b) * n3 + c];
-  }
 };
 
 struct AxisTerms {
@@ -66,8 +73,8 @@ struct AxisTerms {
 
 // ops/advect.py axis_terms for one axis: v the advecting velocity, d the
 // spacing, idx the 1-based index, n the field's extent along the axis.
-__device__ AxisTerms axis_terms(float v, float d, float dt, float kf,
-                                float idx, int n) {
+__device__ inline AxisTerms axis_terms(float v, float d, float dt, float kf,
+                                       float idx, int n) {
   const float fn = static_cast<float>(n);
   const float dl_raw = (dt * v) / d;
   // jnp.clip semantics (NaN stays NaN)
@@ -76,133 +83,250 @@ __device__ AxisTerms axis_terms(float v, float d, float dt, float kf,
   i1 = i1 < 1.0f ? 1.0f : (i1 > fn ? fn : i1);
   const float i2 = (i1 + 1.0f) < fn ? (i1 + 1.0f) : fn;
   AxisTerms r;
-  r.t = (dl > 0.0f ? 1.0f : 0.0f) - fmodf(dl, 1.0f);
+  // t = (dl > 0) - fmod(dl, 1). For finite dl, fmod(dl, 1) is dl -
+  // trunc(dl) exactly; the two differ only in the sign of a zero, which
+  // t's subtraction from 0 or 1 maps to the same value, and a NaN stays
+  // NaN (tests/test_torch_predict_advect.py holds the identity on float32).
+  r.t = (dl > 0.0f ? 1.0f : 0.0f) - (dl - truncf(dl));
   r.o1 = static_cast<int>(i1 - idx);
   r.o2 = static_cast<int>(i2 - idx);
   r.clamped = fabsf(dl_raw) > kf;
   return r;
 }
 
-__device__ inline float weight(const AxisTerms& a, int o) {
-  return (a.o1 == o ? 1.0f - a.t : 0.0f) + (a.o2 == o ? a.t : 0.0f);
+// The select-shift weights of an axis's two corners, w(o) = (o1 == o ?
+// 1-t : 0) + (o2 == o ? t : 0): at o1, (1-t) + (o2 == o1 ? t : 0); at o2,
+// which is read only where it differs from o1, 0 + t, which is t itself
+// (t is never -0, and a NaN t stays NaN).
+struct Weights {
+  float w[2];
+};
+
+__device__ inline Weights weights(const AxisTerms& a) {
+  return {{(1.0f - a.t) + (a.o2 == a.o1 ? a.t : 0.0f), a.t}};
 }
 
 // The corner offsets of one axis that fall in the select-shift window
-// [-(k+1), k], ascending (o2 is o1 + 1, or o1 where i1+1 clamped to n).
-__device__ inline int corner_offsets(const AxisTerms& a, int k, int* offs) {
-  int n = 0;
-  offs[n++] = a.o1;
-  if (a.o2 != a.o1 && a.o2 <= k) offs[n++] = a.o2;
-  return n;
+// [-(k+1), k], ascending (o2 is o1 + 1, or o1 where i1+1 clamped to n):
+// how many there are (1 or 2).
+__device__ inline int corners(const AxisTerms& a, int k) {
+  return a.o2 != a.o1 && a.o2 <= k ? 2 : 1;
+}
+
+struct Step {
+  float dt, dx, dy, dz;
+  int k;
+};
+
+// The select-shift interpolant of field a at point (X, Y, Z), whose index
+// in a is i, for the advecting velocities (vxc, vyc, vzc); adds 1 to
+// *clamped where the displacement was clamped on any axis.
+__device__ inline float backtrack(const Field& a, int i, int X, int Y,
+                                  int Z, float vxc, float vyc, float vzc,
+                                  const Step& s, int* clamped) {
+  const float kf = static_cast<float>(s.k);
+  const AxisTerms ax = axis_terms(vxc, s.dx, s.dt, kf, X + 1.0f, a.n1);
+  const AxisTerms ay = axis_terms(vyc, s.dy, s.dt, kf, Y + 1.0f, a.n2);
+  const AxisTerms az = axis_terms(vzc, s.dz, s.dt, kf, Z + 1.0f, a.n3);
+  *clamped += (ax.clamped || ay.clamped || az.clamped) ? 1 : 0;
+  const int nox = corners(ax, s.k), noy = corners(ay, s.k);
+  const int noz = corners(az, s.k);
+  const Weights wx = weights(ax), wy = weights(ay), wz = weights(az);
+  // the corners' x offsets o1, o2 as element offsets from the point
+  const int sx = a.n2 * a.n3;
+  const int ox[2] = {i + ax.o1 * sx, i + ax.o2 * sx};
+  float acc = 0.0f;
+#pragma unroll
+  for (int ip = 0; ip < 2; ++ip) {
+    if (ip < noy) {
+      const int p = ip ? ay.o2 : ay.o1;
+#pragma unroll
+      for (int iq = 0; iq < 2; ++iq) {
+        if (iq < noz) {
+          const float wyz = wy.w[ip] * wz.w[iq];
+          const int row = p * a.n3 + (iq ? az.o2 : az.o1);
+#pragma unroll
+          for (int io = 0; io < 2; ++io) {
+            if (io < nox) acc = acc + (wx.w[io] * wyz) * a.p[ox[io] + row];
+          }
+        }
+      }
+    }
+  }
+  return acc;
 }
 
 enum Branch { kVx = 0, kVy = 1, kVz = 2, kC = 3 };
 
-// kPre false (K5): vx, vy, vz are the post-BC velocities of the (nx, ny,
-// nz) grid, face-averaged here. kPre true (K6): they are the branch's
-// advecting velocities at the field's own shape.
-template <bool kPre>
-__global__ void advect_kernel(int branch, Field a, Field vx, Field vy,
-                              Field vz, float* __restrict__ out,
-                              int* __restrict__ n_clamped, float dt,
-                              float dx, float dy, float dz, int k) {
+// Whether (X, Y, Z) of a branch's field lies in its write region
+// (gpu.jl:308-332): the interior of its own staggered axis, everything
+// for the tracer.
+__device__ inline bool writes(int branch, const Field& a, int X, int Y,
+                              int Z) {
+  if (branch == kVx) return X >= 1 && X <= a.n1 - 2;
+  if (branch == kVy) return Y >= 1 && Y <= a.n2 - 2;
+  if (branch == kVz) return Z >= 1 && Z <= a.n3 - 2;
+  return true;
+}
+
+// ---- K5: the four branches from the post-BC velocities ----
+
+struct Vel {
+  const float* __restrict__ vx;  // (nx+1, ny, nz)
+  const float* __restrict__ vy;  // (nx, ny+1, nz)
+  const float* __restrict__ vz;  // (nx, ny, nz+1)
+  int nx, ny, nz;
+};
+
+// The fields of the branches a launch advects (null where not).
+struct Fields {
+  const float* a[4];
+  float* out[4];
+};
+
+// One branch at one point of its write region (or a copy of the input
+// outside it, where the point exists): the interpolant for the advecting
+// velocities (vxc, vyc, vzc) at index i of the branch's field.
+template <int kBranch>
+__device__ inline void advect_at(const Vel& v, const Fields& f, bool write,
+                                 bool inside, int X, int Y, int Z, int i,
+                                 float vxc, float vyc, float vzc,
+                                 const Step& s, int* clamped) {
+  const Field a{f.a[kBranch], v.nx + (kBranch == kVx),
+                v.ny + (kBranch == kVy), v.nz + (kBranch == kVz)};
+  if (write) {
+    f.out[kBranch][i] = backtrack(a, i, X, Y, Z, vxc, vyc, vzc, s, clamped);
+  } else if (inside) {
+    f.out[kBranch][i] = a.p[i];
+  }
+}
+
+// One thread per point of the (nx+1, ny+1, nz+1) union grid advects every
+// branch of `mask` that has that point. It first loads the 18 velocity
+// values the four branches' face averages read there, each once and only
+// where a branch that reads it writes (where the per-branch form read
+// it), then forms each branch's advecting velocities with ops/advect.py's
+// ((a+b)+c)+d expressions, times 0.25 or 0.5. One launch reads vx, vy, vz
+// and the fields once from device memory.
+__global__ void advect_kernel(Vel v, Fields f, unsigned mask,
+                              int* __restrict__ n_clamped, Step s) {
   const int Z = blockIdx.x * blockDim.x + threadIdx.x;
   const int Y = blockIdx.y * blockDim.y + threadIdx.y;
   const int X = blockIdx.z;
-  const bool inside = Y < a.n2 && Z < a.n3;
-  // the branch's write region (gpu.jl:308-332): interior of its own
-  // staggered axis, everything for the tracer
-  bool write = inside;
-  if (branch == kVx) write = write && X >= 1 && X <= a.n1 - 2;
-  if (branch == kVy) write = write && Y >= 1 && Y <= a.n2 - 2;
-  if (branch == kVz) write = write && Z >= 1 && Z <= a.n3 - 2;
+  const int nx = v.nx, ny = v.ny, nz = v.nz;
+  // each branch's field has the point (inside), and its write region
+  // (gpu.jl:308-332: the interior of its own staggered axis)
+  const bool in_c = X < nx && Y < ny && Z < nz;
+  const bool in_vx = (mask & (1u << kVx)) && X <= nx && Y < ny && Z < nz;
+  const bool in_vy = (mask & (1u << kVy)) && X < nx && Y <= ny && Z < nz;
+  const bool in_vz = (mask & (1u << kVz)) && X < nx && Y < ny && Z <= nz;
+  const bool w_vx = in_vx && X >= 1 && X <= nx - 1;
+  const bool w_vy = in_vy && Y >= 1 && Y <= ny - 1;
+  const bool w_vz = in_vz && Z >= 1 && Z <= nz - 1;
+  const bool w_c = (mask & (1u << kC)) && in_c;
+  const int ivx = (X * ny + Y) * nz + Z;
+  const int ivy = (X * (ny + 1) + Y) * nz + Z;
+  const int ivz = (X * ny + Y) * (nz + 1) + Z;
+  // x strides of vx, vy, vz; vz's y stride is nz + 1, the others' nz
+  const int sx = ny * nz, sy = (ny + 1) * nz, sz = ny * (nz + 1);
+  const float* __restrict__ px = v.vx;
+  const float* __restrict__ py = v.vy;
+  const float* __restrict__ pz = v.vz;
+  const bool any = w_vx || w_vy || w_vz || w_c;
+  // vx at (X, Y, Z), (X+1, Y, Z), (X, Y-1, Z), (X+1, Y-1, Z), (X, Y, Z-1),
+  // (X+1, Y, Z-1); vy and vz likewise around their own axes
+  const float x000 = any ? px[ivx] : 0.0f;
+  const float x100 = w_vy || w_vz || w_c ? px[ivx + sx] : 0.0f;
+  const float x0m0 = w_vy ? px[ivx - nz] : 0.0f;
+  const float x1m0 = w_vy ? px[ivx + sx - nz] : 0.0f;
+  const float x00m = w_vz ? px[ivx - 1] : 0.0f;
+  const float x10m = w_vz ? px[ivx + sx - 1] : 0.0f;
+  const float y000 = any ? py[ivy] : 0.0f;
+  const float y010 = w_vx || w_vz || w_c ? py[ivy + nz] : 0.0f;
+  const float ym00 = w_vx ? py[ivy - sy] : 0.0f;
+  const float ym10 = w_vx ? py[ivy + nz - sy] : 0.0f;
+  const float y00m = w_vz ? py[ivy - 1] : 0.0f;
+  const float y01m = w_vz ? py[ivy + nz - 1] : 0.0f;
+  const float z000 = any ? pz[ivz] : 0.0f;
+  const float z001 = w_vx || w_vy || w_c ? pz[ivz + 1] : 0.0f;
+  const float zm00 = w_vx ? pz[ivz - sz] : 0.0f;
+  const float zm01 = w_vx ? pz[ivz + 1 - sz] : 0.0f;
+  const float z0m0 = w_vy ? pz[ivz - (nz + 1)] : 0.0f;
+  const float z0m1 = w_vy ? pz[ivz - nz] : 0.0f;
   int clamped = 0;
-  if (write) {
-    float vxc, vyc, vzc;
-    if (kPre) {
-      vxc = vx.at(X, Y, Z);
-      vyc = vy.at(X, Y, Z);
-      vzc = vz.at(X, Y, Z);
-    } else if (branch == kVx) {
-      vxc = vx.at(X, Y, Z);
-      vyc = 0.25f * (((vy.at(X - 1, Y, Z) + vy.at(X - 1, Y + 1, Z)) +
-                      vy.at(X, Y, Z)) + vy.at(X, Y + 1, Z));
-      vzc = 0.25f * (((vz.at(X - 1, Y, Z) + vz.at(X - 1, Y, Z + 1)) +
-                      vz.at(X, Y, Z)) + vz.at(X, Y, Z + 1));
-    } else if (branch == kVy) {
-      vxc = 0.25f * (((vx.at(X, Y - 1, Z) + vx.at(X + 1, Y - 1, Z)) +
-                      vx.at(X, Y, Z)) + vx.at(X + 1, Y, Z));
-      vyc = vy.at(X, Y, Z);
-      vzc = 0.25f * (((vz.at(X, Y - 1, Z) + vz.at(X, Y - 1, Z + 1)) +
-                      vz.at(X, Y, Z)) + vz.at(X, Y, Z + 1));
-    } else if (branch == kVz) {
-      vxc = 0.25f * (((vx.at(X, Y, Z - 1) + vx.at(X + 1, Y, Z - 1)) +
-                      vx.at(X, Y, Z)) + vx.at(X + 1, Y, Z));
-      vyc = 0.25f * (((vy.at(X, Y, Z - 1) + vy.at(X, Y + 1, Z - 1)) +
-                      vy.at(X, Y, Z)) + vy.at(X, Y + 1, Z));
-      vzc = vz.at(X, Y, Z);
-    } else {
-      vxc = 0.5f * (vx.at(X, Y, Z) + vx.at(X + 1, Y, Z));
-      vyc = 0.5f * (vy.at(X, Y, Z) + vy.at(X, Y + 1, Z));
-      vzc = 0.5f * (vz.at(X, Y, Z) + vz.at(X, Y, Z + 1));
-    }
-    const float kf = static_cast<float>(k);
-    const AxisTerms ax = axis_terms(vxc, dx, dt, kf, X + 1.0f, a.n1);
-    const AxisTerms ay = axis_terms(vyc, dy, dt, kf, Y + 1.0f, a.n2);
-    const AxisTerms az = axis_terms(vzc, dz, dt, kf, Z + 1.0f, a.n3);
-    clamped = (ax.clamped || ay.clamped || az.clamped) ? 1 : 0;
-    int ox[2], oy[2], oz[2];
-    const int nox = corner_offsets(ax, k, ox);
-    const int noy = corner_offsets(ay, k, oy);
-    const int noz = corner_offsets(az, k, oz);
-    float acc = 0.0f;
-    for (int ip = 0; ip < noy; ++ip) {
-      const int p = oy[ip];
-      const float wy = weight(ay, p);
-      for (int iq = 0; iq < noz; ++iq) {
-        const int q = oz[iq];
-        const float wyz = wy * weight(az, q);
-        for (int io = 0; io < nox; ++io) {
-          const int o = ox[io];
-          acc = acc + (weight(ax, o) * wyz) * a.at(X + o, Y + p, Z + q);
-        }
-      }
-    }
-    out[(static_cast<long>(X) * a.n2 + Y) * a.n3 + Z] = acc;
-  } else if (inside) {
-    const long i = (static_cast<long>(X) * a.n2 + Y) * a.n3 + Z;
-    out[i] = a.p[i];
+  advect_at<kVx>(v, f, w_vx, in_vx, X, Y, Z, ivx, x000,
+                 0.25f * (((ym00 + ym10) + y000) + y010),
+                 0.25f * (((zm00 + zm01) + z000) + z001), s, &clamped);
+  advect_at<kVy>(v, f, w_vy, in_vy, X, Y, Z, ivy,
+                 0.25f * (((x0m0 + x1m0) + x000) + x100), y000,
+                 0.25f * (((z0m0 + z0m1) + z000) + z001), s, &clamped);
+  advect_at<kVz>(v, f, w_vz, in_vz, X, Y, Z, ivz,
+                 0.25f * (((x00m + x10m) + x000) + x100),
+                 0.25f * (((y00m + y01m) + y000) + y010), z000, s, &clamped);
+  advect_at<kC>(v, f, w_c, w_c, X, Y, Z, ivx, 0.5f * (x000 + x100),
+                0.5f * (y000 + y010), 0.5f * (z000 + z001), s, &clamped);
+  ns3d::block_sum_to(clamped, n_clamped);
+}
+
+// ---- K6: one branch from precomputed advecting velocities ----
+
+// vx, vy, vz are the branch's advecting velocities at a's shape, read at
+// the output point; the write region discards their pads.
+__global__ void advect_pre_kernel(int branch, Field a, Field vx, Field vy,
+                                  Field vz, float* __restrict__ out,
+                                  int* __restrict__ n_clamped, Step s) {
+  const int Z = blockIdx.x * blockDim.x + threadIdx.x;
+  const int Y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int X = blockIdx.z;
+  int clamped = 0;
+  if (Y < a.n2 && Z < a.n3) {
+    const int i = (X * a.n2 + Y) * a.n3 + Z;
+    out[i] = writes(branch, a, X, Y, Z)
+                 ? backtrack(a, i, X, Y, Z, vx.p[i], vy.p[i], vz.p[i], s,
+                             &clamped)
+                 : a.p[i];
   }
   ns3d::block_sum_to(clamped, n_clamped);
 }
 
 }  // namespace
 
-// branch 0..3 = Vx, Vy, Vz, C; a is that branch's field (its shape gives
-// the clamp bounds); vx/vy/vz the post-BC velocities of the (nx, ny, nz)
-// grid (K5) or the branch's advecting velocities at a's shape (K6, pre
-// nonzero). n_clamped accumulates (the caller zeroes it once per step).
-extern "C" int ns3d_advect(int branch, const float* a, const float* vx,
-                           const float* vy, const float* vz, float* out,
+// K5 (pre 0): advects each branch b (0..3 = Vx, Vy, Vz, C) whose bit is set
+// in `mask`, field a[b] into out[b] (null for the others), with the
+// post-BC velocities vx/vy/vz of the (nx, ny, nz) grid, in one launch.
+// K6 (pre nonzero): one bit, and vx/vy/vz are that branch's advecting
+// velocities at its field's shape. n_clamped accumulates (the caller
+// zeroes it once per step).
+extern "C" int ns3d_advect(unsigned mask, const float* a_vx, const float* a_vy,
+                           const float* a_vz, const float* a_c, float* out_vx,
+                           float* out_vy, float* out_vz, float* out_c,
+                           const float* vx, const float* vy, const float* vz,
                            int* n_clamped, float dt, float dx, float dy,
                            float dz, int k, int nx, int ny, int nz, int pre,
                            cudaStream_t stream) {
-  const int n1 = nx + (branch == kVx ? 1 : 0);
-  const int n2 = ny + (branch == kVy ? 1 : 0);
-  const int n3 = nz + (branch == kVz ? 1 : 0);
-  const Field fa{a, n1, n2, n3};
-  const dim3 grid = ns3d::grid_for(n1, n2, n3);
+  const Fields f{{a_vx, a_vy, a_vz, a_c}, {out_vx, out_vy, out_vz, out_c}};
+  if (mask == 0 || mask > 15) return static_cast<int>(cudaErrorInvalidValue);
+  for (int b = 0; b < 4; ++b) {
+    if ((mask >> b & 1u) && (f.a[b] == nullptr || f.out[b] == nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  // the largest array, (nx+1, ny+1, nz+1) bounding all, in 32-bit indices
+  if (static_cast<long>(nx + 1) * (ny + 1) * (nz + 1) >= (1L << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Step s{dt, dx, dy, dz, k};
   const dim3 block = ns3d::block_shape();
   if (pre) {
-    const Field fvx{vx, n1, n2, n3};
-    const Field fvy{vy, n1, n2, n3};
-    const Field fvz{vz, n1, n2, n3};
-    advect_kernel<true><<<grid, block, 0, stream>>>(branch, fa, fvx, fvy, fvz, out, n_clamped, dt, dx, dy, dz, k);
+    const int b = __builtin_ctz(mask);
+    if (mask != (1u << b)) return static_cast<int>(cudaErrorInvalidValue);
+    const int n1 = nx + (b == kVx), n2 = ny + (b == kVy), n3 = nz + (b == kVz);
+    const Field fa{f.a[b], n1, n2, n3};
+    const Field fvx{vx, n1, n2, n3}, fvy{vy, n1, n2, n3}, fvz{vz, n1, n2, n3};
+    advect_pre_kernel<<<ns3d::grid_for(n1, n2, n3), block, 0, stream>>>(b, fa, fvx, fvy, fvz, f.out[b], n_clamped, s);
   } else {
-    const Field fvx{vx, nx + 1, ny, nz};
-    const Field fvy{vy, nx, ny + 1, nz};
-    const Field fvz{vz, nx, ny, nz + 1};
-    advect_kernel<false><<<grid, block, 0, stream>>>(branch, fa, fvx, fvy, fvz, out, n_clamped, dt, dx, dy, dz, k);
+    const Vel v{vx, vy, vz, nx, ny, nz};
+    advect_kernel<<<ns3d::grid_for(nx + 1, ny + 1, nz + 1), block, 0, stream>>>(v, f, mask, n_clamped, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -77,17 +77,18 @@ SIGNATURES = {
                                       _P, _P),
     # vx, vy, vz, mask_vx, mask_vy, mask_vz, vx_out, vy_out, vz_out,
     # divv, dx, dy, dz, mu, two_mu, three, dt_rho, rho_g, nx, ny, nz,
-    # stream
+    # then the plan: tiles_y, tiles_z, seg; stream
     "ns3d_predict": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F,
-                     _F, _F, _F, _F, _F, _I, _I, _I, _P),
+                     _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P),
     # vx, vy, vz, pr, mask_vx, mask_vy, mask_vz, vx_out, vy_out, vz_out,
     # dx, dy, dz, minus_dt_rho, variant, vin, nx, ny, nz, stream
     "ns3d_correct": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F,
                      _F, _I, _F, _I, _I, _I, _P),
-    # branch, a, vx, vy, vz, out, n_clamped, dt, dx, dy, dz, k, nx, ny,
-    # nz, pre (0: K5, the post-BC velocities; 1: K6, the branch's
-    # precomputed advecting velocities), stream
-    "ns3d_advect": (_I, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _I, _I,
+    # branch mask, a_vx, a_vy, a_vz, a_c, out_vx, out_vy, out_vz, out_c
+    # (null outside the mask), vx, vy, vz, n_clamped, dt, dx, dy, dz, k,
+    # nx, ny, nz, pre (0: K5, the post-BC velocities; 1: K6, one branch
+    # and its precomputed advecting velocities), stream
+    "ns3d_advect": (ctypes.c_uint, *(_P,) * 12, _F, _F, _F, _F, _I, _I,
                     _I, _I, _I, _P),
 }
 
@@ -172,6 +173,17 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA device (the launch plans' wave size)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -1,16 +1,17 @@
-"""K5 and K6: semi-Lagrangian advection, one launch per advected field.
+"""K5 and K6: semi-Lagrangian advection.
 
-`advect_branch` (K5) and `advect_branch_pre` (K6) launch the two
-instances of the CUDA kernel of csrc/advect.cu for CUDA tensors and run
-`advect_branch_plain` / `advect_branch_pre_plain` for CPU tensors. K5
-replaces the Pallas kernel of navierstokes3d_tpu/kernels/advect.py:537
-(`build_advect_branch_flat`, assembled into the four reference branches
-by `build_advect_flat` :556-630): face averages of the advecting
-velocities, departure displacement clamped to ±k (k=2 on the main path)
-with a clamp count, and the trilinear interpolant in the select-shift
-(p, q, o) term order. K6 replaces the one of :218
-(`build_advect_branch`, assembled by `build_advect` :245-310), which
-takes the advecting velocities precomputed, zero-padded to the branch's
+`advect` (K5) advects the four fields in ONE launch of the CUDA kernel of
+csrc/advect.cu for CUDA tensors, and runs `advect_branch_plain` per
+branch for CPU tensors; `advect_branch` launches the same kernel for one
+branch. K5 replaces the Pallas kernel of navierstokes3d_tpu/kernels/
+advect.py:537 (`build_advect_branch_flat`, assembled into the four
+reference branches by `build_advect_flat` :556-630): face averages of the
+advecting velocities, departure displacement clamped to ±k (k=2 on the
+main path) with a clamp count, and the trilinear interpolant in the
+select-shift (p, q, o) term order. `advect_branch_pre` (K6) launches the
+kernel's other form, which replaces the one of :218
+(`build_advect_branch`, assembled by `build_advect` :245-310): it takes
+the advecting velocities precomputed, zero-padded to the branch's
 staggered shape (`pre_velocities`); `advect_unchained` is `build_advect`'s
 `advect_fn`, which the unchained step runs. The plain versions are
 ops/advect.py.
@@ -41,6 +42,40 @@ def advect_branch_plain(branch: str, a, vx, vy, vz, k: StepConsts,
 advect_branch_plain.calls = 0
 
 
+def _check_velocities(vx, vy, vz, dev) -> Tuple[int, int, int]:
+    nx, ny, nz = vx.shape[0] - 1, vx.shape[1], vx.shape[2]
+    _build.require("vx", vx, (nx + 1, ny, nz), torch.float32, dev)
+    _build.require("vy", vy, (nx, ny + 1, nz), torch.float32, dev)
+    _build.require("vz", vz, (nx, ny, nz + 1), torch.float32, dev)
+    return nx, ny, nz
+
+
+def _counter(n_clamped, dev) -> torch.Tensor:
+    if n_clamped is None:
+        n_clamped = torch.zeros((1,), dtype=torch.int32, device=dev)
+    _build.require("n_clamped", n_clamped, (1,), torch.int32, dev)
+    return n_clamped
+
+
+def _launch(fields: dict, vels, n_clamped, k: StepConsts, window,
+            grid_shape, pre: bool) -> dict:
+    """One launch for the branches of `fields` (name -> field); returns
+    name -> new field."""
+    outs = {name: torch.empty_like(a) for name, a in fields.items()}
+    mask = sum(1 << adv.BRANCHES.index(name) for name in fields)
+    ptrs = [_build.ptr(fields.get(name)) for name in adv.BRANCHES]
+    ptrs += [_build.ptr(outs.get(name)) for name in adv.BRANCHES]
+    f32 = lambda x: ctypes.c_float(float(np.float32(x)))  # noqa: E731
+    a = next(iter(fields.values()))
+    lib = _build.load()
+    rc = lib.ns3d_advect(mask, *ptrs, *(v.data_ptr() for v in vels),
+                         n_clamped.data_ptr(), f32(k.dt), f32(k.dx),
+                         f32(k.dy), f32(k.dz), window, *grid_shape, int(pre),
+                         _build.stream_of(a))
+    _build.check(rc, "advect_pre" if pre else "advect")
+    return outs
+
+
 def advect_branch(branch: str, a, vx, vy, vz, k: StepConsts, window: int,
                   n_clamped: torch.Tensor | None = None) -> torch.Tensor:
     """Advect field `a` (branch 'vx', 'vy', 'vz' or 'c') with the post-BC
@@ -52,36 +87,18 @@ def advect_branch(branch: str, a, vx, vy, vz, k: StepConsts, window: int,
         if n_clamped is not None:
             n_clamped += ncl
         return out
-    nx, ny, nz = vx.shape[0] - 1, vx.shape[1], vx.shape[2]
     dev = a.device
+    nx, ny, nz = _check_velocities(vx, vy, vz, dev)
     b = adv.BRANCHES.index(branch)
     shape = (nx + (b == 0), ny + (b == 1), nz + (b == 2))
     _build.require("a", a, shape, torch.float32, dev)
-    _build.require("vx", vx, (nx + 1, ny, nz), torch.float32, dev)
-    _build.require("vy", vy, (nx, ny + 1, nz), torch.float32, dev)
-    _build.require("vz", vz, (nx, ny, nz + 1), torch.float32, dev)
-    if n_clamped is None:
-        n_clamped = torch.zeros((1,), dtype=torch.int32, device=dev)
-    _build.require("n_clamped", n_clamped, (1,), torch.int32, dev)
-    out = torch.empty_like(a)
-    _launch(b, a, vx, vy, vz, out, n_clamped, k, window, (nx, ny, nz),
-            False)
+    out = _launch({branch: a}, (vx, vy, vz), _counter(n_clamped, dev), k,
+                  window, (nx, ny, nz), False)[branch]
     advect_branch.launches += 1
     return out
 
 
 advect_branch.launches = 0
-
-
-def _launch(b, a, vx, vy, vz, out, n_clamped, k: StepConsts, window,
-            grid_shape, pre: bool) -> None:
-    f32 = lambda x: ctypes.c_float(float(np.float32(x)))  # noqa: E731
-    lib = _build.load()
-    rc = lib.ns3d_advect(b, a.data_ptr(), vx.data_ptr(), vy.data_ptr(),
-                         vz.data_ptr(), out.data_ptr(), n_clamped.data_ptr(),
-                         f32(k.dt), f32(k.dx), f32(k.dy), f32(k.dz), window,
-                         *grid_shape, int(pre), _build.stream_of(a))
-    _build.check(rc, "advect_pre" if pre else "advect")
 
 
 # ---- K6: the branch from precomputed advecting velocities ----
@@ -148,12 +165,8 @@ def advect_branch_pre(branch: str, a, vxc, vyc, vzc, k: StepConsts,
     dev = a.device
     for name, t in (("a", a), ("vxc", vxc), ("vyc", vyc), ("vzc", vzc)):
         _build.require(name, t, a.shape, torch.float32, dev)
-    if n_clamped is None:
-        n_clamped = torch.zeros((1,), dtype=torch.int32, device=dev)
-    _build.require("n_clamped", n_clamped, (1,), torch.int32, dev)
-    out = torch.empty_like(a)
-    _launch(b, a, vxc, vyc, vzc, out, n_clamped, k, window, grid_shape,
-            True)
+    out = _launch({branch: a}, (vxc, vyc, vzc), _counter(n_clamped, dev), k,
+                  window, grid_shape, True)[branch]
     advect_branch_pre.launches += 1
     return out
 
@@ -185,16 +198,25 @@ def advect_unchained(vx, vy, vz, c, k: StepConsts, window: int = 2,
 def advect(vx, vy, vz, c, k: StepConsts, window: int = 2,
            plain: bool = False):
     """The four reference branches (gpu.jl:308-332, compat=False) from the
-    post-BC snapshots. Returns (vx', vy', vz', c', n_clamped) with
-    n_clamped an int32 tensor of shape (1,) on the fields' device.
-    plain=True runs the plain version on every device."""
-    n_clamped = torch.zeros((1,), dtype=torch.int32, device=vx.device)
-    outs = []
-    for name, a in zip(adv.BRANCHES, (vx, vy, vz, c)):
-        if plain:
+    post-BC snapshots, in one kernel launch (K5). Returns (vx', vy', vz',
+    c', n_clamped) with n_clamped an int32 tensor of shape (1,) on the
+    fields' device. plain=True runs the plain version on every device."""
+    fields = dict(zip(adv.BRANCHES, (vx, vy, vz, c)))
+    dev = vx.device
+    n_clamped = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if plain or not _build.on_cuda(vx, "advect"):
+        outs = []
+        for name, a in fields.items():
             out, ncl = advect_branch_plain(name, a, vx, vy, vz, k, window)
             n_clamped += ncl
-        else:
-            out = advect_branch(name, a, vx, vy, vz, k, window, n_clamped)
-        outs.append(out)
-    return (*outs, n_clamped)
+            outs.append(out)
+        return (*outs, n_clamped)
+    nx, ny, nz = _check_velocities(vx, vy, vz, dev)
+    _build.require("c", c, (nx, ny, nz), torch.float32, dev)
+    outs = _launch(fields, (vx, vy, vz), n_clamped, k, window, (nx, ny, nz),
+                   False)
+    advect.launches += 1
+    return (*outs.values(), n_clamped)
+
+
+advect.launches = 0

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -75,6 +76,52 @@ def _check_masks(masks: CylinderMasks, nx, ny, dev):
 
 # ---- K3 ----
 
+# K3's launch geometry (csrc/fused_step.cu): a block of 16 x 32 threads
+# owns a tile of PREDICT_TILE_Y x PREDICT_TILE_Z points of the union grid
+# (the threads around it are its halo) and streams a segment of x planes;
+# two blocks fit an SM
+PREDICT_TILE_Y = 14
+PREDICT_TILE_Z = 30
+PREDICT_BLOCKS_PER_SM = 2
+# PredictSmem: a ring of three stages of three 17 x 33 velocity planes,
+# fourteen 512-float planes of stresses and predicted velocities
+PREDICT_SMEM_BYTES = 4 * (3 * 3 * 17 * 33 + 14 * 512)
+
+
+@dataclasses.dataclass(frozen=True)
+class PredictPlan:
+    """How one K3 launch cuts the (nx+1, ny+1, nz+1) union grid: tiles_y x
+    tiles_z tiles of PREDICT_TILE_Y x PREDICT_TILE_Z points (the last of
+    each axis ragged) times `segs` x segments of `seg` planes; one block
+    per (tile, segment)."""
+    tiles_y: int
+    tiles_z: int
+    seg: int
+    segs: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_y * self.tiles_z * self.segs
+
+
+@functools.lru_cache(maxsize=64)
+def predict_plan(shape: Tuple[int, int, int], sms: int) -> PredictPlan:
+    """K3's plan for a grid of `shape` (cells) on a card of `sms` SMs: as
+    many x segments as keep the blocks within one wave of
+    PREDICT_BLOCKS_PER_SM per SM (at least one). At 255x153x153 on 132
+    SMs: 11 x 6 tiles x 4 segments of 64 planes = 264 blocks; at
+    511x307x307: 22 x 11 tiles, one segment of 512 planes."""
+    nx, ny, nz = shape
+    if min(shape) < 1 or sms < 1:
+        raise ValueError(f"predict_plan: shape {shape}, sms {sms}")
+    tiles_y = -(-(ny + 1) // PREDICT_TILE_Y)
+    tiles_z = -(-(nz + 1) // PREDICT_TILE_Z)
+    segs = min(nx + 1, max(1, PREDICT_BLOCKS_PER_SM * sms
+                           // (tiles_y * tiles_z)))
+    seg = -(-(nx + 1) // segs)
+    return PredictPlan(tiles_y, tiles_z, seg, -(-(nx + 1) // seg))
+
+
 def predict_ops(vx, vy, vz, masks: CylinderMasks, k: StepConsts
                 ) -> Tuple[torch.Tensor, ...]:
     """Stress, predictor, cylinder mask and divergence as torch ops:
@@ -108,6 +155,7 @@ def predict(vx, vy, vz, masks: CylinderMasks, k: StepConsts
     _check_masks(masks, nx, ny, dev)
     outs = (torch.empty_like(vx), torch.empty_like(vy), torch.empty_like(vz),
             torch.empty((nx, ny, nz), dtype=vx.dtype, device=dev))
+    plan = predict_plan((nx, ny, nz), _build.sm_count(dev))
     lib = _build.load()
     rc = lib.ns3d_predict(
         vx.data_ptr(), vy.data_ptr(), vz.data_ptr(),
@@ -115,7 +163,8 @@ def predict(vx, vy, vz, masks: CylinderMasks, k: StepConsts
         masks.mask_vz.data_ptr(), *(o.data_ptr() for o in outs),
         _f32(k.dx), _f32(k.dy), _f32(k.dz), _f32(k.mu), _f32(2.0 * k.mu),
         _f32(3.0), _f32(k.dt / k.rho), _f32(k.rho * k.g_eff),
-        nx, ny, nz, _build.stream_of(vx))
+        nx, ny, nz, plan.tiles_y, plan.tiles_z, plan.seg,
+        _build.stream_of(vx))
     _build.check(rc, "predict")
     predict.launches += 1
     return outs

@@ -360,11 +360,6 @@ def sweep_plan(shape: Tuple[int, int, int], s: int, sms: int) -> SweepPlan:
     return best
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def poisson_iter_sweeps(pr, dpr, rhs, pr_out, dpr_out, op: PoissonOperator,
                         s: int, check: bool) -> Optional[torch.Tensor]:
     """s folded PT iterations (2 <= s <= 4) in one launch, bitwise equal to
@@ -378,7 +373,7 @@ def poisson_iter_sweeps(pr, dpr, rhs, pr_out, dpr_out, op: PoissonOperator,
     if not _build.on_cuda(pr, "poisson_iter_sweeps"):
         return poisson_iter_sweeps_plain(pr, dpr, rhs, pr_out, dpr_out, op,
                                          s, check)
-    plan = sweep_plan(tuple(pr.shape), s, _sm_count(pr.device.index))
+    plan = sweep_plan(tuple(pr.shape), s, _build.sm_count(pr.device))
     return launch_sweeps(pr, dpr, rhs, pr_out, dpr_out, op, plan, check)
 
 

@@ -266,6 +266,122 @@ def test_k5_matches_plain(solver, scale):
     assert (int(a[4].item()) > 0) == (scale > 1.0)
 
 
+@pytest.fixture
+def nan_outputs(monkeypatch):
+    """New float tensors from torch.empty / empty_like start as NaN, so an
+    output cell a kernel leaves unwritten shows."""
+    empty, empty_like = torch.empty, torch.empty_like
+
+    def nan(t):
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+    monkeypatch.setattr(torch, "empty", lambda *a, **kw: nan(empty(*a, **kw)))
+    monkeypatch.setattr(torch, "empty_like",
+                        lambda *a, **kw: nan(empty_like(*a, **kw)))
+
+
+def _bitwise(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _k3_inputs(shape, seed, preset=None):
+    """Seeded velocities and either a preset solver's masks and constants
+    at `shape` (nx of the preset) or random masks with its constants."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    nx, ny, nz = shape
+    rng = np.random.default_rng(seed)
+    v = [_rand(rng, s) for s in ((nx + 1, ny, nz), (nx, ny + 1, nz),
+                                 (nx, ny, nz + 1))]
+    if preset is not None:
+        s = _solver(nx, preset)
+        assert (s.grid.nx, s.grid.ny, s.grid.nz) == shape
+        return v, s.masks, s._consts
+
+    def mask(*sh):
+        return torch.tensor(rng.uniform(size=sh) < 0.2, device="cuda")
+    masks = types.SimpleNamespace(mask_vx=mask(nx + 1, ny),
+                                  mask_vy=mask(nx, ny + 1),
+                                  mask_vz=mask(nx, ny), mask_c=mask(nx, ny))
+    k = kf.StepConsts(dt=0.0137, dx=0.1, dy=0.07, dz=0.09, mu=3e-3,
+                      rho=1.0, g_eff=9.81, variant="gpu", vin=1.0)
+    return v, masks, k
+
+
+def _check_k3(v, masks, k):
+    a = kf.predict(*v, masks, k)
+    b = kf.predict_plain(*v, masks, k)
+    for name, x, y in zip(("vx*", "vy*", "vz*", "divv"), a, b):
+        assert _bitwise(x, y), name
+
+
+# K3's tile is 14 x 30 points of the (nx+1, ny+1, nz+1) union grid: shapes
+# whose union ends one past a tile multiple, exactly on one, nx = 3, and
+# plans of one plane per segment, segments longer than nx and ragged ones
+K3_EDGES = {
+    "ragged": ((9, 28, 60), None),
+    "exact": ((13, 27, 59), None),
+    "nx3": ((3, 14, 30), None),
+    "seg_longer_than_nx": ((5, 13, 29), (64, 1)),
+    "ragged_segments": ((12, 28, 60), (5, 3)),
+    "one_plane_segments": ((6, 15, 31), (1, 7)),
+}
+
+
+@pytest.mark.parametrize("edge", sorted(K3_EDGES))
+def test_k3_tile_edges_bitwise(edge, nan_outputs, monkeypatch):
+    """K3 with NaN-filled outputs, bitwise equal to predict_plain on all
+    four outputs, with a nonzero g_eff, at ragged tiles and x segments."""
+    shape, forced = K3_EDGES[edge]
+    v, masks, k = _k3_inputs(shape, 11)
+    if forced is not None:
+        nx, ny, nz = shape
+        seg, segs = forced
+        plan = kf.PredictPlan(-(-(ny + 1) // kf.PREDICT_TILE_Y),
+                              -(-(nz + 1) // kf.PREDICT_TILE_Z), seg, segs)
+        monkeypatch.setattr(kf, "predict_plan", lambda shape, sms: plan)
+    _check_k3(v, masks, k)
+
+
+@pytest.mark.parametrize("preset,nx", [("gpu", 17), ("multi", 17),
+                                       ("gpu", 255), ("multi", 255),
+                                       ("gpu", 511)])
+def test_k3_presets_bitwise(preset, nx, nan_outputs):
+    """K3 with each preset's masks and constants (gpu: g_eff 0 under the
+    split; multi: g = 0), and with a nonzero g_eff, at a small grid, the
+    main paths' 255x153x153 and the wide grid's 511x307x307."""
+    s = _solver(nx, preset)
+    g = s.grid
+    v, masks, k = _k3_inputs((g.nx, g.ny, g.nz), 12, preset)
+    _check_k3(v, masks, k)
+    _check_k3(v, masks, dataclasses.replace(k, g_eff=9.81))
+
+
+@pytest.mark.parametrize("window", [2, 3])
+@pytest.mark.parametrize("scale", [0.25, 3.0])
+def test_k5_one_launch_and_branches_bitwise(solver, scale, window,
+                                            nan_outputs):
+    """K5's one launch and its one-branch launches, NaN-filled outputs:
+    each of the four fields bitwise equal to advect_branch_plain, the
+    clamp counts equal, with and without clamped points."""
+    g, rng = solver.grid, np.random.default_rng(5)
+    v = [_rand(rng, s, scale) for s in (g.shape_vx, g.shape_vy, g.shape_vz)]
+    c = torch.tensor(rng.uniform(size=g.shape_c).astype(np.float32),
+                     device="cuda")
+    k = solver._consts
+    kernels.reset_counts()
+    a = ka.advect(*v, c, k, window)
+    assert ka.advect.launches == 1 and ka.advect_branch.launches == 0
+    n1 = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    n_plain = 0
+    for name, f, out in zip(("vx", "vy", "vz", "c"), (*v, c), a[:4]):
+        one = ka.advect_branch(name, f, *v, k, window, n1)
+        ref, ncl = ka.advect_branch_plain(name, f, *v, k, window)
+        n_plain += int(ncl)
+        assert _bitwise(out, ref) and _bitwise(one, ref), name
+    assert int(a[4].item()) == int(n1.item()) == n_plain
+    assert (n_plain > 0) == (scale > 1.0)
+
+
 @pytest.mark.parametrize("preset", ["gpu", "multi"])
 def test_step_on_card_matches_cpu(preset):
     """Two steps at nx=15 (the gpu preset diverges at nx=17 and 24 in the
