@@ -73,7 +73,8 @@ Phases (any failure exits non-zero; nothing is caught):
      and without the check: every output and the check value bitwise;
      ms per launch (its device time from torch.profiler, and CUDA events
      around launches issued back to back), the plain version's, bytes and
-     bound
+     bound, and beside it the copy ceiling: scripts/copy_ceiling.cu's
+     grid-stride float4 copy of as many MB, timed alike
  12. dist path: preset_multi(nx=255, dtype='float32') on a (3,1,1) mesh of
      cuda:0 shards (ChorinSolver.step_shard_map), 4 steps with compat off
      (K2-dist) and 2 with it on (K7-dist), launch counts set to 0 just
@@ -81,7 +82,8 @@ Phases (any failure exits non-zero; nothing is caught):
      launched, no plain version; every field finite, every compat-off
      solve converged. Step 1's Poisson solve again on a (1,1,1) mesh from
      the same (pr, dprdtau, rhs): equal iterations and err, pr and dprdtau
-     bitwise. Then one more step of each traced with torch.profiler
+     bitwise. Then one more step of each traced with torch.profiler: its
+     wall, device busy time and idle share
  13. unchained kernels: K6 (advect_branch_pre) at 255x153x153 float32 on
      seeded velocities at two scales (one with clamps): each branch from
      its torch-op face averages (kernels/advect.py pre_velocities, NaN in
@@ -122,7 +124,9 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -206,10 +210,15 @@ RESIDENT_NX = (63, 255)
 RESIDENT_NIT = {63: 37, 255: 152}
 UNCHAINED_STEPS = 4
 DMA_STEPS = 4
-# the dist kernels' device symbols as the profiler names them (K7-dist is
-# the halo instance of K7's kernel template)
-DIST_SYMBOLS = {"K7": "poisson_iter_bc_kernel<true>",
-                "K2": "poisson_iter_ext_bc_dist_kernel"}
+# the dist kernels' device symbols as the profiler names them (one kernel
+# template over the pressure words: 1 for K7-dist, 2 for K2-dist)
+DIST_SYMBOLS = {"K7": "poisson_dist_kernel<1>",
+                "K2": "poisson_dist_kernel<2>"}
+# the copy ceiling of the dist kernels' phase: scripts/copy_ceiling.cu, a
+# grid-stride float4 copy of the bytes a kernel's bound counts, at these
+# (threads per block, blocks per SM), the fastest kept
+COPY_SOURCE = Path(__file__).resolve().parent / "scripts" / "copy_ceiling.cu"
+COPY_GRIDS = ((256, 4), (256, 8), (1024, 1), (1024, 2))
 # the distributed path: the multi preset at 255 over an x-only mesh of 3
 # shards (bx = 85) on one card
 DIST_SHAPE = (3, 1, 1)
@@ -340,16 +349,17 @@ def phase_device() -> str:
 
 
 # each kernel's device symbol in the library (the mangled name holds
-# "<length><name>" then the template arguments): for its SASS counts
+# "<length><name>" then the template arguments): for its SASS counts (K7
+# and K7-dist launch one symbol)
 SYMBOLS = {K1_NAME: r"19poisson_iter_kernelE", K2_NAME:
            r"23poisson_iter_ext_kernelE", "K3 predict": r"14predict_kernelE",
            "K4 correct": r"14correct_kernelE", "K5 advect":
            r"13advect_kernelE", K6_NAME: r"17advect_pre_kernelE",
-           K7_NAME: r"22poisson_iter_bc_kernelILb0E", K8_NAME:
+           K7_NAME: r"19poisson_dist_kernelILi1E", K8_NAME:
            r"21poisson_sweeps_kernelILi3E", K10_NAME:
            r"23poisson_resident_kernelE", K7D_NAME:
-           r"22poisson_iter_bc_kernelILb1E", K2D_NAME:
-           r"31poisson_iter_ext_bc_dist_kernelE"}
+           r"19poisson_dist_kernelILi1E", K2D_NAME:
+           r"19poisson_dist_kernelILi2E"}
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                        r"([A-Z][A-Z0-9_]*)([^;]*);")
 
@@ -367,9 +377,8 @@ def sass_counts(lib: Path) -> dict:
     out = {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0]
-        kernel = next((k for k, sym in SYMBOLS.items()
-                       if re.search(sym, name)), None)
-        if kernel is None:
+        names = [k for k, sym in SYMBOLS.items() if re.search(sym, name)]
+        if not names:
             continue
         ins = []
         for addr, op, rest in SASS_LINE.findall(fn):
@@ -381,13 +390,13 @@ def sass_counts(lib: Path) -> dict:
         bars = [i for i, (_, op, _) in enumerate(ins) if op == "BAR"]
         back = [i for i, (_, op, tgt) in enumerate(ins) if bars and op == "BRA"
                 and tgt is not None and tgt <= ins[bars[0]][0]]
-        if kernel in ("K3 predict", K8_NAME) and back:
+        if names[0] in ("K3 predict", K8_NAME) and back:
             loop = ins[bars[0]:max(back) + 1]
             row["plane_loop"] = len(loop)
             row["plane_loop_divisions"] = sum(op == "FCHK" for _, op, _ in loop)
-        if kernel == "K3 predict" and "plane_loop" in row:
+        if names[0] == "K3 predict" and "plane_loop" in row:
             row["per_point"] = row["plane_loop"] * 512 / 420
-        out[kernel] = row
+        out.update(dict.fromkeys(names, row))
     for kernel, row in out.items():
         print(f"[sass] {kernel}: {row}")
     return out
@@ -1156,6 +1165,42 @@ def dist_operators() -> dict:
     return ops
 
 
+@functools.cache
+def copy_library() -> ctypes.CDLL:
+    """scripts/copy_ceiling.cu, built with the port's nvcc flags."""
+    lib = _build.BUILD_DIR / f"libcopy_ceiling_{_build.build_key()}.so"
+    if not lib.exists():
+        subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                        str(lib), str(COPY_SOURCE)], check=True,
+                       capture_output=True, text=True)
+    cdll = ctypes.CDLL(str(lib))
+    cdll.ns3d_copy_float4.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_long, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_void_p]
+    cdll.ns3d_copy_float4.restype = ctypes.c_int
+    return cdll
+
+
+@functools.cache
+def copy_ms(mb: int) -> float:
+    """The copy ceiling at mb MB: device ms of the fastest grid-stride
+    float4 copy of mb/2 MB into as many (COPY_GRIDS), as the dist kernels
+    are timed (torch.profiler, 20 launches after warm-up)."""
+    n4 = mb * 10 ** 6 // 32
+    src = torch.rand(4 * n4, device="cuda")
+    dst = torch.empty_like(src)
+    sms = _build.sm_count(src.device)
+    fn = copy_library().ns3d_copy_float4
+
+    def run(threads, per_sm):
+        _build.check(fn(src.data_ptr(), dst.data_ptr(), n4, per_sm * sms,
+                        threads, _build.stream_of(src)), "copy_float4")
+    best = min(device_ms(lambda: run(*grid), 20, "copy_float4_kernel")
+               for grid in COPY_GRIDS)
+    require(torch.equal(src, dst), "copy_float4 copied wrongly")
+    return best
+
+
 def check_dist(kind, op, fields, x_off, bx, label) -> dict:
     """One shard of K7-dist (kind 'K7') or K2-dist ('K2') at global offset
     x_off against its plain version, with and without the check: every
@@ -1209,12 +1254,16 @@ def check_dist(kind, op, fields, x_off, bx, label) -> dict:
               if t is not None and held]
     b = bound(name, (*ins, *(h for h in halos if h is not None), *planes),
               outs, ins[0].numel())
+    mb = round(b["bytes"] / 1e6)
+    copy = copy_ms(mb)
     print(f"[dist kernels] {name} ({label}): bitwise equal to its plain "
           f"version; {ms:.4f} ms of device time (check iteration "
           f"{ms_chk:.4f} ms), {issue_ms:.4f} ms per launch issued back to "
           f"back (CUDA events), plain {plain_ms:.4f} ms; bound "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {b['bytes'] / 1e6:.1f} "
-          f"MB per launch), kernel at {100 * b['bound_ms'] / ms:.1f}% of it")
+          f"MB per launch), kernel at {100 * b['bound_ms'] / ms:.1f}% of it; "
+          f"a copy of {mb} MB {copy:.4f} ms ({100 * b['bound_ms'] / copy:.1f}"
+          f"% of the bound)")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 events_ms=issue_ms, **b)
 
@@ -1329,6 +1378,10 @@ def run_dist(compat: bool, nsteps: int, mesh, smi) -> dict:
     require(it1 == all_stats[0].iters and err1 == all_stats[0].err and same,
             f"{label}: the one-shard solve differs from the sharded one")
     tr = profile_step(s, states[-1], label, step=step)
+    print(f"[{label} trace] traced step: wall {tr['wall'] * 1e3:.2f} ms, "
+          f"device busy {tr['busy'] / 1e3:.3f} ms, idle "
+          f"{100 * (1 - tr['busy'] / max(tr['span'], 1e-9)):.2f}% of the "
+          f"{tr['span'] / 1e3:.3f} ms kernel span ({smi})")
     n = max(tr["iters"], 1)
     kern_us = sum(us for name, (us, _) in tr["by_name"].items()
                   if DIST_SYMBOLS["K7" if compat else "K2"] in name)

@@ -110,19 +110,18 @@
 // which depends on the source's old dpr, while the source's own thread
 // writes the new dpr. K7 therefore ping-pongs dpr as well as pr (reads
 // dpr, writes dpr_out: the same 5 x 4 B per cell as K1's in-place update),
-// and a ring thread recomputes its source's update from the unchanged
-// inputs, bit for bit as the source's own thread computes it. One launch
-// writes every cell of both outputs. It reduces nothing: compat's check
-// value is a separate residual evaluation (torch ops), once per chunk.
-// Bound: device-memory bytes, as K1 (~120 MB per launch at 255x153x153).
+// and a ring cell takes its source's update from the thread that computed
+// it, through a shared tile (the K7 section below). One launch writes
+// every cell of both outputs. It reduces nothing: compat's check value is
+// a separate residual evaluation (torch ops), once per chunk. Bound:
+// device-memory bytes, as K1 (~120 MB per launch at 255x153x153).
 //
 // K7-dist and K2-dist replace the same call sites built for one shard of
 // an x-decomposed mesh (build_poisson_iter(local_rows=bx): `rows_of` :503,
 // `p_ext_of` :515, the `dist` operands :874-883 and :1193-1202), which the
-// distributed Poisson solve runs per shard (parallel/halo.py:310-393).
-// K7-dist is K7 on a shard of bx owned x-planes at global offset x_off
-// (one kernel template: K7 is its x_off = 0, bx = nx instance without
-// halo reads and without the check reduction); K2-dist iterates the (hi, lo) pair there with the unfolded Laplacian
+// distributed Poisson solve runs per shard (parallel/halo.py:238-270).
+// K7-dist is K7 on a shard of bx owned x-planes at global offset x_off;
+// K2-dist iterates the (hi, lo) pair there with the unfolded Laplacian
 // (`compute_slab_ext` :353):
 //   resid = (lap_h - rhs) + lap_l;  d = dpr*decay + dtau*resid
 //   u = lo + dtau*d;  (hi', lo') = two_sum(hi, u)
@@ -134,15 +133,14 @@
 // slowest; the shard's two x-halo planes (the -x neighbour's last owned
 // plane and the +x neighbour's first) are separate (ny, nz) operands, one
 // pair per word, null at an open global face (nothing reads them there:
-// only interior cells take the Laplacian). A ring thread recomputes its
-// clamped source's update exactly as K7 does; a source on the shard's
-// first or last plane reads the halo planes like any other cell (bx >= 2
-// keeps every source owned). On a check iteration the kernel reduces the
-// max |resid| over the shard's interior cells (the residual of the state
-// entering the iteration, as K1), which the caller max-reduces over the
-// mesh. Bytes bound as K7 (5 x 4 B per cell) and K2 (8 x 4 B per cell:
-// hi, lo, dpr, rhs in; hi', lo', dpr' out) plus the halo planes; one
-// thread per cell, as K7.
+// only interior cells take the Laplacian). On a check iteration the
+// kernel reduces the max |resid| over the shard's interior cells (the
+// residual of the state entering the iteration, as K1), which the caller
+// max-reduces over the mesh. K7, K7-dist and K2-dist are one kernel
+// template over the number of pressure words (K7: one word at x_off = 0,
+// bx = nx, without halo planes or the check). Bytes bound as K7 (5 x 4 B
+// per cell) and K2 (7 x 4 B per cell: hi, lo, dpr, rhs in; hi', lo', dpr'
+// out) plus the halo planes.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -665,10 +663,6 @@ __device__ inline int clamp_int(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// ---- K7, K7-dist and K2-dist: the unfolded iteration with set_bc_Pr! ----
-// K7 is the one-shard case of K7-dist (x_off = 0, bx = nx, no halo planes):
-// one kernel body, instantiated without the halo reads for K7.
-
 // One shard's view of a field: its bx owned planes (bx, ny, nz) and the
 // halo planes at local x = -1 (lo) and x = bx (hi), null at an open face.
 struct Slab {
@@ -682,183 +676,190 @@ struct DistShape {
   int x_off, nx, bx, ny, nz;
 };
 
-// Plane lx of the shard at (y, z) offset yz; kHalo reads the halo planes
-// at lx = -1 and lx = bx (without it every plane read is owned).
-template <bool kHalo>
-__device__ inline float slab_at(const Slab& s, int lx, long yz, long sx,
-                                int bx) {
-  if (kHalo && lx < 0) return s.lo[yz];
-  if (kHalo && lx >= bx) return s.hi[yz];
-  return s.p[lx * sx + yz];
-}
+// ---- K7, K7-dist and K2-dist: the unfolded iteration with set_bc_Pr! ----
+//
+// One template over the pressure words W: K7-dist (W = 1), K2-dist (W =
+// 2), and K7, K7-dist's instance on the whole grid (x_off = 0, bx = nx, no
+// halo planes, no check), which took 0.0490-0.0497 ms at 255x153x153
+// against 0.0514-0.0515 for the K7 kernel it replaced, in the same runs
+// (PERF.md).
+//
+// What bounds them on this card: device-memory bytes. K7-dist reads pr,
+// dpr and rhs and writes pr_out and dpr_out (5 x 4 B per cell, 40.0 MB on
+// a shard of 85x153x153, 0.0119 ms at 3.35 TB/s); K2-dist reads hi, lo,
+// dpr and rhs and writes hi', lo' and dpr' (7 x 4 B, 56.1 MB, 0.0167 ms);
+// the halo and Dirichlet planes add 0.1-0.3 MB.
+//
+// What held the form this replaces (the halo instance of K7's earlier
+// template, also a thread per cell) to 47% and 44% of that
+// (scripts/kdist_probe.py, PERF.md): (1) a ring thread recomputed its
+// clamped source's whole update, one Laplacian for K7-dist and two for
+// K2-dist, inside warps whose other lanes took the interior path: storing
+// a constant there instead took 28% and 36% off; (2) the halo reads'
+// branches per cell: on the whole grid the halo instance took 0.0742 ms
+// where K7, the same template without them, took 0.0504. An
+// x-streamed form (tiles streaming their x segment through a ring of
+// cp.async slots, PERF.md) removed both and was slower: 0.0355 ms, issue
+// bound at ~150 instructions per thread and plane.
+//
+// Design. A block of kDistLanes x kDistRows threads stands on one (y, z)
+// tile of one plane; the plan (kernels/poisson.py `dist_plan`) cuts y and
+// z into balanced parts of at least two rows and lanes, so a ring cell's
+// clamped source (its y and z one cell inward) lies in its own tile. Each
+// thread computes its cell's update once, in compute_slab's order
+// (K7-dist) or compute_slab_ext's (K2-dist), and writes it to a shared
+// tile; after one block barrier a ring cell (off the global interior, not
+// on a Dirichlet plane) takes the update at its source plus the z
+// constants, each added only where nonzero, in set_bc_Pr!'s order: the
+// same floats as the plain version, so bitwise by construction. The x
+// neighbour planes are chosen once per block (a halo plane at the shard's
+// ends, nothing at an open global face). Under zero_grad_x the global
+// plane 0 takes plane 1's updates and plane nx - 1 those of plane nx - 2:
+// the block of such a plane computes its tile of the source plane
+// instead of its own (a whole plane of ring cells, no divergence). The
+// check value is reduced as K1's (float bits of |resid| over the interior
+// cells, block max, one atomicMax). Outputs never alias inputs: a cell's
+// neighbours are read from the inputs by other blocks. Indices are
+// 32-bit: the wrapper refuses shards of 2^31 cells or more.
 
-// The unfolded Laplacian at owned cell (lx, yz) of the shard in
-// lap_of_rows's order (x+ then x-, y+ then y-, z+ then z-), the x
-// neighbours through the halo planes where they are not owned.
-template <bool kHalo>
-__device__ inline float lap_dist(const Slab& s, int lx, long yz,
-                                 const DistShape& sh, const BCConsts& k,
-                                 float pc) {
-  const long sx = static_cast<long>(sh.ny) * sh.nz;
-  const long i = lx * sx + yz;
-  float lap = ((slab_at<kHalo>(s, lx + 1, yz, sx, sh.bx) - pc) +
-               (slab_at<kHalo>(s, lx - 1, yz, sx, sh.bx) - pc)) * k.inv_dx2;
-  lap = lap + ((s.p[i + sh.nz] - pc) + (s.p[i - sh.nz] - pc)) * k.inv_dy2;
-  lap = lap + ((s.p[i + 1] - pc) + (s.p[i - 1] - pc)) * k.inv_dz2;
-  return lap;
-}
+// a block: 32 lanes (z) x 8 rows (y), the shape ns3d::block_max_to reduces
+constexpr int kDistLanes = ns3d::kBlockX;
+constexpr int kDistRows = ns3d::kBlockY;
 
-// K7's update at owned cell (lx, y, z), in compute_slab's expression
-// order: q = pc + dtau*d, with d (and the residual) from the Laplacian
-// where the cell is globally interior, d = 0 elsewhere.
-template <bool kHalo>
-__device__ inline float dist_update(const Slab& pr,
-                                    const float* __restrict__ dpr,
-                                    const float* __restrict__ rhs, int lx,
-                                    int y, int z, const DistShape& sh,
-                                    const BCConsts& k, float* d_out,
-                                    float* resid_out) {
-  const long yz = static_cast<long>(y) * sh.nz + z;
-  const long i = lx * static_cast<long>(sh.ny) * sh.nz + yz;
-  const float pc = pr.p[i];
-  float d = 0.0f;
-  if (interior(sh.x_off + lx, y, z, sh.nx, sh.ny, sh.nz)) {
-    const float resid = lap_dist<kHalo>(pr, lx, yz, sh, k, pc) - rhs[i];
-    d = dpr[i] * k.decay + k.dtau * resid;
-    *resid_out = resid;
-  }
-  *d_out = d;
-  return pc + k.dtau * d;
-}
+// The balanced cut of y and z into the wrapper's tiles (kernels/poisson.py
+// `balanced_part`): part i starts at i*q + min(i, r) and holds q + (i < r).
+struct DistCut {
+  int qy, ry, qz, rz;
+};
 
-// K2-dist's update at owned cell (lx, y, z): the pair's residual and d as
-// above, then u = lo + dtau*d and (hi', lo') = two_sum(hi, u) (every
-// cell: off the interior d = 0 renormalizes the pair).
-__device__ inline void dist_update_ext(const Slab& hi, const Slab& lo,
-                                       const float* __restrict__ dpr,
-                                       const float* __restrict__ rhs, int lx,
-                                       int y, int z, const DistShape& sh,
-                                       const BCConsts& k, float* h_out,
-                                       float* l_out, float* d_out,
-                                       float* resid_out) {
-  const long yz = static_cast<long>(y) * sh.nz + z;
-  const long i = lx * static_cast<long>(sh.ny) * sh.nz + yz;
-  const float hc = hi.p[i];
-  const float lc = lo.p[i];
-  float d = 0.0f;
-  if (interior(sh.x_off + lx, y, z, sh.nx, sh.ny, sh.nz)) {
-    const float lap_h = lap_dist<true>(hi, lx, yz, sh, k, hc);
-    const float lap_l = lap_dist<true>(lo, lx, yz, sh, k, lc);
-    const float resid = (lap_h - rhs[i]) + lap_l;
-    d = dpr[i] * k.decay + k.dtau * resid;
-    *resid_out = resid;
-  }
-  *d_out = d;
-  const float u = lc + k.dtau * d;
-  const float s = hc + u;
-  const float ap = s - u;
-  const float bp = s - ap;
-  *h_out = s;
-  *l_out = (hc - ap) + (u - bp);
-}
+// A shard's pressure words (one Slab each) and their outputs.
+template <int W>
+struct DistWords {
+  Slab in[W];
+  float* out[W];
+};
 
-// The clamped source of ring cell (gx, y, z) in local coordinates: the
-// x clamp only where x is zero-gradient (a Dirichlet face is written
-// before any source is read).
-__device__ inline void ring_source(int gx, int y, int z, const DistShape& sh,
-                                   const BCConsts& k, int* lx, int* cy,
-                                   int* cz) {
-  const int cgx = k.zero_grad_x ? clamp_int(gx, 1, sh.nx - 2) : gx;
-  *lx = cgx - sh.x_off;
-  *cy = clamp_int(y, 1, sh.ny - 2);
-  *cz = clamp_int(z, 1, sh.nz - 2);
-}
-
-// K7 (kHalo false: the whole grid, err_bits null) and K7-dist.
-template <bool kHalo>
-__global__ void poisson_iter_bc_kernel(
-    Slab pr, const float* __restrict__ dpr, const float* __restrict__ rhs,
-    float* __restrict__ pr_out, float* __restrict__ dpr_out, BCConsts k,
-    DistShape sh, unsigned int* __restrict__ err_bits) {
-  const int z = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  const int lx = blockIdx.z;
+template <int W>
+__global__ void __launch_bounds__(kDistLanes* kDistRows)
+    poisson_dist_kernel(DistWords<W> f, const float* __restrict__ dpr,
+                        const float* __restrict__ rhs,
+                        float* __restrict__ dpr_out, BCConsts k,
+                        DistShape sh, DistCut p,
+                        unsigned int* __restrict__ err_bits) {
+  __shared__ float upd[W][kDistRows][kDistLanes];
+  const int tz = blockIdx.x, ty = blockIdx.y, lx = blockIdx.z;
+  const int z0 = tz * p.qz + min(tz, p.rz), uz = p.qz + (tz < p.rz);
+  const int y0 = ty * p.qy + min(ty, p.ry), uy = p.qy + (ty < p.ry);
+  const int l = threadIdx.x, r = threadIdx.y;
+  const int y = y0 + r, z = z0 + l;
+  const bool on = l < uz && r < uy;
   const int gx = sh.x_off + lx;
+  const int sx = sh.ny * sh.nz;
+  const int yz = on ? y * sh.nz + z : 0;
+  const bool yz_in = y >= 1 && y <= sh.ny - 2 && z >= 1 && z <= sh.nz - 2;
+  const bool dirichlet = (gx == 0 && k.xlo != nullptr) ||
+                         (gx == sh.nx - 1 && k.xhi != nullptr);
   unsigned int bits = 0u;
-  if (y < sh.ny && z < sh.nz) {
-    const long yz = static_cast<long>(y) * sh.nz + z;
-    const long i = lx * static_cast<long>(sh.ny) * sh.nz + yz;
-    float d, resid;
-    if (interior(gx, y, z, sh.nx, sh.ny, sh.nz)) {
-      pr_out[i] = dist_update<kHalo>(pr, dpr, rhs, lx, y, z, sh, k, &d,
-                                     &resid);
-      dpr_out[i] = d;
-      bits = __float_as_uint(fabsf(resid));
-    } else {
+  if (dirichlet) {  // the Dirichlet x planes: every cell a plane value
+    if (on) {
+      const int i = lx * sx + yz;
+      f.out[0][i] = gx == 0 ? k.xlo[yz] : k.xhi[yz];
+      if constexpr (W == 2) f.out[1][i] = 0.0f;
       dpr_out[i] = 0.0f;
-      float v;
-      if (gx == 0 && k.xlo != nullptr) {
-        v = k.xlo[yz];
-      } else if (gx == sh.nx - 1 && k.xhi != nullptr) {
-        v = k.xhi[yz];
-      } else {
-        int sl, cy, cz;
-        ring_source(gx, y, z, sh, k, &sl, &cy, &cz);
-        v = dist_update<kHalo>(pr, dpr, rhs, sl, cy, cz, sh, k, &d, &resid);
-        if (z == 0 && k.z_lo_add != 0.0f) v = v + k.z_lo_add;
-        if (z == sh.nz - 1 && k.z_hi_add != 0.0f) v = v + k.z_hi_add;
-      }
-      pr_out[i] = v;
     }
-  }
-  if (kHalo && err_bits != nullptr) ns3d::block_max_to(bits, err_bits);
-}
-
-__global__ void poisson_iter_ext_bc_dist_kernel(
-    Slab hi, Slab lo, const float* __restrict__ dpr,
-    const float* __restrict__ rhs, float* __restrict__ hi_out,
-    float* __restrict__ lo_out, float* __restrict__ dpr_out, BCConsts k,
-    DistShape sh, unsigned int* __restrict__ err_bits) {
-  const int z = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  const int lx = blockIdx.z;
-  const int gx = sh.x_off + lx;
-  unsigned int bits = 0u;
-  if (y < sh.ny && z < sh.nz) {
-    const long yz = static_cast<long>(y) * sh.nz + z;
-    const long i = lx * static_cast<long>(sh.ny) * sh.nz + yz;
-    float h, l, d, resid;
-    if (interior(gx, y, z, sh.nx, sh.ny, sh.nz)) {
-      dist_update_ext(hi, lo, dpr, rhs, lx, y, z, sh, k, &h, &l, &d, &resid);
-      dpr_out[i] = d;
-      bits = __float_as_uint(fabsf(resid));
-    } else {
-      dpr_out[i] = 0.0f;
-      if (gx == 0 && k.xlo != nullptr) {
-        h = k.xlo[yz];
-        l = 0.0f;
-      } else if (gx == sh.nx - 1 && k.xhi != nullptr) {
-        h = k.xhi[yz];
-        l = 0.0f;
-      } else {
-        int sl, cy, cz;
-        ring_source(gx, y, z, sh, k, &sl, &cy, &cz);
-        dist_update_ext(hi, lo, dpr, rhs, sl, cy, cz, sh, k, &h, &l, &d,
-                        &resid);
-        if (z == 0) {
-          if (k.z_lo_add != 0.0f) h = h + k.z_lo_add;
-          if (k.zlo_lo != 0.0f) l = l + k.zlo_lo;
+  } else {
+    // the plane whose updates this block computes: its own, or under
+    // zero_grad_x a global face's source plane (block-uniform)
+    const int cgx = k.zero_grad_x ? clamp_int(gx, 1, sh.nx - 2) : gx;
+    const int cx = cgx - sh.x_off;
+    const bool in = on && yz_in && cgx >= 1 && cgx <= sh.nx - 2;
+    const int ic = cx * sx + yz;
+    float pc[W], q[W], d = 0.0f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) pc[w] = on ? f.in[w].p[ic] : 0.0f;
+    if (in) {
+      // lap_of_rows's order: x+ then x-, y+ then y-, z+ then z-
+      float lap[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const Slab& s = f.in[w];
+        const float* xp = cx + 1 < sh.bx ? s.p + (cx + 1) * sx : s.hi;
+        const float* xm = cx > 0 ? s.p + (cx - 1) * sx : s.lo;
+        const float c = pc[w];
+        float a = ((xp[yz] - c) + (xm[yz] - c)) * k.inv_dx2;
+        a = a + ((s.p[ic + sh.nz] - c) + (s.p[ic - sh.nz] - c)) * k.inv_dy2;
+        a = a + ((s.p[ic + 1] - c) + (s.p[ic - 1] - c)) * k.inv_dz2;
+        lap[w] = a;
+      }
+      float resid = lap[0] - rhs[ic];
+      if constexpr (W == 2) resid = resid + lap[1];
+      d = dpr[ic] * k.decay + k.dtau * resid;
+      if (cx == lx) bits = __float_as_uint(fabsf(resid));
+    }
+    if constexpr (W == 1) {
+      q[0] = pc[0] + k.dtau * d;
+    } else {  // u = lo + dtau*d, (hi', lo') = two_sum(hi, u)
+      const float u = pc[1] + k.dtau * d;
+      const float sum = pc[0] + u;
+      const float ap = sum - u;
+      const float bp = sum - ap;
+      q[0] = sum;
+      q[1] = (pc[0] - ap) + (u - bp);
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) upd[w][r][l] = q[w];
+    __syncthreads();
+    if (on) {
+      const int i = lx * sx + yz;
+      if (in && cx == lx) {
+#pragma unroll
+        for (int w = 0; w < W; ++w) f.out[w][i] = q[w];
+        dpr_out[i] = d;
+      } else {  // a ring cell: its source's update plus the z constants
+        const int sr = clamp_int(y, 1, sh.ny - 2) - y0;
+        const int sl = clamp_int(z, 1, sh.nz - 2) - z0;
+        const float za[2] = {k.z_lo_add, k.zlo_lo};
+        const float zb[2] = {k.z_hi_add, k.zhi_lo};
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          float v = upd[w][sr][sl];
+          if (z == 0 && za[w] != 0.0f) v = v + za[w];
+          if (z == sh.nz - 1 && zb[w] != 0.0f) v = v + zb[w];
+          f.out[w][i] = v;
         }
-        if (z == sh.nz - 1) {
-          if (k.z_hi_add != 0.0f) h = h + k.z_hi_add;
-          if (k.zhi_lo != 0.0f) l = l + k.zhi_lo;
-        }
+        dpr_out[i] = 0.0f;
       }
     }
-    hi_out[i] = h;
-    lo_out[i] = l;
   }
   if (err_bits != nullptr) ns3d::block_max_to(bits, err_bits);
+}
+
+// One K7-dist (W = 1) or K2-dist (W = 2) launch over tiles_y x tiles_z
+// tiles of every plane of the shard: the tiles must fit a block and hold
+// at least two rows and lanes each (so that each ring cell's source lies
+// in its own tile), and under zero_grad_x a shard holding a global x face
+// must hold the plane next to it (bx >= 2, the wrapper's check).
+template <int W>
+cudaError_t launch_dist(const DistWords<W>& f, const float* dpr,
+                        const float* rhs, float* dpr_out, const BCConsts& k,
+                        const DistShape& sh, int tiles_y, int tiles_z,
+                        unsigned int* err_bits, cudaStream_t stream) {
+  if (sh.bx < 2 || sh.ny < 3 || sh.nz < 3 || tiles_y < 1 || tiles_z < 1 ||
+      tiles_y > sh.ny / 2 || tiles_z > sh.nz / 2 ||
+      (sh.ny + tiles_y - 1) / tiles_y > kDistRows ||
+      (sh.nz + tiles_z - 1) / tiles_z > kDistLanes)
+    return cudaErrorInvalidValue;
+  const DistCut p{sh.ny / tiles_y, sh.ny % tiles_y, sh.nz / tiles_z,
+                  sh.nz % tiles_z};
+  cudaError_t e;
+  if (err_bits != nullptr &&
+      (e = cudaMemsetAsync(err_bits, 0, sizeof(unsigned int), stream)) !=
+          cudaSuccess)
+    return e;
+  const dim3 grid(tiles_z, tiles_y, sh.bx);
+  const dim3 block(kDistLanes, kDistRows);
+  poisson_dist_kernel<W><<<grid, block, 0, stream>>>(f, dpr, rhs, dpr_out, k, sh, p, err_bits);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -930,14 +931,14 @@ extern "C" int ns3d_poisson_iter_bc(const float* pr, const float* dpr,
                                     float inv_dy2, float inv_dz2, float dtau,
                                     float decay, float z_lo_add,
                                     float z_hi_add, int zero_grad_x, int nx,
-                                    int ny, int nz, cudaStream_t stream) {
-  const dim3 grid = ns3d::grid_for(nx, ny, nz);
-  const dim3 block = ns3d::block_shape();
+                                    int ny, int nz, int tiles_y, int tiles_z,
+                                    cudaStream_t stream) {
   const BCConsts k{inv_dx2, inv_dy2, inv_dz2, dtau, decay, z_lo_add,
                    z_hi_add, zero_grad_x, xlo, xhi, 0.0f, 0.0f};
-  const DistShape sh{0, nx, nx, ny, nz};
-  poisson_iter_bc_kernel<false><<<grid, block, 0, stream>>>(Slab{pr, nullptr, nullptr}, dpr, rhs, pr_out, dpr_out, k, sh, nullptr);
-  return static_cast<int>(cudaGetLastError());
+  const DistWords<1> f{{Slab{pr, nullptr, nullptr}}, {pr_out}};
+  return static_cast<int>(launch_dist<1>(
+      f, dpr, rhs, dpr_out, k, DistShape{0, nx, nx, ny, nz}, tiles_y,
+      tiles_z, nullptr, stream));
 }
 
 extern "C" int ns3d_poisson_iter_bc_dist(
@@ -945,15 +946,14 @@ extern "C" int ns3d_poisson_iter_bc_dist(
     const float* rhs, float* pr_out, float* dpr_out, const float* xlo,
     const float* xhi, float inv_dx2, float inv_dy2, float inv_dz2,
     float dtau, float decay, float z_lo_add, float z_hi_add,
-    int zero_grad_x, int x_off, int nx, int bx, int ny, int nz,
-    unsigned int* err_bits, cudaStream_t stream) {
-  const dim3 grid = ns3d::grid_for(bx, ny, nz);
-  const dim3 block = ns3d::block_shape();
+    int zero_grad_x, int x_off, int nx, int bx, int ny, int nz, int tiles_y,
+    int tiles_z, unsigned int* err_bits, cudaStream_t stream) {
   const BCConsts k{inv_dx2, inv_dy2, inv_dz2, dtau, decay, z_lo_add,
                    z_hi_add, zero_grad_x, xlo, xhi, 0.0f, 0.0f};
-  const DistShape sh{x_off, nx, bx, ny, nz};
-  poisson_iter_bc_kernel<true><<<grid, block, 0, stream>>>(Slab{pr, pr_lo, pr_hi}, dpr, rhs, pr_out, dpr_out, k, sh, err_bits);
-  return static_cast<int>(cudaGetLastError());
+  const DistWords<1> f{{Slab{pr, pr_lo, pr_hi}}, {pr_out}};
+  return static_cast<int>(launch_dist<1>(
+      f, dpr, rhs, dpr_out, k, DistShape{x_off, nx, bx, ny, nz}, tiles_y,
+      tiles_z, err_bits, stream));
 }
 
 extern "C" int ns3d_poisson_iter_ext_bc_dist(
@@ -963,14 +963,15 @@ extern "C" int ns3d_poisson_iter_ext_bc_dist(
     const float* xlo, const float* xhi, float inv_dx2, float inv_dy2,
     float inv_dz2, float dtau, float decay, float zlo_hi, float zhi_hi,
     float zlo_lo, float zhi_lo, int zero_grad_x, int x_off, int nx, int bx,
-    int ny, int nz, unsigned int* err_bits, cudaStream_t stream) {
-  const dim3 grid = ns3d::grid_for(bx, ny, nz);
-  const dim3 block = ns3d::block_shape();
+    int ny, int nz, int tiles_y, int tiles_z, unsigned int* err_bits,
+    cudaStream_t stream) {
   const BCConsts k{inv_dx2, inv_dy2, inv_dz2, dtau, decay, zlo_hi,
                    zhi_hi, zero_grad_x, xlo, xhi, zlo_lo, zhi_lo};
-  const DistShape sh{x_off, nx, bx, ny, nz};
-  poisson_iter_ext_bc_dist_kernel<<<grid, block, 0, stream>>>(Slab{hi, hi_lo, hi_hi}, Slab{lo, lo_lo, lo_hi}, dpr, rhs, hi_out, lo_out, dpr_out, k, sh, err_bits);
-  return static_cast<int>(cudaGetLastError());
+  const DistWords<2> f{{Slab{hi, hi_lo, hi_hi}, Slab{lo, lo_lo, lo_hi}},
+                       {hi_out, lo_out}};
+  return static_cast<int>(launch_dist<2>(
+      f, dpr, rhs, dpr_out, k, DistShape{x_off, nx, bx, ny, nz}, tiles_y,
+      tiles_z, err_bits, stream));
 }
 
 // K10: nit iterations in one cooperative launch, the result in pr (the

@@ -60,20 +60,20 @@ SIGNATURES = {
                                    _F, _I, _I, _I, _I, _I, _P, _P),
     # pr, dpr, rhs, pr_out, dpr_out, xlo (nullable), xhi (nullable),
     # inv_dx2, inv_dy2, inv_dz2, dtau, decay, z_lo_add, z_hi_add,
-    # zero_grad_x, nx, ny, nz, stream
-    "ns3d_poisson_iter_bc": (_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F,
-                             _F, _F, _I, _I, _I, _I, _P),
+    # zero_grad_x, nx, ny, nz, then the plan: tiles_y, tiles_z; stream
+    "ns3d_poisson_iter_bc": (*(_P,) * 7, *(_F,) * 7, *(_I,) * 6, _P),
     # pr, pr_lo (nullable), pr_hi (nullable), dpr, rhs, pr_out, dpr_out,
     # xlo (nullable), xhi (nullable), inv_dx2, inv_dy2, inv_dz2, dtau,
-    # decay, z_lo_add, z_hi_add, zero_grad_x, x_off, nx, bx, ny, nz,
-    # err_bits (nullable), stream
-    "ns3d_poisson_iter_bc_dist": (*(_P,) * 9, *(_F,) * 7, *(_I,) * 6, _P,
+    # decay, z_lo_add, z_hi_add, zero_grad_x, x_off, nx, bx, ny, nz, then
+    # the plan: tiles_y, tiles_z; err_bits (nullable), stream
+    "ns3d_poisson_iter_bc_dist": (*(_P,) * 9, *(_F,) * 7, *(_I,) * 8, _P,
                                   _P),
     # hi, hi_lo, hi_hi, lo, lo_lo, lo_hi (halo planes nullable), dpr, rhs,
     # hi_out, lo_out, dpr_out, xlo, xhi (nullable), inv_dx2, inv_dy2,
     # inv_dz2, dtau, decay, zlo_hi, zhi_hi, zlo_lo, zhi_lo, zero_grad_x,
-    # x_off, nx, bx, ny, nz, err_bits (nullable), stream
-    "ns3d_poisson_iter_ext_bc_dist": (*(_P,) * 13, *(_F,) * 9, *(_I,) * 6,
+    # x_off, nx, bx, ny, nz, then the plan: tiles_y, tiles_z; err_bits
+    # (nullable), stream
+    "ns3d_poisson_iter_ext_bc_dist": (*(_P,) * 13, *(_F,) * 9, *(_I,) * 8,
                                       _P, _P),
     # vx, vy, vz, mask_vx, mask_vy, mask_vz, vx_out, vy_out, vz_out,
     # divv, dx, dy, dz, mu, two_mu, three, dt_rho, rho_g, nx, ny, nz,

@@ -61,6 +61,8 @@ are the same call sites built with local_rows (`rows_of` :503, `p_ext_of`
 iteration and the (hi, lo) pair's unfolded one (`compute_slab_ext` :353),
 with every BC guard keyed on the global x position, the neighbours' face
 planes as operands and the check value of the shard's interior cells.
+K7, K7-dist and K2-dist launch one kernel template (K7: K7-dist's on the
+whole grid without halo planes) under `dist_plan`'s tiling.
 
 `compensated_residual` (kernels/poisson.py:1311-1395) and `residual_max`
 (`residual_flat`, :1287-1309) stay torch ops, as XLA computes them in the
@@ -731,6 +733,10 @@ def poisson_iter_bc(pr, dpr, rhs, pr_out, dpr_out, op: BCOperator) -> None:
     if len(outs) != 2 or outs & {pr.data_ptr(), dpr.data_ptr()}:
         raise ValueError("poisson_iter_bc: pr_out and dpr_out must be "
                          "distinct and alias neither input")
+    if pr.numel() >= 2 ** 31:
+        raise ValueError("poisson_iter_bc: the kernel indexes with 32 bits")
+    # K7-dist's kernel on the whole grid (x_off = 0, no halo planes)
+    plan = dist_plan((nx, ny, nz))
     lib = _build.load()
     f = ctypes.c_float
     rc = lib.ns3d_poisson_iter_bc(
@@ -738,7 +744,7 @@ def poisson_iter_bc(pr, dpr, rhs, pr_out, dpr_out, op: BCOperator) -> None:
         dpr_out.data_ptr(), _build.ptr(op.xlo), _build.ptr(op.xhi),
         f(op.inv_dx2), f(op.inv_dy2), f(op.inv_dz2), f(op.dtau),
         f(op.decay), f(op.z_lo_add), f(op.z_hi_add), int(op.zero_grad_x),
-        nx, ny, nz, _build.stream_of(pr))
+        nx, ny, nz, plan.tiles_y, plan.tiles_z, _build.stream_of(pr))
     _build.check(rc, "poisson_iter_bc")
     poisson_iter_bc.launches += 1
 
@@ -747,6 +753,45 @@ poisson_iter_bc.launches = 0
 
 
 # ---- K7-dist and K2-dist: one x-shard of the distributed solve ----
+
+# K7-dist's and K2-dist's launch geometry (csrc/poisson.cu, their section):
+# a block of DIST_LANES x DIST_ROWS threads stands on one (y, z) tile of
+# one plane of the shard, one thread per cell
+DIST_LANES = 32
+DIST_ROWS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class DistPlan:
+    """How one K7-dist or K2-dist launch cuts each plane of a shard: y into
+    tiles_y and z into tiles_z balanced parts (`balanced_part`: sizes
+    differ by at most one); one block per (tile, plane), block (tz, ty,
+    x) at z part tz, y part ty and plane x."""
+    tiles_y: int
+    tiles_z: int
+
+
+def balanced_part(n: int, parts: int, i: int) -> Tuple[int, int]:
+    """(start, size) of part i of n cut into `parts` parts whose sizes
+    differ by at most one, as csrc/poisson.cu cuts a plane into tiles."""
+    q, r = divmod(n, parts)
+    return i * q + min(i, r), q + (i < r)
+
+
+@functools.lru_cache(maxsize=64)
+def dist_plan(shape: Tuple[int, int, int]) -> DistPlan:
+    """The tiles of K7-dist and K2-dist for a shard of `shape` (bx, ny,
+    nz): the fewest of at most DIST_ROWS x DIST_LANES cells. Every part
+    has at least two rows and lanes (ny, nz >= 3), so a ring cell's
+    clamped source, its y and z one cell inward, lies in its own tile. At
+    85x153x153: 20 x 5 tiles (rows of 8 and 7, lanes of 31 and 30) x 85
+    planes = 8500 blocks of 256 threads, eight waves of the 132 SMs' 1056
+    resident blocks."""
+    bx, ny, nz = shape
+    if bx < 2 or ny < 3 or nz < 3:
+        raise ValueError(f"dist_plan: shape {shape}")
+    return DistPlan(-(-ny // DIST_ROWS), -(-nz // DIST_LANES))
+
 
 def _x_ext(p, h_lo, h_hi):
     """p with its -x and +x halo planes, (bx+2, ny, nz); an open face (None)
@@ -799,6 +844,9 @@ def _check_dist(name, p, halos, x_off, op: BCOperator, outs, ins):
     """Validate a dist launch: shapes, the shard's place in the global x
     extent, a halo plane wherever a neighbour exists, Jacobi outputs."""
     bx, ny, nz = p.shape
+    if p.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: a shard of {p.numel()} cells; the kernel "
+                         "indexes with 32 bits")
     if bx < 2 or not 0 <= x_off <= op.nx - bx:
         raise ValueError(f"{name}: a shard of {bx} planes at x_off={x_off} "
                          f"does not fit nx={op.nx} with >= 2 planes")
@@ -860,8 +908,10 @@ def poisson_iter_bc_dist(pr, dpr, rhs, pr_out, dpr_out, h_lo, h_hi,
     ins = [t for t in (pr, dpr, rhs, h_lo, h_hi) if t is not None]
     _check_dist("poisson_iter_bc_dist", pr, [(h_lo, h_hi)], x_off, op,
                 (pr_out, dpr_out), ins)
-    err = torch.zeros((1,), dtype=torch.int32, device=dev) if check else None
+    # the check word: reset by a stream-ordered memset in the C entry
+    err = torch.empty((1,), dtype=torch.int32, device=dev) if check else None
     bx, ny, nz = pr.shape
+    plan = dist_plan((bx, ny, nz))
     lib = _build.load()
     f = ctypes.c_float
     rc = lib.ns3d_poisson_iter_bc_dist(
@@ -870,7 +920,8 @@ def poisson_iter_bc_dist(pr, dpr, rhs, pr_out, dpr_out, h_lo, h_hi,
         _build.ptr(op.xlo), _build.ptr(op.xhi), f(op.inv_dx2),
         f(op.inv_dy2), f(op.inv_dz2), f(op.dtau), f(op.decay),
         f(op.z_lo_add), f(op.z_hi_add), int(op.zero_grad_x), x_off, op.nx,
-        bx, ny, nz, _build.ptr(err), _build.stream_of(pr))
+        bx, ny, nz, plan.tiles_y, plan.tiles_z, _build.ptr(err),
+        _build.stream_of(pr))
     _build.check(rc, "poisson_iter_bc_dist")
     poisson_iter_bc_dist.launches += 1
     return err.view(torch.float32)[0] if check else None
@@ -929,8 +980,9 @@ def poisson_iter_ext_bc_dist(hi, lo, dpr, rhs, hi_out, lo_out, dpr_out, h_lo,
            if t is not None]
     _check_dist("poisson_iter_ext_bc_dist", hi, [(h_lo, h_hi), (l_lo, l_hi)],
                 x_off, op, (hi_out, lo_out, dpr_out), ins)
-    err = torch.zeros((1,), dtype=torch.int32, device=dev) if check else None
+    err = torch.empty((1,), dtype=torch.int32, device=dev) if check else None
     bx, ny, nz = hi.shape
+    plan = dist_plan((bx, ny, nz))
     lib = _build.load()
     f = ctypes.c_float
     rc = lib.ns3d_poisson_iter_ext_bc_dist(
@@ -940,8 +992,8 @@ def poisson_iter_ext_bc_dist(hi, lo, dpr, rhs, hi_out, lo_out, dpr_out, h_lo,
         _build.ptr(op.xlo), _build.ptr(op.xhi), f(op.inv_dx2),
         f(op.inv_dy2), f(op.inv_dz2), f(op.dtau), f(op.decay),
         f(op.z_lo_add), f(op.z_hi_add), f(op.zlo_lo), f(op.zhi_lo),
-        int(op.zero_grad_x), x_off, op.nx, bx, ny, nz, _build.ptr(err),
-        _build.stream_of(hi))
+        int(op.zero_grad_x), x_off, op.nx, bx, ny, nz, plan.tiles_y,
+        plan.tiles_z, _build.ptr(err), _build.stream_of(hi))
     _build.check(rc, "poisson_iter_ext_bc_dist")
     poisson_iter_ext_bc_dist.launches += 1
     return err.view(torch.float32)[0] if check else None

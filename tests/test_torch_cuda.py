@@ -460,60 +460,101 @@ def test_compat_step_on_card_matches_cpu(preset):
         assert (k.wrapper.launches > 0) == (k.name == "K7 poisson_iter_bc")
 
 
-@pytest.mark.parametrize("variant,split", [("multi", False),
-                                           ("gpu", False), ("gpu", True)])
-def test_dist_kernels_match_plain(variant, split):
-    """K7-dist and K2-dist on every shard of 40x24x37 over 4 shards (and
-    the 2-plane shards of 20), with and without the check: every output
-    and the check value bitwise equal to the plain versions."""
+def _dist_inputs(variant, split, shape, seed=7):
+    """A BC operator of the preset `variant` on a grid of `shape` and
+    seeded (pr, lo, dpr, rhs) on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card)")
+    nx, ny, nz = shape
     make = nt.preset_gpu if variant == "gpu" else nt.preset_multi
-    cfg = make(nx=40, dtype="float32")
-    cfg = cfg.replace(numerics=dataclasses.replace(cfg.numerics,
-                                                   nz_override=37))
+    cfg = make(nx=nx, dtype="float32")
+    cfg = cfg.replace(numerics=dataclasses.replace(
+        cfg.numerics, ny_override=ny, nz_override=nz))
     g = nt.make_grid(cfg)
+    assert g.shape_c == shape
     op = kp.make_bc_operator(kp.poisson_bc_spec(variant, g, cfg.physics,
                                                 split), g, "cuda")
-    rng = np.random.default_rng(7)
-    pr = _rand(rng, g.shape_c, 50.0)
-    lo = _rand(rng, g.shape_c, 50.0 * 2.0 ** -24)
-    rhs = _rand(rng, g.shape_c, 1e5)
+    rng = np.random.default_rng(seed)
+    pr = _rand(rng, shape, 50.0)
+    lo = _rand(rng, shape, 50.0 * 2.0 ** -24)
+    rhs = _rand(rng, shape, 1e5)
     dpr = torch.zeros_like(pr)
-    dpr[1:-1, 1:-1, 1:-1] = _rand(rng, (g.nx - 2, g.ny - 2, g.nz - 2), 1e3)
-    for nshards in (4, 20):
-        bx = g.nx // nshards
-        for s in range(nshards):
-            x0, x1 = s * bx, (s + 1) * bx
-            halo = [(f[x0 - 1] if s else None,
-                     f[x1] if s < nshards - 1 else None) for f in (pr, lo)]
-            for check in (False, True):
-                a = [torch.full_like(pr[x0:x1], float("nan"))
-                     for _ in range(2)]
-                b = [torch.empty_like(pr[x0:x1]) for _ in range(2)]
-                ea = kp.poisson_iter_bc_dist(pr[x0:x1], dpr[x0:x1],
-                                             rhs[x0:x1], *a, *halo[0], x0,
-                                             op, check)
-                eb = kp.poisson_iter_bc_dist_plain(
-                    pr[x0:x1], dpr[x0:x1], rhs[x0:x1], *b, *halo[0], x0,
-                    op, check)
-                assert all(torch.equal(x, y) for x, y in zip(a, b)), s
-                a = [torch.full_like(pr[x0:x1], float("nan"))
-                     for _ in range(3)]
-                b = [torch.empty_like(pr[x0:x1]) for _ in range(3)]
-                fa = kp.poisson_iter_ext_bc_dist(
-                    pr[x0:x1], lo[x0:x1], dpr[x0:x1], rhs[x0:x1], *a,
-                    *halo[0], *halo[1], x0, op, check)
-                fb = kp.poisson_iter_ext_bc_dist_plain(
-                    pr[x0:x1], lo[x0:x1], dpr[x0:x1], rhs[x0:x1], *b,
-                    *halo[0], *halo[1], x0, op, check)
-                assert all(torch.equal(x, y) for x, y in zip(a, b)), s
-                if check:
-                    assert float(ea) == float(eb) and float(fa) == float(fb)
+    dpr[1:-1, 1:-1, 1:-1] = _rand(rng, (nx - 2, ny - 2, nz - 2), 1e3)
+    return op, (pr, lo, dpr, rhs)
+
+
+def _check_dist_shards(op, fields, nshards):
+    """K7-dist and K2-dist on every one of `nshards` shards of bx = nx //
+    nshards planes (and on the last bx planes, where bx does not divide
+    nx), with and without the check: NaN-filled outputs and every output
+    bitwise equal to the plain versions', the check values equal."""
+    pr, lo, dpr, rhs = fields
+    nx = pr.shape[0]
+    bx = nx // nshards
+    for x0 in sorted({*range(0, nx - bx + 1, bx), nx - bx}):
+        x1 = x0 + bx
+        sl = slice(x0, x1)
+        halo = [(f[x0 - 1] if x0 else None, f[x1] if x1 < nx else None)
+                for f in (pr, lo)]
+        for check in (False, True):
+            a = [torch.full_like(pr[sl], float("nan")) for _ in range(2)]
+            b = [torch.full_like(pr[sl], float("nan")) for _ in range(2)]
+            ea = kp.poisson_iter_bc_dist(pr[sl], dpr[sl], rhs[sl], *a,
+                                         *halo[0], x0, op, check)
+            eb = kp.poisson_iter_bc_dist_plain(pr[sl], dpr[sl], rhs[sl], *b,
+                                               *halo[0], x0, op, check)
+            assert all(_bitwise(x, y) for x, y in zip(a, b)), (nshards, x0)
+            a = [torch.full_like(pr[sl], float("nan")) for _ in range(3)]
+            b = [torch.full_like(pr[sl], float("nan")) for _ in range(3)]
+            fa = kp.poisson_iter_ext_bc_dist(
+                pr[sl], lo[sl], dpr[sl], rhs[sl], *a, *halo[0], *halo[1],
+                x0, op, check)
+            fb = kp.poisson_iter_ext_bc_dist_plain(
+                pr[sl], lo[sl], dpr[sl], rhs[sl], *b, *halo[0], *halo[1],
+                x0, op, check)
+            assert all(_bitwise(x, y) for x, y in zip(a, b)), (nshards, x0)
+            if check:
+                assert float(ea) == float(eb) and float(fa) == float(fb)
+
+
+# the dist kernels' grids: ragged tiles (24 rows in two tiles of 12, 37
+# lanes in 19 + 18), ny and nz one past a tile multiple (15 = 14 + 1,
+# 31 = 30 + 1) and one past two (29, 61)
+DIST_SHAPES = [(40, 24, 37), (20, 15, 31), (12, 29, 61)]
+
+
+@pytest.mark.parametrize("shape", DIST_SHAPES,
+                         ids=lambda t: "x".join(map(str, t)))
+@pytest.mark.parametrize("variant,split", [("multi", False),
+                                           ("gpu", False), ("gpu", True)])
+def test_dist_kernels_match_plain(variant, split, shape):
+    """K7-dist and K2-dist under their plan over 1, 2, 3, 4, 6 and 20
+    shards (where a shard keeps two planes): every shard bitwise equal to
+    the plain versions, check values equal."""
+    op, fields = _dist_inputs(variant, split, shape)
+    for nshards in (1, 2, 3, 4, 6, 20):
+        if shape[0] // nshards >= 2:
+            _check_dist_shards(op, fields, nshards)
+    pr, _, dpr, rhs = fields
     with pytest.raises(ValueError, match="halo plane"):
-        kp.poisson_iter_bc_dist(pr[10:20], dpr[10:20], rhs[10:20],
-                                *(torch.empty_like(pr[:10]) for _ in
-                                  range(2)), None, pr[20], 10, op, False)
+        kp.poisson_iter_bc_dist(pr[4:8], dpr[4:8], rhs[4:8],
+                                *(torch.empty_like(pr[:4]) for _ in
+                                  range(2)), None, pr[8], 4, op, False)
+
+
+@pytest.mark.parametrize("variant,split", [("multi", False), ("gpu", True)])
+def test_dist_kernels_forced_plans(variant, split, monkeypatch):
+    """The dist kernels under tilings the wrapper would not choose: tiles
+    of two and three rows and lanes, of four to six, and two tiles of 19
+    and 18 lanes; bitwise as above."""
+    op, fields = _dist_inputs(variant, split, (12, 11, 37))
+    for cut in ((1, 1), (2, 2), (2, 9)):
+        def plan(shape, cut=cut):
+            bx, ny, nz = shape
+            return kp.DistPlan(ny // (2 * cut[0]), nz // (2 * cut[1]))
+        monkeypatch.setattr(kp, "dist_plan", plan)
+        for nshards in (1, 2, 3, 6):
+            _check_dist_shards(op, fields, nshards)
 
 
 @pytest.mark.parametrize("compat", [False, True])
