@@ -84,16 +84,17 @@ Phases (any failure exits non-zero; nothing is caught):
      the same (pr, dprdtau, rhs): equal iterations and err, pr and dprdtau
      bitwise. Then one more step of each traced with torch.profiler: its
      wall, device busy time and idle share
- 13. unchained kernels: K6 (advect_branch_pre) at 255x153x153 float32 on
-     seeded velocities at two scales (one with clamps): each branch from
-     its torch-op face averages (kernels/advect.py pre_velocities, NaN in
-     the pads, which it must not read) against its plain version and
-     against K5 on the same velocities: bitwise, equal clamp counts; ms
-     per branch, the plain version's, MB per launch and the bound
+ 13. unchained kernels: K6 (advect_pre) at 255x153x153 float32 on
+     seeded velocities at two scales (one with clamps): the four branches
+     from their torch-op face averages (kernels/advect.py pre_velocities,
+     NaN in the pads, which it must not read) in ONE launch (NaN-filled
+     outputs) against its plain version and against K5 on the same
+     velocities: bitwise, equal clamp counts; ms of the one launch for the
+     four branches, the plain version's, MB, the bound and the share
  14. unchained path: ChorinSolver(preset_gpu(nx=255, compat=False,
      dtype='float32'), fused_step=False) for 4 steps from init_state,
-     launch counts set to 0 just before and read just after: K6 4
-     launches a step, K1 launched, K3, K4 and K5 not, no plain version;
+     launch counts set to 0 just before and read just after: K6 1
+     launch a step, K1 launched, K3, K4 and K5 not, no plain version;
      every solve converges, stored-state err below eps_it, finite fields;
      the counts printed beside phase 4's; one more step traced
  15. dma path: ChorinSolver(preset_gpu(nx=255, ...), poisson_mode='dma')
@@ -104,12 +105,18 @@ Phases (any failure exits non-zero; nothing is caught):
      step 1 again with use_pallas=False: equal counts, pr within MAX_ULP;
      K7 under the split gpu spec against its plain version (the function
      of the dma-mode kernel K11); one more step traced
- 16. resident: K10 (poisson_iter_resident, one cooperative launch of nit
-     iterations) at 63x38x38 with nit = 37 and at 255x153x153 with nit =
-     152 on resident_probe.py's seeded inputs (gpu operator): pr, dpr and
-     the check value bitwise equal to nit K1 launches and to the plain
-     version; K10's time and that of the nit K1 launches (device time from
-     torch.profiler, and CUDA events); at 63 one Poisson solve (the gpu
+ 16. resident: K10 (poisson_iter_resident, one launch of nit iterations
+     resident on chip) at 63x38x38 with nit = 37 in its cluster form and
+     at 255x153x153 with nit = 152 in its grid form (dpr in shared
+     memory), each form required and printed, on resident_probe.py's
+     seeded inputs (gpu operator): pr, dpr and the check value bitwise
+     equal to nit K1 launches and to the plain version; K10's time and
+     that of the nit K1 launches (device time from torch.profiler, and
+     CUDA events); at 63 the grid form too, bitwise against the cluster
+     form and timed beside it; at 255 the grid form's ceiling as designed
+     (rhs from HBM, 12 B a cell and iteration at the rate of a warm copy
+     of pr into a buffer as large) beside the JSON line's one-pass bound;
+     at 63 one Poisson solve (the gpu
      preset's first, K1 over its budget) whose first chunk runs on K10 and
      the rest in pt_loop_fused(seed0=True) on K1, with the launch counts
      set to 0 just before and read just after: the unseeded K1 loop's
@@ -199,15 +206,20 @@ K7D_NAME = "K7-dist poisson_iter_bc_dist"
 K2D_NAME = "K2-dist poisson_iter_ext_bc_dist"
 K6_NAME = "K6 advect_pre"
 K10_NAME = "K10 poisson_iter_resident"
+# K10's cluster form, a kernel of its own beside the grid form (for its
+# SASS counts)
+K10C_NAME = "K10 poisson_iter_resident (cluster form)"
 # the dma-mode kernel, whose function K7's kernel computes: its row in the
 # JSON line carries K7's numbers under the split gpu spec and K7's
 # launches on the dma path
 K11_ROW = {"name": "K11 poisson_iter_bc (dma mode)",
            "source": "navierstokes3d_tpu_torch/csrc/poisson.cu",
            "replaces": "navierstokes3d_tpu/kernels/poisson.py:1451"}
-# K10's phase: the 63x38x38 grid with nit = nchk, and 255 with nit = 152
+# K10's phase: the 63x38x38 grid with nit = nchk in the cluster form, and
+# 255 with nit = 152 in the grid form
 RESIDENT_NX = (63, 255)
 RESIDENT_NIT = {63: 37, 255: 152}
+RESIDENT_FORM = {63: "cluster", 255: "grid"}
 UNCHAINED_STEPS = 4
 DMA_STEPS = 4
 # the dist kernels' device symbols as the profiler names them (one kernel
@@ -304,9 +316,11 @@ def device_ms(fn, reps: int, kernel: str, warmup: int = 2) -> float:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     # the tracer may drop a launch at the window's edge (the mean is over
-    # those it kept) and now and then a whole window: trace it again then
-    for _ in range(3):
+    # those it kept; a spin kernel opens the window) and now and then a
+    # whole window: trace it again then, and raise after five
+    for _ in range(5):
         with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(2_000_000)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -317,8 +331,26 @@ def device_ms(fn, reps: int, kernel: str, warmup: int = 2) -> float:
             return sum(durs) / len(durs) / 1e3
         print(f"[trace] {len(durs)} launches of {kernel} traced, expected "
               f"{reps}: tracing again")
-    raise RuntimeError(f"chip_smoke: traced {len(durs)} launches of "
-                       f"{kernel}, expected {reps}")
+    raise RuntimeError(f"device_ms: five traced windows held too few "
+                       f"launches of {kernel}")
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of fn by CUDA events around reps
+    calls queued behind a spin kernel, so that the host's issue rate does
+    not enter: for a fn of one launch, that launch's time with the gap
+    between two queued launches."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def bound(name: str, tensors_in, tensors_out, cells: int,
@@ -357,7 +389,8 @@ SYMBOLS = {K1_NAME: r"19poisson_iter_kernelE", K2_NAME:
            r"13advect_kernelE", K6_NAME: r"17advect_pre_kernelE",
            K7_NAME: r"19poisson_dist_kernelILi1E", K8_NAME:
            r"21poisson_sweeps_kernelILi3E", K10_NAME:
-           r"23poisson_resident_kernelE", K7D_NAME:
+           r"28poisson_resident_grid_kernelE", K10C_NAME:
+           r"31poisson_resident_cluster_kernelE", K7D_NAME:
            r"19poisson_dist_kernelILi1E", K2D_NAME:
            r"19poisson_dist_kernelILi2E"}
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
@@ -1182,10 +1215,13 @@ def copy_library() -> ctypes.CDLL:
 
 
 @functools.cache
-def copy_ms(mb: int) -> float:
-    """The copy ceiling at mb MB: device ms of the fastest grid-stride
-    float4 copy of mb/2 MB into as many (COPY_GRIDS), as the dist kernels
-    are timed (torch.profiler, 20 launches after warm-up)."""
+def copy_ms(mb: int) -> tuple[float, str]:
+    """The copy ceiling at mb MB and how it was timed: device ms of the
+    fastest grid-stride float4 copy of mb/2 MB into as many (COPY_GRIDS),
+    as the dist kernels are timed (torch.profiler, 20 launches after
+    warm-up). Where the tracer keeps none of its launches (it has lost
+    whole windows of this ctypes-launched kernel), the copy, one launch a
+    call, is timed by `queued_ms` instead."""
     n4 = mb * 10 ** 6 // 32
     src = torch.rand(4 * n4, device="cuda")
     dst = torch.empty_like(src)
@@ -1195,8 +1231,13 @@ def copy_ms(mb: int) -> float:
     def run(threads, per_sm):
         _build.check(fn(src.data_ptr(), dst.data_ptr(), n4, per_sm * sms,
                         threads, _build.stream_of(src)), "copy_float4")
-    best = min(device_ms(lambda: run(*grid), 20, "copy_float4_kernel")
-               for grid in COPY_GRIDS)
+    try:
+        best = min(device_ms(lambda: run(*grid), 20, "copy_float4_kernel")
+                   for grid in COPY_GRIDS), "profiler"
+    except RuntimeError as e:
+        print(f"[trace] {e}: the copy by CUDA events behind a spin kernel")
+        best = min(queued_ms(lambda: run(*grid), 20)
+                   for grid in COPY_GRIDS), "CUDA events behind a spin"
     require(torch.equal(src, dst), "copy_float4 copied wrongly")
     return best
 
@@ -1255,15 +1296,15 @@ def check_dist(kind, op, fields, x_off, bx, label) -> dict:
     b = bound(name, (*ins, *(h for h in halos if h is not None), *planes),
               outs, ins[0].numel())
     mb = round(b["bytes"] / 1e6)
-    copy = copy_ms(mb)
+    copy, copy_timing = copy_ms(mb)
     print(f"[dist kernels] {name} ({label}): bitwise equal to its plain "
           f"version; {ms:.4f} ms of device time (check iteration "
           f"{ms_chk:.4f} ms), {issue_ms:.4f} ms per launch issued back to "
           f"back (CUDA events), plain {plain_ms:.4f} ms; bound "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {b['bytes'] / 1e6:.1f} "
           f"MB per launch), kernel at {100 * b['bound_ms'] / ms:.1f}% of it; "
-          f"a copy of {mb} MB {copy:.4f} ms ({100 * b['bound_ms'] / copy:.1f}"
-          f"% of the bound)")
+          f"a copy of {mb} MB {copy:.4f} ms ({copy_timing}; "
+          f"{100 * b['bound_ms'] / copy:.1f}% of the bound)")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 events_ms=issue_ms, **b)
 
@@ -1413,9 +1454,10 @@ def nan_pads(branch, vels):
 
 
 def phase_unchained_kernels(solver) -> dict:
-    """K6 on each branch from its torch-op face averages against its plain
-    version and against K5 on the same velocities, at the main path's
-    shapes, once with sub-window displacements and once with clamps."""
+    """K6's one launch for the four branches from their torch-op face
+    averages against its plain version and against K5 on the same
+    velocities, at the main path's shapes, once with sub-window
+    displacements and once with clamps."""
     rng = np.random.default_rng(2028)
     g, k, w = solver.grid, solver._consts, solver.advect_k
     nx, ny, nz = g.nx, g.ny, g.nz
@@ -1424,68 +1466,76 @@ def phase_unchained_kernels(solver) -> dict:
     vz0 = seeded(rng, nx, ny, nz + 1, scale=0.3)
     c = torch.tensor(rng.uniform(size=(nx, ny, nz)).astype(np.float32),
                      device="cuda")
+    names = ("vx", "vy", "vz", "c")
     worst = 0.0
     for scale in (0.5, 2.5):
         vx, vy, vz = vx0 * scale, vy0 * scale, vz0 * scale
+        fields = dict(zip(names, (vx, vy, vz, c)))
+        vels = {name: k_advect.pre_velocities(name, vx, vy, vz)
+                for name in names}
         n6 = torch.zeros((1,), dtype=torch.int32, device="cuda")
-        n5 = torch.zeros_like(n6)
-        n_plain = 0
-        for name, a in zip(("vx", "vy", "vz", "c"), (vx, vy, vz, c)):
-            vels = k_advect.pre_velocities(name, vx, vy, vz)
-            o6 = k_advect.advect_branch_pre(name, a, *nan_pads(name, vels),
-                                            k, w, n6)
-            o5 = k_advect.advect_branch(name, a, vx, vy, vz, k, w, n5)
-            op, ncl = k_advect.advect_branch_pre_plain(name, a, *vels, k, w)
-            torch.cuda.synchronize()
-            n_plain += int(ncl.item())
-            worst = max(worst, float((o6 - op).abs().max()))
-            require(bitwise(o6, op), f"K6 {name} (scale {scale}) differs "
-                    f"from its plain version by {worst}")
-            require(bitwise(o6, o5), f"K6 {name} (scale {scale}) differs "
-                    "from K5")
-            del o6, o5, op, vels
-        n6, n5 = int(n6.item()), int(n5.item())
+        n0 = k_advect.advect_pre.launches
+        with nan_outputs():
+            o6 = k_advect.advect_pre(fields, {name: nan_pads(name, v) for
+                                              name, v in vels.items()}, k, w,
+                                     n6)
+        require(k_advect.advect_pre.launches == n0 + 1,
+                "K6: the four branches took more than one launch")
+        o5 = k_advect.advect(vx, vy, vz, c, k, w)
+        op, n_plain = k_advect.advect_pre_plain(fields, vels, k, w)
+        torch.cuda.synchronize()
+        for i, name in enumerate(names):
+            worst = max(worst, float((o6[name] - op[name]).abs().max()))
+            require(bitwise(o6[name], op[name]), f"K6 {name} (scale "
+                    f"{scale}) differs from its plain version by {worst}")
+            require(bitwise(o6[name], o5[i]), f"K6 {name} (scale {scale}) "
+                    "differs from K5")
+        n6, n5, n_plain = (int(n6.item()), int(o5[4].item()),
+                           int(n_plain.item()))
         require(n6 == n_plain == n5, f"K6 clamp count {n6}, plain "
                 f"{n_plain}, K5 {n5} (scale {scale})")
         require((n6 > 0) == (scale > 1.0),
                 f"K6 case of velocity scale {scale}: {n6} clamped points")
         print(f"[unchained kernels] K6 advect_pre (velocity scale {scale}):"
-              f" four branches bitwise equal to the plain version and to "
-              f"K5, clamped {n6} in all three")
-    ms, plain_ms, per = 0.0, 0.0, []
-    for name, a in zip(("vx", "vy", "vz", "c"), (vx0, vy0, vz0, c)):
-        vels = k_advect.pre_velocities(name, vx0, vy0, vz0)
-        ms += cuda_ms(lambda: k_advect.advect_branch_pre(name, a, *vels, k,
-                                                         w), 20) / 4
-        plain_ms += cuda_ms(lambda: k_advect.advect_branch_pre_plain(
-            name, a, *vels, k, w), 3) / 4
-        per.append(bound(K6_NAME, (a, *vels), (a,), a.numel()))
-    fields = (vx0, vy0, vz0, c)
-    step_ms = cuda_ms(lambda: k_advect.advect_unchained(*fields, k, w), 10)
-    k5_ms = cuda_ms(lambda: k_advect.advect(*fields, k, w), 10)
+              f" the four branches in one launch bitwise equal to the plain "
+              f"version and to K5, clamped {n6} in all three")
+        del o6, o5, op, vels
+    fields = dict(zip(names, (vx0, vy0, vz0, c)))
+    vels = {name: k_advect.pre_velocities(name, vx0, vy0, vz0)
+            for name in names}
+    ms = device_ms(lambda: k_advect.advect_pre(fields, vels, k, w), 20,
+                   "advect_pre_kernel")
+    events_ms = cuda_ms(lambda: k_advect.advect_pre(fields, vels, k, w), 20)
+    plain_ms = cuda_ms(lambda: k_advect.advect_pre_plain(fields, vels, k, w),
+                       3)
+    ins = [t for name in names for t in (fields[name], *vels[name])]
+    b = bound(K6_NAME, ins, list(fields.values()),
+              sum(f.numel() for f in fields.values()))
+    step_ms = cuda_ms(lambda: k_advect.advect_unchained(vx0, vy0, vz0, c, k,
+                                                        w), 10)
+    k5_ms = cuda_ms(lambda: k_advect.advect(vx0, vy0, vz0, c, k, w), 10)
     r = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-             bytes=sum(b["bytes"] for b in per) / 4,
-             bound_ms=sum(b["bound_ms"] for b in per) / 4,
-             bound_by=per[0]["bound_by"], four_branches_ms=step_ms,
-             k5_four_branches_ms=k5_ms)
-    print(f"[unchained kernels] {K6_NAME}: {ms:.4f} ms per branch (the "
-          f"mean of the four), plain {plain_ms:.4f} ms; bound "
-          f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e6:.1f} "
-          f"MB per launch), kernel at {100 * r['bound_ms'] / ms:.1f}% of it;"
-          f" advect_unchained (torch-op face averages + 4 K6) {step_ms:.4f} "
-          f"ms against K5's four branches {k5_ms:.4f} ms")
+             events_ms=events_ms, four_branches_ms=step_ms,
+             k5_four_branches_ms=k5_ms, **b)
+    print(f"[unchained kernels] {K6_NAME}: the four branches in one launch "
+          f"{ms:.4f} ms of device time ({events_ms:.4f} ms by CUDA events), "
+          f"plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}, {b['bytes'] / 1e6:.1f} MB), kernel at "
+          f"{100 * b['bound_ms'] / ms:.1f}% of it; advect_unchained "
+          f"(torch-op face averages + 1 K6) {step_ms:.4f} ms against K5's "
+          f"four branches {k5_ms:.4f} ms")
     return {K6_NAME: r}
 
 
 def phase_unchained_path(solver, smi) -> dict:
-    """The unchained step (fused_step=False) at 255: K6 four launches a
-    step, K1 launched, K3, K4 and K5 not."""
+    """The unchained step (fused_step=False) at 255: K6 one launch a step,
+    K1 launched, K3, K4 and K5 not."""
     g = solver.grid
     print(f"[unchained] grid {g.nx}x{g.ny}x{g.nz} float32, fused_step "
           f"{solver.fused_step}, accuracy phase {solver.acc} ({smi})")
     counts, iters, states, _ = run_steps(solver, UNCHAINED_STEPS,
                                          "unchained", REF_ITERS)
-    require(counts[K6_NAME][0] == 4 * UNCHAINED_STEPS,
+    require(counts[K6_NAME][0] == UNCHAINED_STEPS,
             f"unchained: K6 launched {counts[K6_NAME][0]} times")
     require(counts[K1_NAME][0] > 0, "unchained: K1 never launched")
     for name in ("K3 predict", "K4 correct", "K5 advect"):
@@ -1612,12 +1662,19 @@ def resident_inputs(g):
     return tuple(torch.tensor(a, device="cuda") for a in (pr, dpr, rhs))
 
 
-def check_k10(solver, nit, smi) -> dict:
-    """K10 against nit K1 launches and its plain version (bitwise), then
-    the times of K10 and of the nit K1 launches: device time from
-    torch.profiler and CUDA events."""
+def check_k10(solver, nit, smi, form=None) -> dict:
+    """K10 in its plan's form (required to be `form` where given) against
+    nit K1 launches and its plain version (bitwise), then the times of
+    K10 and of the nit K1 launches: device time from torch.profiler and
+    CUDA events. Where the plan is the cluster form, the grid form on the
+    same grid too (bitwise against it, device time): what the choice of
+    form buys."""
     g, op = solver.grid, solver._op
-    label = f"{g.nx}x{g.ny}x{g.nz}, nit {nit}"
+    plan = k_poisson.resident_plan(g.shape_c,
+                                   *k_poisson.resident_caps("cuda"))
+    require(plan is not None and (form is None or plan.form == form),
+            f"K10 at {g.shape_c}: plan {plan}, expected the {form} form")
+    label = f"{g.nx}x{g.ny}x{g.nz}, nit {nit}, {plan.form} form"
     pr0, dpr0, rhs = resident_inputs(g)
     p, d = pr0.clone(), dpr0.clone()
     scratch = torch.full_like(p, float("nan"))
@@ -1639,27 +1696,60 @@ def check_k10(solver, nit, smi) -> dict:
           f"{float(e):.9e} bitwise equal to {nit} K1 launches and to the "
           "plain version")
     del q, dq, pp, dp
+    other = None
+    if plan.form == "cluster":
+        # the plan of a card that admits no cluster, beside the cluster
+        # form: the grid form, held against it and timed
+        other = k_poisson.resident_plan(
+            g.shape_c, k_poisson.resident_caps("cuda")[0], 0)
+        qg, dg = pr0.clone(), dpr0.clone()
+        eg = k_poisson.launch_resident(qg, dg, rhs, op, nit, other,
+                                       torch.empty_like(qg))
+        require(bitwise(qg, p) and bitwise(dg, d) and float(eg) == float(e),
+                f"K10 ({label}): the grid form differs from the cluster form")
+        del qg, dg
+    # the K1 chain's own state (sharing dpr with K10's would mix two
+    # iterations)
     bufs = [pr0.clone(), torch.empty_like(pr0)]
+    dk = dpr0.clone()
 
     def k1_chain():
         for j in range(nit):
-            k_poisson.poisson_iter(bufs[j % 2], bufs[(j + 1) % 2], d, rhs,
+            k_poisson.poisson_iter(bufs[j % 2], bufs[(j + 1) % 2], dk, rhs,
                                    op, j == nit - 1)
 
     def k10(n=nit):
         return k_poisson.poisson_iter_resident(p, d, rhs, op, n, scratch)
     reps = 20 if g.nx < 100 else 5
-    ms = device_ms(k10, reps, "poisson_resident_kernel")
-    ms1 = device_ms(lambda: k10(1), reps, "poisson_resident_kernel")
+    ms = device_ms(k10, reps, "poisson_resident")
+    ms1 = device_ms(lambda: k10(1), reps, "poisson_resident")
     events_ms = cuda_ms(k10, reps)
     k1_ms = nit * device_ms(k1_chain, reps, "poisson_iter_kernel")
+    other_ms = None if other is None else device_ms(
+        lambda: k_poisson.launch_resident(p, d, rhs, op, nit, other,
+                                          scratch), reps, "poisson_resident")
     k1_events_ms = cuda_ms(k1_chain, reps)
     plain_ms = cuda_ms(lambda: k_poisson.poisson_iter_resident_plain(
         p, d, rhs, op, nit, scratch), 3, warmup=1)
     b = bound(K10_NAME, (pr0, dpr0, rhs), (p, d), p.numel(), iters=nit)
-    # what the fields actually move where they do not stay in L2: K1's
-    # bytes (5 x 4 B per cell) every iteration
-    stream_ms = nit * 5 * 4 * p.numel() / HBM_BYTES_PER_S * 1e3
+    # what the fields move where they do not stay in L2: K1's bytes (5 x 4
+    # B per cell) every iteration. The grid form keeps dpr on chip, reads
+    # rhs from HBM (4 B) and moves pr in, rhs in and pr out through L2 (12
+    # B) at the rate of a warm copy of pr into a buffer as large (the pair
+    # fits the 50 MB L2 at 255); its ceiling is nit times the larger. The
+    # cluster form moves its fields once.
+    cells = p.numel()
+    stream_ms = nit * 5 * 4 * cells / HBM_BYTES_PER_S * 1e3
+    form_ms, form_by = b["bound_ms"], b["bound_by"]
+    if plan.form == "grid":
+        pair_mb = round(2 * 4 * cells / 1e6)
+        pair_ms, pair_timing = copy_ms(pair_mb)
+        l2_rate = pair_mb * 1e6 / (pair_ms / 1e3)
+        hbm_s, l2_s = 4 * cells / HBM_BYTES_PER_S, 12 * cells / l2_rate
+        form_ms = nit * max(hbm_s, l2_s) * 1e3
+        form_by = (f"{'HBM (rhs)' if hbm_s >= l2_s else 'L2 (pr, rhs)'}; a "
+                   f"copy of {pair_mb} MB {pair_ms:.4f} ms, "
+                   f"{l2_rate / 1e12:.3f} TB/s, {pair_timing}")
     per_iter = (ms - ms1) / (nit - 1)
     print(f"[resident] K10 ({label}): {ms:.4f} ms of device time "
           f"({events_ms:.4f} ms by CUDA events), {per_iter * 1e3:.2f} us per "
@@ -1669,12 +1759,22 @@ def check_k10(solver, nit, smi) -> dict:
           f"{b['bound_ms']:.4f} ms ({b['bound_by']}: one pass "
           f"{b['bytes'] / 1e6:.2f} MB, {nit} iterations of operations), "
           f"kernel at {100 * b['bound_ms'] / ms:.1f}% of it; {nit} passes "
-          f"through HBM {stream_ms:.4f} ms; K10 {'beats' if ms < k1_ms else 'does not beat'} "
-          f"the {nit} K1 launches in device time ({smi})")
+          f"through HBM {stream_ms:.4f} ms; the {plan.form} form's ceiling "
+          f"{form_ms:.4f} ms ({form_by}), kernel at {100 * form_ms / ms:.1f}"
+          f"% of it; "
+          f"K10 {'beats' if ms < k1_ms else 'does not beat'} the {nit} K1 "
+          f"launches in device time ({plan}; {smi})")
+    if other is not None:
+        print(f"[resident] K10 ({g.nx}x{g.ny}x{g.nz}, nit {nit}) in the grid "
+              f"form ({other}): bitwise equal to the cluster form, "
+              f"{other_ms:.4f} ms of device time against its {ms:.4f} ms "
+              f"({smi})")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 events_ms=events_ms, k1_launches_ms=k1_ms,
                 k1_launches_events_ms=k1_events_ms, ms_nit1=ms1,
-                per_iteration_ms=per_iter, hbm_passes_ms=stream_ms, **b)
+                per_iteration_ms=per_iter, hbm_passes_ms=stream_ms,
+                form=plan.form, form_bound_ms=form_ms,
+                **({} if other is None else {"grid_form_ms": other_ms}), **b)
 
 
 def resident_solve(smi) -> dict:
@@ -1709,7 +1809,9 @@ def resident_solve(smi) -> dict:
     torch.cuda.synchronize()
     kernels.reset_counts()
     t0 = time.perf_counter()
-    p, d, e = k_poisson.make_resident(g.nchk - 1)(p, d, rhs, s._op)
+    resident = k_poisson.make_resident(g.nchk - 1, g.shape_c, "cuda")
+    require(resident is not None, f"resident solve: no K10 at {g.shape_c}")
+    p, d, e = resident(p, d, rhs, s._op)
     ps, ds_, its, errs, hists = loop(p, d, g.nchk, err0=e * es, seed0=True)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -1733,13 +1835,14 @@ def resident_solve(smi) -> dict:
 
 
 def phase_resident(smi):
-    """K10 at 63 (nit = nchk = 37) and 255 (nit = 152), and the seeded
-    solve at 63. Returns (results, counts of the seeded solve)."""
+    """K10 at 63 (nit = nchk = 37, the cluster form) and 255 (nit = 152,
+    the grid form), and the seeded solve at 63. Returns (results, counts
+    of the seeded solve)."""
     rows = {}
     for nx in RESIDENT_NX:
         s = nt.ChorinSolver(nt.preset_gpu(nx=nx, compat=False,
                                           dtype="float32"), device="cuda")
-        rows[nx] = check_k10(s, RESIDENT_NIT[nx], smi)
+        rows[nx] = check_k10(s, RESIDENT_NIT[nx], smi, RESIDENT_FORM[nx])
         del s
     counts = resident_solve(smi)
     r = dict(rows[RESIDENT_NX[1]])
@@ -1804,6 +1907,9 @@ def main() -> int:
                "launches": sum(c[kk.name][0] for c in runs),
                **{key: r[key] for key in keys}, "library_ms": None,
                "sass": sass.get(kk.name)}
+        if kk.name == K10_NAME:
+            row["sass"] = {"grid form": sass.get(K10_NAME),
+                           "cluster form": sass.get(K10C_NAME)}
         # the wide grid's numbers (K8's main ones are s=3 at 511; its s=2
         # numbers at 255 go beside them)
         if "wide" in r:
@@ -1816,7 +1922,8 @@ def main() -> int:
         for extra in ("per_iteration_over_k1", "plan", "at_511_s2",
                       "shards", "whole_grid", "at_63", "events_ms",
                       "k1_launches_ms", "k1_launches_events_ms",
-                      "per_iteration_ms", "four_branches_ms",
+                      "per_iteration_ms", "four_branches_ms", "form",
+                      "form_bound_ms", "grid_form_ms",
                       "k5_four_branches_ms", "four_launches_ms",
                       "four_branch_bounds_ms"):
             if extra in r:

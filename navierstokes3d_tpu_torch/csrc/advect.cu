@@ -9,13 +9,14 @@
 // in-kernel: one launch advects all four fields. K6 (`advect_pre_kernel`)
 // replaces the one of kernels/advect.py:218 (build_advect_branch: `kernel`
 // :138; assembled by build_advect :245-310), which takes them
-// precomputed: the three advecting velocities arrive as arrays of the
-// branch's staggered shape (computed outside, the pads zero), and it
-// reads them at the output point; one launch per branch. Per output point
+// precomputed: each branch's three advecting velocities arrive as arrays
+// of the branch's staggered shape (computed outside, the pads zero), read
+// at the output point. The TPU runs one launch per branch; here one
+// launch advects every branch of a mask, as K5 does. Per output point
 // of a branch's write region the body
 //   * takes the advecting velocities: K5 face-averages the post-BC
 //     snapshots (ops/advect.py's ((a+b)+c)+d expressions, times 0.25 or
-//     0.5), K6 reads its three operands;
+//     0.5), K6 reads the branch's three operands;
 //   * per axis, computes the displacement dl = (dt*v)/h, clamps it to
 //     [-k, k] (counting points where |dl| exceeded k on any axis), and
 //     the departure cell i1 = clip(floor(idx - dl), 1, n), the corner
@@ -35,7 +36,7 @@
 // are new tensors. Built with --fmad=false, so the accumulation rounds as
 // the plain version does.
 //
-// The write mask discards K6's padded rows, lanes and planes (the
+// The write region discards K6's padded rows, lanes and planes (the
 // Pallas kernel's `wmask`, kernels/advect.py:154, applied at :178): a
 // point outside the write region copies the input and never reads a
 // velocity, and its clamp is not counted.
@@ -52,8 +53,13 @@
 // where CUDA's fmodf is a long branching sequence (~10% of the kernel's
 // time); indices are 32-bit, one multiply-add per gather; the gathers of
 // a warp fall within k+1 cells of its points, so they come from L1/L2.
-// K6 shares the body and its bounds (K5's face averages are torch ops
-// before it).
+// K6 moves 20 field passes for the four branches (each its field, three
+// velocities and its output: 479.6 MB at 255x153x153, 0.1432 ms) through
+// the same per-point body: bytes and issue both near the bound, so the
+// design is K5's one launch, one thread per union-grid point running every
+// branch, its twelve velocity loads issued before any branch's arithmetic
+// so that one branch's divisions and gathers overlap the others' loads,
+// with one launch ramp and tail for the four instead of four.
 #include "common.cuh"
 
 namespace {
@@ -158,17 +164,6 @@ __device__ inline float backtrack(const Field& a, int i, int X, int Y,
 
 enum Branch { kVx = 0, kVy = 1, kVz = 2, kC = 3 };
 
-// Whether (X, Y, Z) of a branch's field lies in its write region
-// (gpu.jl:308-332): the interior of its own staggered axis, everything
-// for the tracer.
-__device__ inline bool writes(int branch, const Field& a, int X, int Y,
-                              int Z) {
-  if (branch == kVx) return X >= 1 && X <= a.n1 - 2;
-  if (branch == kVy) return Y >= 1 && Y <= a.n2 - 2;
-  if (branch == kVz) return Z >= 1 && Z <= a.n3 - 2;
-  return true;
-}
-
 // ---- K5: the four branches from the post-BC velocities ----
 
 struct Vel {
@@ -201,6 +196,35 @@ __device__ inline void advect_at(const Vel& v, const Fields& f, bool write,
   }
 }
 
+// Where the branches of `mask` stand at point (X, Y, Z) of the (nx+1,
+// ny+1, nz+1) union grid: whether each branch's field has the point
+// (inside), whether it lies in the branch's write region (gpu.jl:308-332:
+// the interior of its own staggered axis, everything for the tracer), and
+// the point's index in each field (the tracer's is vx's: both have nz
+// lanes and ny rows).
+struct Points {
+  bool in_vx, in_vy, in_vz, in_c, w_vx, w_vy, w_vz, w_c;
+  int ivx, ivy, ivz;
+};
+
+__device__ inline Points points(const Vel& v, unsigned mask, int X, int Y,
+                                int Z) {
+  const int nx = v.nx, ny = v.ny, nz = v.nz;
+  Points p;
+  p.in_c = X < nx && Y < ny && Z < nz;
+  p.in_vx = (mask & (1u << kVx)) && X <= nx && Y < ny && Z < nz;
+  p.in_vy = (mask & (1u << kVy)) && X < nx && Y <= ny && Z < nz;
+  p.in_vz = (mask & (1u << kVz)) && X < nx && Y < ny && Z <= nz;
+  p.w_vx = p.in_vx && X >= 1 && X <= nx - 1;
+  p.w_vy = p.in_vy && Y >= 1 && Y <= ny - 1;
+  p.w_vz = p.in_vz && Z >= 1 && Z <= nz - 1;
+  p.w_c = (mask & (1u << kC)) && p.in_c;
+  p.ivx = (X * ny + Y) * nz + Z;
+  p.ivy = (X * (ny + 1) + Y) * nz + Z;
+  p.ivz = (X * ny + Y) * (nz + 1) + Z;
+  return p;
+}
+
 // One thread per point of the (nx+1, ny+1, nz+1) union grid advects every
 // branch of `mask` that has that point. It first loads the 18 velocity
 // values the four branches' face averages read there, each once and only
@@ -213,20 +237,10 @@ __global__ void advect_kernel(Vel v, Fields f, unsigned mask,
   const int Z = blockIdx.x * blockDim.x + threadIdx.x;
   const int Y = blockIdx.y * blockDim.y + threadIdx.y;
   const int X = blockIdx.z;
-  const int nx = v.nx, ny = v.ny, nz = v.nz;
-  // each branch's field has the point (inside), and its write region
-  // (gpu.jl:308-332: the interior of its own staggered axis)
-  const bool in_c = X < nx && Y < ny && Z < nz;
-  const bool in_vx = (mask & (1u << kVx)) && X <= nx && Y < ny && Z < nz;
-  const bool in_vy = (mask & (1u << kVy)) && X < nx && Y <= ny && Z < nz;
-  const bool in_vz = (mask & (1u << kVz)) && X < nx && Y < ny && Z <= nz;
-  const bool w_vx = in_vx && X >= 1 && X <= nx - 1;
-  const bool w_vy = in_vy && Y >= 1 && Y <= ny - 1;
-  const bool w_vz = in_vz && Z >= 1 && Z <= nz - 1;
-  const bool w_c = (mask & (1u << kC)) && in_c;
-  const int ivx = (X * ny + Y) * nz + Z;
-  const int ivy = (X * (ny + 1) + Y) * nz + Z;
-  const int ivz = (X * ny + Y) * (nz + 1) + Z;
+  const int ny = v.ny, nz = v.nz;
+  const Points pt = points(v, mask, X, Y, Z);
+  const bool w_vx = pt.w_vx, w_vy = pt.w_vy, w_vz = pt.w_vz, w_c = pt.w_c;
+  const int ivx = pt.ivx, ivy = pt.ivy, ivz = pt.ivz;
   // x strides of vx, vy, vz; vz's y stride is nz + 1, the others' nz
   const int sx = ny * nz, sy = (ny + 1) * nz, sz = ny * (nz + 1);
   const float* __restrict__ px = v.vx;
@@ -254,13 +268,13 @@ __global__ void advect_kernel(Vel v, Fields f, unsigned mask,
   const float z0m0 = w_vy ? pz[ivz - (nz + 1)] : 0.0f;
   const float z0m1 = w_vy ? pz[ivz - nz] : 0.0f;
   int clamped = 0;
-  advect_at<kVx>(v, f, w_vx, in_vx, X, Y, Z, ivx, x000,
+  advect_at<kVx>(v, f, w_vx, pt.in_vx, X, Y, Z, ivx, x000,
                  0.25f * (((ym00 + ym10) + y000) + y010),
                  0.25f * (((zm00 + zm01) + z000) + z001), s, &clamped);
-  advect_at<kVy>(v, f, w_vy, in_vy, X, Y, Z, ivy,
+  advect_at<kVy>(v, f, w_vy, pt.in_vy, X, Y, Z, ivy,
                  0.25f * (((x0m0 + x1m0) + x000) + x100), y000,
                  0.25f * (((z0m0 + z0m1) + z000) + z001), s, &clamped);
-  advect_at<kVz>(v, f, w_vz, in_vz, X, Y, Z, ivz,
+  advect_at<kVz>(v, f, w_vz, pt.in_vz, X, Y, Z, ivz,
                  0.25f * (((x00m + x10m) + x000) + x100),
                  0.25f * (((y00m + y01m) + y000) + y010), z000, s, &clamped);
   advect_at<kC>(v, f, w_c, w_c, X, Y, Z, ivx, 0.5f * (x000 + x100),
@@ -268,47 +282,69 @@ __global__ void advect_kernel(Vel v, Fields f, unsigned mask,
   ns3d::block_sum_to(clamped, n_clamped);
 }
 
-// ---- K6: one branch from precomputed advecting velocities ----
+// ---- K6: the branches of a mask from precomputed advecting velocities ----
 
-// vx, vy, vz are the branch's advecting velocities at a's shape, read at
-// the output point; the write region discards their pads.
-__global__ void advect_pre_kernel(int branch, Field a, Field vx, Field vy,
-                                  Field vz, float* __restrict__ out,
+// Each branch's three advecting velocities at its field's shape (null
+// outside the mask).
+struct PreVel {
+  const float* v[4][3];
+};
+
+// As advect_kernel, one thread per point of the union grid running every
+// branch of `mask` that has the point, but each branch reads its own three
+// advecting velocities at its own staggered index, and only where it
+// writes: the pads, outside every write region, are never read. All twelve
+// loads are issued before any branch's arithmetic.
+__global__ void advect_pre_kernel(Vel v, Fields f, PreVel u, unsigned mask,
                                   int* __restrict__ n_clamped, Step s) {
   const int Z = blockIdx.x * blockDim.x + threadIdx.x;
   const int Y = blockIdx.y * blockDim.y + threadIdx.y;
   const int X = blockIdx.z;
-  int clamped = 0;
-  if (Y < a.n2 && Z < a.n3) {
-    const int i = (X * a.n2 + Y) * a.n3 + Z;
-    out[i] = writes(branch, a, X, Y, Z)
-                 ? backtrack(a, i, X, Y, Z, vx.p[i], vy.p[i], vz.p[i], s,
-                             &clamped)
-                 : a.p[i];
+  const Points pt = points(v, mask, X, Y, Z);
+  const bool w[4] = {pt.w_vx, pt.w_vy, pt.w_vz, pt.w_c};
+  const int i[4] = {pt.ivx, pt.ivy, pt.ivz, pt.ivx};
+  float a[4][3];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) a[b][q] = w[b] ? u.v[b][q][i[b]] : 0.0f;
   }
+  int clamped = 0;
+  advect_at<kVx>(v, f, pt.w_vx, pt.in_vx, X, Y, Z, pt.ivx, a[kVx][0],
+                 a[kVx][1], a[kVx][2], s, &clamped);
+  advect_at<kVy>(v, f, pt.w_vy, pt.in_vy, X, Y, Z, pt.ivy, a[kVy][0],
+                 a[kVy][1], a[kVy][2], s, &clamped);
+  advect_at<kVz>(v, f, pt.w_vz, pt.in_vz, X, Y, Z, pt.ivz, a[kVz][0],
+                 a[kVz][1], a[kVz][2], s, &clamped);
+  advect_at<kC>(v, f, pt.w_c, pt.w_c, X, Y, Z, pt.ivx, a[kC][0], a[kC][1],
+                a[kC][2], s, &clamped);
   ns3d::block_sum_to(clamped, n_clamped);
 }
 
 }  // namespace
 
-// K5 (pre 0): advects each branch b (0..3 = Vx, Vy, Vz, C) whose bit is set
-// in `mask`, field a[b] into out[b] (null for the others), with the
-// post-BC velocities vx/vy/vz of the (nx, ny, nz) grid, in one launch.
-// K6 (pre nonzero): one bit, and vx/vy/vz are that branch's advecting
-// velocities at its field's shape. n_clamped accumulates (the caller
-// zeroes it once per step).
+// Advects each branch b (0..3 = Vx, Vy, Vz, C) whose bit is set in `mask`,
+// field a[b] into out[b] (null for the others), on the (nx, ny, nz) grid,
+// in one launch. K5 (pre 0): vels[0..2] are the post-BC velocities vx, vy,
+// vz. K6 (pre nonzero): vels[3b..3b+2] are branch b's advecting
+// velocities at its field's shape (null outside the mask). n_clamped
+// accumulates (the caller zeroes it once per step).
 extern "C" int ns3d_advect(unsigned mask, const float* a_vx, const float* a_vy,
                            const float* a_vz, const float* a_c, float* out_vx,
                            float* out_vy, float* out_vz, float* out_c,
-                           const float* vx, const float* vy, const float* vz,
-                           int* n_clamped, float dt, float dx, float dy,
-                           float dz, int k, int nx, int ny, int nz, int pre,
+                           const float* const* vels, int* n_clamped,
+                           float dt, float dx, float dy, float dz, int k,
+                           int nx, int ny, int nz, int pre,
                            cudaStream_t stream) {
   const Fields f{{a_vx, a_vy, a_vz, a_c}, {out_vx, out_vy, out_vz, out_c}};
   if (mask == 0 || mask > 15) return static_cast<int>(cudaErrorInvalidValue);
   for (int b = 0; b < 4; ++b) {
-    if ((mask >> b & 1u) && (f.a[b] == nullptr || f.out[b] == nullptr)) {
+    if (!(mask >> b & 1u)) continue;
+    if (f.a[b] == nullptr || f.out[b] == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
+    for (int q = 0; q < 3; ++q) {
+      if (vels[pre ? 3 * b + q : q] == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   // the largest array, (nx+1, ny+1, nz+1) bounding all, in 32-bit indices
@@ -316,17 +352,18 @@ extern "C" int ns3d_advect(unsigned mask, const float* a_vx, const float* a_vy,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Step s{dt, dx, dy, dz, k};
+  const dim3 grid = ns3d::grid_for(nx + 1, ny + 1, nz + 1);
   const dim3 block = ns3d::block_shape();
   if (pre) {
-    const int b = __builtin_ctz(mask);
-    if (mask != (1u << b)) return static_cast<int>(cudaErrorInvalidValue);
-    const int n1 = nx + (b == kVx), n2 = ny + (b == kVy), n3 = nz + (b == kVz);
-    const Field fa{f.a[b], n1, n2, n3};
-    const Field fvx{vx, n1, n2, n3}, fvy{vy, n1, n2, n3}, fvz{vz, n1, n2, n3};
-    advect_pre_kernel<<<ns3d::grid_for(n1, n2, n3), block, 0, stream>>>(b, fa, fvx, fvy, fvz, f.out[b], n_clamped, s);
+    const Vel v{nullptr, nullptr, nullptr, nx, ny, nz};
+    PreVel u;
+    for (int b = 0; b < 4; ++b) {
+      for (int q = 0; q < 3; ++q) u.v[b][q] = vels[3 * b + q];
+    }
+    advect_pre_kernel<<<grid, block, 0, stream>>>(v, f, u, mask, n_clamped, s);
   } else {
-    const Vel v{vx, vy, vz, nx, ny, nz};
-    advect_kernel<<<ns3d::grid_for(nx + 1, ny + 1, nz + 1), block, 0, stream>>>(v, f, mask, n_clamped, s);
+    const Vel v{vels[0], vels[1], vels[2], nx, ny, nz};
+    advect_kernel<<<grid, block, 0, stream>>>(v, f, mask, n_clamped, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

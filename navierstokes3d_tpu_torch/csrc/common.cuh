@@ -7,9 +7,10 @@
 // path (the Poisson kernel reduces only on check iterations, one in nchk).
 //
 // Below them: the asynchronous copy K8 streams its planes with (a 4-byte
-// cp.async, commit and wait), each behind a small function so that a host
-// rehearsal of the kernels can map the copy onto a memcpy and the group
-// operations onto no-ops.
+// cp.async, commit and wait) and the two halves of the cluster barrier
+// K10's cluster form splits, each behind a small function so that a host
+// rehearsal of the kernels can map the copy onto a memcpy, the group
+// operations onto no-ops and the barrier onto a host barrier.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -55,20 +56,25 @@ __device__ inline int warp_sum(int v) {
   return v;
 }
 
-// Max of `v` over the block into *out. For the bit patterns of
-// non-negative floats the unsigned order is the float order, and a
-// positive NaN sorts above +inf, so a NaN propagates as jnp.max
-// propagates it.
-__device__ inline void block_max_to(unsigned int v, unsigned int* out) {
-  __shared__ unsigned int per_warp[kWarps];
+// Max of `v` over a block of kThreads threads, valid in thread 0. For the
+// bit patterns of non-negative floats the unsigned order is the float
+// order, and a positive NaN sorts above +inf, so a NaN propagates as
+// jnp.max propagates it.
+template <int kThreads>
+__device__ inline unsigned int block_max(unsigned int v) {
+  __shared__ unsigned int per_warp[kThreads / 32];
   const int t = thread_rank();
   v = warp_max(v);
   if ((t & 31) == 0) per_warp[t >> 5] = v;
   __syncthreads();
-  if (t < 32) {
-    v = warp_max(t < kWarps ? per_warp[t] : 0u);
-    if (t == 0 && v != 0u) atomicMax(out, v);
-  }
+  if (t < 32) v = warp_max(t < kThreads / 32 ? per_warp[t] : 0u);
+  return v;
+}
+
+// Max of `v` over the block into *out.
+__device__ inline void block_max_to(unsigned int v, unsigned int* out) {
+  v = block_max<kBlockThreads>(v);
+  if (thread_rank() == 0 && v != 0u) atomicMax(out, v);
 }
 
 // Sum of `v` over the block into *out.
@@ -107,6 +113,22 @@ __device__ inline void cp_async_commit() {
 // Wait until every group of this thread's copies has landed.
 __device__ inline void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// ---- the cluster barrier in two halves (Hopper) ----
+
+// This thread's arrival at the cluster barrier, releasing its writes to
+// shared memory (its own block's and the other blocks' of the cluster).
+// Not the .aligned form: the threads of a warp may arrive apart (after
+// loops of different trip counts), and each arrival counts on its own.
+__device__ inline void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+
+// Wait until every thread of the cluster has arrived, acquiring their
+// writes. Arrivals and waits alternate in each thread.
+__device__ inline void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
 }
 
 }  // namespace ns3d

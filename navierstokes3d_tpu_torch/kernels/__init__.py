@@ -43,7 +43,7 @@ KERNELS = (
            advect.advect, advect.advect_branch_plain),
     Kernel("K6 advect_pre", "navierstokes3d_tpu_torch/csrc/advect.cu",
            "navierstokes3d_tpu/kernels/advect.py:218",
-           advect.advect_branch_pre, advect.advect_branch_pre_plain),
+           advect.advect_pre, advect.advect_pre_plain),
     Kernel("K7 poisson_iter_bc", "navierstokes3d_tpu_torch/csrc/poisson.cu",
            "navierstokes3d_tpu/kernels/poisson.py:914",
            poisson.poisson_iter_bc, poisson.poisson_iter_bc_plain),
@@ -70,8 +70,10 @@ KERNELS = (
 
 def reset_counts() -> None:
     """Set every launch and plain-call count to 0 (also that of
-    advect_branch, K5's kernel for one branch, off the main path)."""
+    advect_branch, K5's kernel for one branch, off the main path, and of
+    advect_branch_pre_plain, the per-branch part of K6's plain version)."""
     for k in KERNELS:
         k.wrapper.launches = 0
         k.plain.calls = 0
     advect.advect_branch.launches = 0
+    advect.advect_branch_pre_plain.calls = 0

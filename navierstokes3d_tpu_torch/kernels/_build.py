@@ -55,9 +55,13 @@ SIGNATURES = {
     "ns3d_poisson_iter_sweeps": (*(_P,) * 9, _F, _F, _F, *(_I,) * 10, _P,
                                  _P),
     # pr, scratch, dpr, rhs, wyp, wym, wzp, wzm, inv_dx2, dtau, decay,
-    # zero_grad_x, nx, ny, nz, nit, err_bits, stream
-    "ns3d_poisson_iter_resident": (_P, _P, _P, _P, _P, _P, _P, _P, _F, _F,
-                                   _F, _I, _I, _I, _I, _I, _P, _P),
+    # zero_grad_x, nx, ny, nz, nit, then the plan: form (1 cluster, 2
+    # grid), blocks, smem bytes; err_bits, stream
+    "ns3d_poisson_iter_resident": (*(_P,) * 8, _F, _F, _F, *(_I,) * 8, _P,
+                                   _P),
+    # dynamic shared memory per block, out: the largest cluster of K10's
+    # cluster form the card admits
+    "ns3d_poisson_resident_max_cluster": (_I, _P),
     # pr, dpr, rhs, pr_out, dpr_out, xlo (nullable), xhi (nullable),
     # inv_dx2, inv_dy2, inv_dz2, dtau, decay, z_lo_add, z_hi_add,
     # zero_grad_x, nx, ny, nz, then the plan: tiles_y, tiles_z; stream
@@ -85,10 +89,11 @@ SIGNATURES = {
     "ns3d_correct": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F,
                      _F, _I, _F, _I, _I, _I, _P),
     # branch mask, a_vx, a_vy, a_vz, a_c, out_vx, out_vy, out_vz, out_c
-    # (null outside the mask), vx, vy, vz, n_clamped, dt, dx, dy, dz, k,
-    # nx, ny, nz, pre (0: K5, the post-BC velocities; 1: K6, one branch
-    # and its precomputed advecting velocities), stream
-    "ns3d_advect": (ctypes.c_uint, *(_P,) * 12, _F, _F, _F, _F, _I, _I,
+    # (null outside the mask), a host array of 12 velocity pointers (K5:
+    # the post-BC vx, vy, vz first; K6: each branch's three precomputed
+    # advecting velocities, null outside the mask), n_clamped, dt, dx, dy,
+    # dz, k, nx, ny, nz, pre (0: K5, 1: K6), stream
+    "ns3d_advect": (ctypes.c_uint, *(_P,) * 10, _F, _F, _F, _F, _I, _I,
                     _I, _I, _I, _P),
 }
 

@@ -8,13 +8,14 @@ advect.py:537 (`build_advect_branch_flat`, assembled into the four
 reference branches by `build_advect_flat` :556-630): face averages of the
 advecting velocities, departure displacement clamped to ±k (k=2 on the
 main path) with a clamp count, and the trilinear interpolant in the
-select-shift (p, q, o) term order. `advect_branch_pre` (K6) launches the
+select-shift (p, q, o) term order. `advect_pre` (K6) launches the
 kernel's other form, which replaces the one of :218
 (`build_advect_branch`, assembled by `build_advect` :245-310): it takes
-the advecting velocities precomputed, zero-padded to the branch's
-staggered shape (`pre_velocities`); `advect_unchained` is `build_advect`'s
-`advect_fn`, which the unchained step runs. The plain versions are
-ops/advect.py.
+each branch's advecting velocities precomputed, zero-padded to the
+branch's staggered shape (`pre_velocities`), and advects every branch it
+is given in one launch; `advect_branch_pre` is its one-branch call, and
+`advect_unchained` is `build_advect`'s `advect_fn`, which the unchained
+step runs. The plain versions are ops/advect.py.
 """
 
 from __future__ import annotations
@@ -59,16 +60,24 @@ def _counter(n_clamped, dev) -> torch.Tensor:
 
 def _launch(fields: dict, vels, n_clamped, k: StepConsts, window,
             grid_shape, pre: bool) -> dict:
-    """One launch for the branches of `fields` (name -> field); returns
-    name -> new field."""
+    """One launch for the branches of `fields` (name -> field); `vels` are
+    the post-BC velocities (vx, vy, vz) for K5, or name -> that branch's
+    advecting velocities for K6. Returns name -> new field."""
     outs = {name: torch.empty_like(a) for name, a in fields.items()}
     mask = sum(1 << adv.BRANCHES.index(name) for name in fields)
     ptrs = [_build.ptr(fields.get(name)) for name in adv.BRANCHES]
     ptrs += [_build.ptr(outs.get(name)) for name in adv.BRANCHES]
+    if pre:
+        vel_ptrs = [_build.ptr(v) if name in vels else None
+                    for name in adv.BRANCHES
+                    for v in vels.get(name, (None,) * 3)]
+    else:
+        vel_ptrs = [v.data_ptr() for v in vels] + [None] * 9
+    vel_array = (ctypes.c_void_p * 12)(*vel_ptrs)
     f32 = lambda x: ctypes.c_float(float(np.float32(x)))  # noqa: E731
     a = next(iter(fields.values()))
     lib = _build.load()
-    rc = lib.ns3d_advect(mask, *ptrs, *(v.data_ptr() for v in vels),
+    rc = lib.ns3d_advect(mask, *ptrs, ctypes.cast(vel_array, ctypes.c_void_p),
                          n_clamped.data_ptr(), f32(k.dt), f32(k.dx),
                          f32(k.dy), f32(k.dz), window, *grid_shape, int(pre),
                          _build.stream_of(a))
@@ -125,10 +134,10 @@ def pre_velocities(branch: str, vx, vy, vz):
 
 def advect_branch_pre_plain(branch: str, a, vxc, vyc, vzc, k: StepConsts,
                             window: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of one K6 launch: ops/advect.py's select-shift
-    backtrack (`backtrack_selectshift`) on the given velocities, cropped
-    to the branch's write region (the pads are never read); (a',
-    n_clamped)."""
+    """Plain PyTorch version of K6 on one branch: ops/advect.py's
+    select-shift backtrack (`backtrack_selectshift`) on the given
+    velocities, cropped to the branch's write region (the pads are never
+    read); (a', n_clamped)."""
     advect_branch_pre_plain.calls += 1
     starts = adv._STARTS[branch]
     axis = _PAD_AXIS[branch]
@@ -144,34 +153,71 @@ def advect_branch_pre_plain(branch: str, a, vxc, vyc, vzc, k: StepConsts,
 advect_branch_pre_plain.calls = 0
 
 
+def advect_pre_plain(fields: dict, vels: dict, k: StepConsts, window: int
+                     ) -> Tuple[dict, torch.Tensor]:
+    """Plain PyTorch version of one K6 launch: `advect_branch_pre_plain`
+    on each branch of `fields`; (name -> a', the summed clamp count, an
+    int32 tensor of shape (1,))."""
+    advect_pre_plain.calls += 1
+    a = next(iter(fields.values()))
+    n_clamped = torch.zeros((1,), dtype=torch.int32, device=a.device)
+    outs = {}
+    for name, f in fields.items():
+        outs[name], ncl = advect_branch_pre_plain(name, f, *vels[name], k,
+                                                  window)
+        n_clamped += ncl
+    return outs, n_clamped
+
+
+advect_pre_plain.calls = 0
+
+
+def advect_pre(fields: dict, vels: dict, k: StepConsts, window: int,
+               n_clamped: torch.Tensor | None = None) -> dict:
+    """Advect the fields of `fields` (branch 'vx', 'vy', 'vz' or 'c' ->
+    field) with the advecting velocities `vels` (branch -> (vxc, vyc,
+    vzc) at that field's shape, see `pre_velocities`; the values outside
+    the branch's write region are not read), every branch in ONE launch;
+    returns branch -> new field (the inputs are read only). The clamp
+    count is added into n_clamped (an int32 tensor of shape (1,) on the
+    device, zeroed by the caller) when given."""
+    a = next(iter(fields.values()))
+    if not _build.on_cuda(a, "advect_pre"):
+        outs, ncl = advect_pre_plain(fields, vels, k, window)
+        if n_clamped is not None:
+            n_clamped += ncl
+        return outs
+    if set(vels) != set(fields) or not set(fields) <= set(adv.BRANCHES):
+        raise ValueError(f"advect_pre: branches {sorted(fields)} with "
+                         f"velocities for {sorted(vels)}")
+    # the union grid, from any branch's field (its staggered axis one longer)
+    name = next(iter(fields))
+    b = adv.BRANCHES.index(name)
+    grid_shape = tuple(n - (b == axis) for axis, n in enumerate(a.shape))
+    dev = a.device
+    for name, f in fields.items():
+        b = adv.BRANCHES.index(name)
+        shape = tuple(n + (b == axis) for axis, n in enumerate(grid_shape))
+        _build.require(name, f, shape, torch.float32, dev)
+        for v in vels[name]:
+            _build.require(f"{name} velocity", v, shape, torch.float32, dev)
+    outs = _launch(fields, vels, _counter(n_clamped, dev), k, window,
+                   grid_shape, True)
+    advect_pre.launches += 1
+    return outs
+
+
+advect_pre.launches = 0
+
+
 def advect_branch_pre(branch: str, a, vxc, vyc, vzc, k: StepConsts,
                       window: int, n_clamped: torch.Tensor | None = None
                       ) -> torch.Tensor:
-    """Advect field `a` of branch 'vx', 'vy', 'vz' or 'c' with the
-    advecting velocities vxc, vyc, vzc given at a's shape (see
-    `pre_velocities`; the values outside the write region are not read);
-    returns the new field (the inputs are read only). The clamp count is
-    added into n_clamped (an int32 tensor of shape (1,) on the device,
-    zeroed by the caller) when given."""
-    if not _build.on_cuda(a, "advect_pre"):
-        out, ncl = advect_branch_pre_plain(branch, a, vxc, vyc, vzc, k,
-                                           window)
-        if n_clamped is not None:
-            n_clamped += ncl
-        return out
-    b = adv.BRANCHES.index(branch)
-    n1, n2, n3 = a.shape
-    grid_shape = (n1 - (b == 0), n2 - (b == 1), n3 - (b == 2))
-    dev = a.device
-    for name, t in (("a", a), ("vxc", vxc), ("vyc", vyc), ("vzc", vzc)):
-        _build.require(name, t, a.shape, torch.float32, dev)
-    out = _launch({branch: a}, (vxc, vyc, vzc), _counter(n_clamped, dev), k,
-                  window, grid_shape, True)[branch]
-    advect_branch_pre.launches += 1
-    return out
-
-
-advect_branch_pre.launches = 0
+    """`advect_pre` on one branch: field `a` of branch 'vx', 'vy', 'vz' or
+    'c' with the advecting velocities vxc, vyc, vzc given at a's shape;
+    returns the new field."""
+    return advect_pre({branch: a}, {branch: (vxc, vyc, vzc)}, k, window,
+                      n_clamped)[branch]
 
 
 def advect_unchained(vx, vy, vz, c, k: StepConsts, window: int = 2,
@@ -179,20 +225,17 @@ def advect_unchained(vx, vy, vz, c, k: StepConsts, window: int = 2,
     """The four reference branches as the JAX package's `build_advect`
     runs them (its `advect_fn`, kernels/advect.py:263-310): per branch the
     face-averaged velocities as torch ops, zero-padded to the branch's
-    shape, then one K6 launch. Returns (vx', vy', vz', c', n_clamped) with
-    n_clamped an int32 tensor of shape (1,) on the fields' device.
-    plain=True runs the plain version on every device."""
-    n_clamped = torch.zeros((1,), dtype=torch.int32, device=vx.device)
-    outs = []
-    for name, a in zip(adv.BRANCHES, (vx, vy, vz, c)):
-        vels = pre_velocities(name, vx, vy, vz)
-        if plain:
-            out, ncl = advect_branch_pre_plain(name, a, *vels, k, window)
-            n_clamped += ncl
-        else:
-            out = advect_branch_pre(name, a, *vels, k, window, n_clamped)
-        outs.append(out)
-    return (*outs, n_clamped)
+    shape, then ONE K6 launch for the four. Returns (vx', vy', vz', c',
+    n_clamped) with n_clamped an int32 tensor of shape (1,) on the fields'
+    device. plain=True runs the plain version on every device."""
+    fields = dict(zip(adv.BRANCHES, (vx, vy, vz, c)))
+    vels = {name: pre_velocities(name, vx, vy, vz) for name in fields}
+    if plain:
+        outs, n_clamped = advect_pre_plain(fields, vels, k, window)
+    else:
+        n_clamped = torch.zeros((1,), dtype=torch.int32, device=vx.device)
+        outs = advect_pre(fields, vels, k, window, n_clamped)
+    return (*outs.values(), n_clamped)
 
 
 def advect(vx, vy, vz, c, k: StepConsts, window: int = 2,

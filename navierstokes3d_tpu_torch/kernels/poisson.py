@@ -1,5 +1,5 @@
 """K1, the folded-BC pseudo-transient Poisson iteration, K8, s of them per
-launch, K10, nit of them in one cooperative launch, K2, its double-single
+launch, K10, nit of them in one launch resident on chip, K2, its double-single
 (hi, lo) form, K7, the iteration with the boundary conditions applied
 in-kernel (compat mode and the dma-mode solve), and the residual
 evaluations of the Poisson solve.
@@ -39,9 +39,14 @@ emit, so the convergence loop takes the same decisions.
 
 K10 (:1151, `kernelR` :1116, `make_resident` :1066) advances nit folded
 iterations in one launch with pr and dpr updated in place, bitwise equal
-to nit K1 launches, and emits the check value entering the last one;
-no solver path runs it (as in the JAX package): `make_resident` and
-ptloop.pt_loop_fused's `seed0` compose it with a K1 loop.
+to nit K1 launches, and emits the check value entering the last one. It
+keeps its state on chip in one of two forms that `resident_plan` picks by
+size: the whole state in one thread block cluster's shared memory, or dpr
+in the shared memory of a grid of one block per SM; a grid that fits
+neither has no K10 (`make_resident` returns None, as the JAX package's
+does above its VMEM budget). No solver path runs it (as in the JAX
+package): `make_resident` and ptloop.pt_loop_fused's `seed0` compose it
+with a K1 loop.
 
 K7 (:914 with folded=False, `compute_slab` :334, `apply_bc_rows` :257) is
 the reference's own loop body: the unfolded iteration on every interior
@@ -413,7 +418,7 @@ def launch_sweeps(pr, dpr, rhs, pr_out, dpr_out, op: PoissonOperator,
 poisson_iter_sweeps.launches = 0
 
 
-# ---- K10: nit folded iterations in one cooperative launch ----
+# ---- K10: nit folded iterations in one launch, resident on chip ----
 
 def _check_nit(nit: int, name: str) -> None:
     if int(nit) < 1:
@@ -428,9 +433,9 @@ def poisson_iter_resident_plain(pr, dpr, rhs, op: PoissonOperator, nit: int,
     _check_nit(nit, "poisson_iter_resident_plain")
     poisson_iter_resident_plain.calls += 1
     spare = torch.empty_like(pr) if scratch is None else scratch
-    # as the kernel: iteration j reads src and writes dst, then they swap;
-    # for an odd nit the input is first copied into the scratch, so that
-    # the last iteration writes the caller's pr
+    # as the grid form: iteration j reads src and writes dst, then they
+    # swap; for an odd nit the input is first copied into the scratch, so
+    # that the last iteration writes the caller's pr
     src, dst = pr, spare
     if nit % 2:
         spare.copy_(pr)
@@ -444,20 +449,130 @@ def poisson_iter_resident_plain(pr, dpr, rhs, op: PoissonOperator, nit: int,
 poisson_iter_resident_plain.calls = 0
 
 
+# K10's launch geometry (csrc/poisson.cu, the K10 section): blocks of 1024
+# threads; form (a) holds pr twice (with a ghost plane at each end of a
+# block's slab), dpr, rhs and the column weights in one cluster of
+# RESIDENT_CLUSTERS[i] blocks (`cluster_smem`), form (b) the dpr of each
+# of K1's tiles (RESIDENT_TILE cells) a block owns, one block per SM. A
+# block's dynamic shared memory stays within SMEM_LIMIT less
+# RESIDENT_STATIC_SMEM (its static reduction words) and is at least
+# RESIDENT_SOLO_SMEM, more than half of an SM's 228 KB, so that no SM
+# holds two blocks. The H100's numbers decide for the CPU's plain version.
+RESIDENT_TILE = 256
+RESIDENT_CLUSTERS = (16, 8)
+RESIDENT_STATIC_SMEM = 256
+RESIDENT_SOLO_SMEM = 118784
+H100_SMS = 132
+H100_MAX_CLUSTER = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidentPlan:
+    """One K10 launch: `form` "cluster" (the whole state in one cluster of
+    `blocks` blocks, block b owning the x planes balanced_part(nx, blocks,
+    b), at most `per_block` of them) or "grid" (dpr in the shared memory
+    of `blocks` blocks, one per SM, block b owning K1's tiles
+    balanced_part(tiles, blocks, b), at most `per_block` of them);
+    `smem_bytes` of dynamic shared memory per block."""
+    form: str
+    blocks: int
+    per_block: int
+    smem_bytes: int
+
+
+def cluster_smem(planes: int, ny: int, nz: int) -> int:
+    """Bytes of shared memory a block of K10's cluster form needs for a
+    slab of `planes` planes: pr twice with two ghost planes each, dpr and
+    rhs, 4 B a cell, and four weights per (y, z) column."""
+    return 16 * (planes + 2) * ny * nz
+
+
+def grid_smem(tiles: int) -> int:
+    """Bytes of shared memory a block of K10's grid form needs for `tiles`
+    of K1's tiles: their dpr, 4 B a cell."""
+    return 4 * RESIDENT_TILE * tiles
+
+
+@functools.lru_cache(maxsize=64)
+def resident_plan(shape: Tuple[int, int, int], sms: int,
+                  max_cluster: int) -> Optional[ResidentPlan]:
+    """K10's form for a grid of `shape` on a card of `sms` SMs that admits
+    clusters of up to `max_cluster` blocks (16, 8 or 0): the cluster form
+    where the state of the largest slab, ceil(nx / blocks) planes, fits a
+    block (`cluster_smem`; the larger cluster that the card admits, so
+    that more SMs share the work); else the grid form where the dpr of
+    ceil(tiles / sms) of K1's 32 x 8 tiles fits a block (`grid_smem`);
+    else None. At 63x38x38 on 132 SMs with clusters of 16: 16 blocks of at
+    most 4 planes (139 KB of state); at 255x153x153: 132 blocks of at most
+    194 tiles (194 KB of dpr); at 511x307x307 neither (1510 tiles a
+    block)."""
+    nx, ny, nz = shape
+    if min(shape) < 1 or sms < 1 or nx * ny * nz >= 2 ** 31:
+        raise ValueError(f"resident_plan: shape {shape}, sms {sms}")
+    room = SMEM_LIMIT - RESIDENT_STATIC_SMEM
+    for blocks in RESIDENT_CLUSTERS:
+        planes = -(-nx // blocks)
+        need = cluster_smem(planes, ny, nz)
+        if blocks <= max_cluster and need <= room:
+            return ResidentPlan("cluster", blocks, planes,
+                                max(need, RESIDENT_SOLO_SMEM))
+    tiles = -(-nz // 32) * -(-ny // 8) * nx
+    per = -(-tiles // sms)
+    need = grid_smem(per)
+    if need <= room:
+        return ResidentPlan("grid", sms, per, max(need, RESIDENT_SOLO_SMEM))
+    return None
+
+
+def resident_caps(device) -> Tuple[int, int]:
+    """(SMs, the largest cluster of K10's cluster form the card admits) of
+    a CUDA device; the H100's for the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return H100_SMS, H100_MAX_CLUSTER
+    return _build.sm_count(device), _max_cluster(
+        device.index if device.index is not None
+        else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _max_cluster(index: int) -> int:
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = _build.load().ns3d_poisson_resident_max_cluster(
+            RESIDENT_SOLO_SMEM, ctypes.byref(out))
+    _build.check(rc, "poisson_resident_max_cluster")
+    return out.value
+
+
 def poisson_iter_resident(pr, dpr, rhs, op: PoissonOperator, nit: int,
                           scratch=None) -> torch.Tensor:
-    """nit folded PT iterations in one cooperative launch, bitwise equal to
-    nit poisson_iter calls: pr and dpr are updated in place (the result
-    lands in the caller's pr; `scratch`, a tensor of pr's shape that
-    aliases no operand, takes the other half of the ping-pong and is
-    allocated when None). Returns the max |resid| over interior cells of
-    the state entering the LAST iteration (a 0-dim tensor on the device):
-    the check value the flagged K1 launch closing a chunk emits. CUDA
-    tensors launch the kernel (or raise, also where the card cannot run
-    a cooperative launch); CPU tensors run the plain version."""
+    """nit folded PT iterations in one launch resident on chip, bitwise
+    equal to nit poisson_iter calls: pr and dpr are updated in place (the
+    result lands in the caller's pr; `scratch`, a tensor of pr's shape
+    that aliases no operand, takes the other half of the grid form's
+    ping-pong and is allocated when None). Returns the max |resid| over
+    interior cells of the state entering the LAST iteration (a 0-dim
+    tensor on the device): the check value the flagged K1 launch closing
+    a chunk emits. CUDA tensors launch the kernel in `resident_plan`'s
+    form, and raise where the grid has none or the card refuses the
+    launch; CPU tensors run the plain version."""
     _check_nit(nit, "poisson_iter_resident")
     if not _build.on_cuda(pr, "poisson_iter_resident"):
         return poisson_iter_resident_plain(pr, dpr, rhs, op, nit, scratch)
+    plan = resident_plan(tuple(pr.shape), *resident_caps(pr.device))
+    if plan is None:
+        raise ValueError(f"poisson_iter_resident: no resident form for a "
+                         f"grid of {tuple(pr.shape)}")
+    return launch_resident(pr, dpr, rhs, op, nit, plan, scratch)
+
+
+def launch_resident(pr, dpr, rhs, op: PoissonOperator, nit: int,
+                    plan: ResidentPlan, scratch=None) -> torch.Tensor:
+    """One K10 launch under a given plan (poisson_iter_resident takes
+    `resident_plan`'s; the card tests force others): the operand checks,
+    the launch, the count."""
+    _check_nit(nit, "launch_resident")
     dev = pr.device
     if scratch is None:
         scratch = torch.empty_like(pr)
@@ -475,9 +590,10 @@ def poisson_iter_resident(pr, dpr, rhs, op: PoissonOperator, nit: int,
         op.wyp.data_ptr(), op.wym.data_ptr(), op.wzp.data_ptr(),
         op.wzm.data_ptr(), ctypes.c_float(op.inv_dx2),
         ctypes.c_float(op.dtau), ctypes.c_float(op.decay),
-        int(op.zero_grad_x), nx, ny, nz, int(nit), err.data_ptr(),
-        _build.stream_of(pr))
-    _build.check(rc, "poisson_iter_resident")
+        int(op.zero_grad_x), nx, ny, nz, int(nit),
+        {"cluster": 1, "grid": 2}[plan.form], plan.blocks, plan.smem_bytes,
+        err.data_ptr(), _build.stream_of(pr))
+    _build.check(rc, f"poisson_iter_resident ({plan.form} form)")
     poisson_iter_resident.launches += 1
     return err.view(torch.float32)[0]
 
@@ -485,14 +601,22 @@ def poisson_iter_resident(pr, dpr, rhs, op: PoissonOperator, nit: int,
 poisson_iter_resident.launches = 0
 
 
-def make_resident(nit: int):
+def make_resident(nit: int, shape: Optional[Tuple[int, int, int]] = None,
+                  device="cpu"):
     """The counterpart of the JAX package's `make_resident`
     (kernels/poisson.py:1066): a callable run(pr, dpr, rhs, op) -> (pr,
     dpr, err) that advances nit folded iterations in one K10 launch, with
     the result in the caller's pr and dpr (K10's aliasing) and err the
-    check value of the state entering the last iteration. The scratch
-    half of the ping-pong is kept between calls of one shape."""
+    check value of the state entering the last iteration; the scratch
+    half of the ping-pong is kept between calls of one shape. Given the
+    grid's `shape`, it returns None where K10 has no form for that grid
+    on `device` (`resident_plan`; the CPU's plain version answers as an
+    H100 would), as the JAX package's returns None above its VMEM
+    budget."""
     _check_nit(nit, "make_resident")
+    if shape is not None and resident_plan(
+            tuple(shape), *resident_caps(device)) is None:
+        return None
     scratch = {}
 
     def run(pr, dpr, rhs, op: PoissonOperator):

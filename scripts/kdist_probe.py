@@ -38,13 +38,9 @@ as the last line one JSON object of the results.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import json
-import shutil
-import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -61,6 +57,7 @@ REPO = Path(ARGS.repo).resolve()
 sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402  (the checkout's: package, timers, tables)
+from probe_lib import build_aside, library  # noqa: E402
 
 nt, kp, _build = cs.nt, cs.k_poisson, cs._build
 # thread-block configurations of the copy: threads per block, blocks per SM
@@ -186,40 +183,6 @@ def check_bitwise(name, fn, plain, nout, like) -> None:
                                f"{float(eb)}")
 
 
-def build_aside(src_dir: Path, name: str, patch=None) -> ctypes.CDLL:
-    """Compile one source (optionally patched) into a library of its own
-    in a temporary directory under the checkout's _build/."""
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
-    for f in src_dir.glob("*.cu*"):
-        shutil.copy(f, tmp / f.name)
-    if patch is not None:
-        src = (tmp / name).read_text()
-        for old, new in patch:
-            src = src.replace(old, new)
-        (tmp / name).write_text(src)
-    lib = tmp / f"lib{Path(name).stem}_aside.so"
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(tmp),
-                    "-shared", "-o", str(lib), str(tmp / name)], check=True,
-                   capture_output=True, text=True)
-    return ctypes.CDLL(str(lib))
-
-
-@contextlib.contextmanager
-def library(cdll):
-    """Route the wrappers' launches to another build of poisson.cu."""
-    for fname, argtypes in _build.SIGNATURES.items():
-        if hasattr(cdll, fname):
-            getattr(cdll, fname).argtypes = list(argtypes)
-            getattr(cdll, fname).restype = ctypes.c_int
-    load = _build.load
-    _build.load = lambda: cdll
-    try:
-        yield
-    finally:
-        _build.load = load
-
-
 def copy_ceiling(copy_lib, nbytes: int, flush=None) -> dict:
     """The fastest grid-stride float4 copy of nbytes/2 bytes (read) into
     as many (written), over COPY_GRIDS; with `flush`, each launch after a
@@ -288,11 +251,12 @@ def main() -> int:
                                 like.numel())
     print("[bitwise] every dist case, K7 and K2-dist's whole grid equal to "
           "their plain versions, with the check value", flush=True)
-    copy_lib = build_aside(HERE, "copy_ceiling.cu")
+    copy_lib = build_aside(_build, HERE, "copy_ceiling.cu")
     ring = None
     src = (_build.SRC_DIR / "poisson.cu").read_text()
     if all(src.count(old) == 1 for old, _ in RING_FORMS):
-        ring = build_aside(_build.SRC_DIR, "poisson.cu", RING_FORMS)
+        ring = build_aside(_build, _build.SRC_DIR, "poisson.cu",
+                           {"poisson.cu": RING_FORMS})
     flush = torch.empty(2 ** 25, device="cuda")
     rows = {name: {"runs": [], "ring_const_runs": []} for name in table}
     for rnd in range(ARGS.rounds):
@@ -308,7 +272,7 @@ def main() -> int:
                 _, rows[name]["cold_ms"] = device_ms(
                     lambda: (flush.zero_(), fn(o, False)), ARGS.reps // 2)
             if ring is not None and not name.startswith("K2 "):
-                with library(ring):
+                with library(_build, ring):
                     _, ms = device_ms(lambda: fn(o, False), ARGS.reps)
                 rows[name]["ring_const_runs"].append(ms)
     ceilings = {}

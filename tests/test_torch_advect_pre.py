@@ -136,3 +136,42 @@ def test_wrapper_adds_into_the_clamp_count():
                              _consts(1.0), 2, total)
     assert int(total.item()) == int(ka.advect_unchained(
         vx, vy, vz, c, _consts(1.0), 2)[4].item()) > 0
+
+
+@pytest.fixture(scope="module")
+def jax_clamped():
+    """The JAX package's K6 (build_advect, interpret mode) on CASES[1]'s
+    inputs, where displacements clamp."""
+    dims, dt, scale, k, _ = CASES[1]
+    fields = _fields(*dims, 4, scale)
+    fn = build_advect(*dims, dt, DX, DY, DZ, k=k, dtype=jnp.float32,
+                      interpret=True)
+    return fields, jax.jit(fn)(*map(jnp.asarray, fields))
+
+
+@pytest.mark.parametrize("mask", range(1, 16))
+def test_advect_pre_is_one_branch_calls_and_jax(jax_clamped, mask):
+    """K6's call on the branches of a mask (one launch on the card): its
+    plain path bitwise equal to one `advect_branch_pre` call per branch,
+    the clamp count their sum, and each branch against the JAX package's
+    K6 as test_advect_unchained_matches_jax_kernel holds it."""
+    fields, want = jax_clamped
+    dims, dt, scale, k, _ = CASES[1]
+    tensors = dict(zip(tadv.BRANCHES, map(torch.tensor, fields)))
+    names = [b for i, b in enumerate(tadv.BRANCHES) if mask >> i & 1]
+    vels = {b: ka.pre_velocities(b, tensors["vx"], tensors["vy"],
+                                 tensors["vz"]) for b in names}
+    total = torch.zeros((1,), dtype=torch.int32)
+    ka.advect_pre_plain.calls = ka.advect_branch_pre_plain.calls = 0
+    got = ka.advect_pre({b: tensors[b] for b in names}, vels, _consts(dt), k,
+                        total)
+    assert ka.advect_pre_plain.calls == 1
+    assert ka.advect_branch_pre_plain.calls == len(names)
+    assert list(got) == names
+    one = torch.zeros((1,), dtype=torch.int32)
+    for b in names:
+        ref = ka.advect_branch_pre(b, tensors[b], *vels[b], _consts(dt), k,
+                                   one)
+        assert torch.equal(got[b], ref), b
+        _close(got[b], want[tadv.BRANCHES.index(b)])
+    assert int(total.item()) == int(one.item()) > 0

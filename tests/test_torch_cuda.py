@@ -20,6 +20,7 @@ import torch
 
 import navierstokes3d_tpu_torch as nt
 from navierstokes3d_tpu_torch import kernels
+from navierstokes3d_tpu_torch.kernels import _build
 from navierstokes3d_tpu_torch.kernels import advect as ka
 from navierstokes3d_tpu_torch.kernels import fused_step as kf
 from navierstokes3d_tpu_torch.kernels import poisson as kp
@@ -584,64 +585,242 @@ def test_sharded_step_on_card_matches_cpu(compat):
         assert (k.wrapper.launches > 0) == k.name.startswith(on), k.name
 
 
+def _nan_pads(branch, vels):
+    """K6's operands with NaN in the pads of the branch's staggered axis
+    (its write region keeps them unread)."""
+    axis = ka._PAD_AXIS[branch]
+    out = []
+    for v in vels:
+        v = v.clone()
+        if axis is not None:
+            v.select(axis, 0).fill_(float("nan"))
+            v.select(axis, -1).fill_(float("nan"))
+        out.append(v)
+    return tuple(out)
+
+
+def _k6_inputs(shape, scale, seed):
+    nx, ny, nz = shape
+    rng = np.random.default_rng(seed)
+    vx = _rand(rng, (nx + 1, ny, nz), scale)
+    vy = _rand(rng, (nx, ny + 1, nz), scale)
+    vz = _rand(rng, (nx, ny, nz + 1), scale)
+    c = torch.tensor(rng.uniform(size=shape).astype(np.float32),
+                     device="cuda")
+    return vx, vy, vz, c
+
+
 @pytest.mark.parametrize("scale", [0.25, 3.0])
 def test_k6_matches_plain_and_k5(solver, scale):
-    """K6 on each branch from its torch-op face averages (NaN in the pads,
-    which its write mask keeps unread): bitwise equal to its plain version
-    and to K5 on the same velocities, equal clamp counts."""
-    g, rng = solver.grid, np.random.default_rng(3)
-    vx = _rand(rng, g.shape_vx, scale)
-    vy = _rand(rng, g.shape_vy, scale)
-    vz = _rand(rng, g.shape_vz, scale)
-    c = torch.tensor(rng.uniform(size=g.shape_c).astype(np.float32),
-                     device="cuda")
+    """K6 on the four branches from their torch-op face averages (NaN in
+    the pads, which its write region keeps unread), in one launch:
+    bitwise equal to its plain version and to K5 on the same velocities,
+    equal clamp counts."""
+    vx, vy, vz, c = _k6_inputs(solver.grid.shape_c, scale, 3)
     k, w = solver._consts, solver.advect_k
+    fields = dict(zip(("vx", "vy", "vz", "c"), (vx, vy, vz, c)))
+    vels = {name: ka.pre_velocities(name, vx, vy, vz) for name in fields}
     n6 = torch.zeros((1,), dtype=torch.int32, device="cuda")
-    n5 = torch.zeros_like(n6)
-    n_plain = 0
-    for name, a in zip(("vx", "vy", "vz", "c"), (vx, vy, vz, c)):
-        vels = ka.pre_velocities(name, vx, vy, vz)
-        axis = ka._PAD_AXIS[name]
-        poisoned = []
-        for v in vels:
-            v = v.clone()
-            if axis is not None:
-                v.select(axis, 0).fill_(float("nan"))
-                v.select(axis, -1).fill_(float("nan"))
-            poisoned.append(v)
-        out = ka.advect_branch_pre(name, a, *poisoned, k, w, n6)
-        ref, ncl = ka.advect_branch_pre_plain(name, a, *vels, k, w)
-        k5 = ka.advect_branch(name, a, vx, vy, vz, k, w, n5)
-        n_plain += int(ncl)
-        assert torch.equal(out, ref) and torch.equal(out, k5), name
-    assert int(n6.item()) == n_plain == int(n5.item())
-    assert (n_plain > 0) == (scale > 1.0)
+    n0 = ka.advect_pre.launches
+    out = ka.advect_pre(fields, {name: _nan_pads(name, v)
+                                 for name, v in vels.items()}, k, w, n6)
+    assert ka.advect_pre.launches == n0 + 1
+    ref, n_plain = ka.advect_pre_plain(fields, vels, k, w)
+    k5 = ka.advect(vx, vy, vz, c, k, w)
+    for i, name in enumerate(fields):
+        assert torch.equal(out[name], ref[name]), name
+        assert torch.equal(out[name], k5[i]), name
+    assert int(n6.item()) == int(n_plain.item()) == int(k5[4].item())
+    assert (int(n6.item()) > 0) == (scale > 1.0)
+
+
+@pytest.mark.parametrize("shape", [(9, 8, 32), (10, 9, 33), (7, 17, 65)])
+@pytest.mark.parametrize("mask", range(1, 16))
+def test_k6_one_launch_masks(shape, mask):
+    """K6's one launch on every mask of one to four branches, on grids
+    whose union grid is one past a block multiple (ny + 1, nz + 1 against
+    the 8 x 32 block), with NaN pads and clamped points: bitwise equal to
+    the plain version, equal clamp counts, and the outputs of the other
+    branches not written."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    vx, vy, vz, c = _k6_inputs(shape, 3.0, mask)
+    k = _solver(17)._consts
+    names = [n for i, n in enumerate(("vx", "vy", "vz", "c"))
+             if mask >> i & 1]
+    fields = {n: f for n, f in zip(("vx", "vy", "vz", "c"),
+                                   (vx, vy, vz, c)) if n in names}
+    vels = {n: ka.pre_velocities(n, vx, vy, vz) for n in names}
+    n6 = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    out = ka.advect_pre(fields, {n: _nan_pads(n, v) for n, v in vels.items()},
+                        k, 2, n6)
+    ref, n_plain = ka.advect_pre_plain(fields, vels, k, 2)
+    assert sorted(out) == sorted(names)
+    for n in names:
+        assert torch.equal(out[n], ref[n]), n
+    assert int(n6.item()) == int(n_plain.item()) > 0
+
+
+def _k10_inputs(shape, seed=8):
+    rng = np.random.default_rng(seed)
+    return (_rand(rng, shape), _rand(rng, shape, 0.01), _rand(rng, shape))
+
+
+def _k10_operator(shape, zero_grad_x=False):
+    nx, ny, nz = shape
+    m = {k: np.ones(n - 2) for k, n in zip(("xm", "xp", "ym", "yp", "zm",
+                                            "zp"), (nx, nx, ny, ny, nz, nz))}
+    m["ym"][0] = m["yp"][-1] = m["zm"][0] = m["zp"][-1] = 0.0
+    if zero_grad_x:
+        m["xm"][0] = 0.0
+    grid = types.SimpleNamespace(dx=0.1, dy=0.12, dz=0.09, dtau=0.01,
+                                 damp=0.9)
+    return kp.make_operator(m, grid, torch.float32, "cuda")
+
+
+def _k10_against_k1(shape, op, nit, plan=None):
+    """K10 (under `plan`, or resident_plan's) from seeded inputs, NaN in
+    the scratch, against nit K1 launches and the plain version: pr, dpr
+    and the check value bitwise, the result in the caller's tensors."""
+    pr, dpr, rhs = _k10_inputs(shape)
+    p, d = pr.clone(), dpr.clone()
+    scratch = torch.full_like(pr, float("nan"))
+    if plan is None:
+        e = kp.poisson_iter_resident(p, d, rhs, op, nit, scratch)
+    else:
+        e = kp.launch_resident(p, d, rhs, op, nit, plan, scratch)
+    q, dq = pr.clone(), dpr.clone()
+    for j in range(nit):
+        o = torch.empty_like(q)
+        e1 = kp.poisson_iter(q, o, dq, rhs, op, j == nit - 1)
+        q = o
+    pp, dp = pr.clone(), dpr.clone()
+    ep = kp.poisson_iter_resident_plain(pp, dp, rhs, op, nit)
+    assert torch.equal(p, q) and torch.equal(d, dq)
+    assert torch.equal(p, pp) and torch.equal(d, dp)
+    assert float(e) == float(e1) == float(ep)
 
 
 @pytest.mark.parametrize("nit", [1, 2, 5, 38])
 def test_k10_matches_k1_launches_and_plain(nit):
-    """K10 at 64x39x39 (several tiles on every axis): one cooperative
-    launch bitwise equal to nit K1 launches and to its plain version, the
-    check value that of the last K1 launch, the result in the caller's
-    pr and dpr."""
+    """K10 at 64x39x39 in resident_plan's form (the cluster form where
+    the card admits a cluster): one launch bitwise equal to nit K1
+    launches and to its plain version, the check value that of the last
+    K1 launch, the result in the caller's pr and dpr."""
     solver = _solver(64)
-    g, rng = solver.grid, np.random.default_rng(8)
-    pr = _rand(rng, g.shape_c)
-    dpr = _rand(rng, g.shape_c, 0.01)
-    rhs = _rand(rng, g.shape_c)
+    plan = kp.resident_plan(solver.grid.shape_c,
+                            *kp.resident_caps(torch.device("cuda")))
+    assert plan.form == "cluster"
+    _k10_against_k1(solver.grid.shape_c, solver._op, nit)
+
+
+@pytest.mark.parametrize("nit", [1, 2, 3, 6])
+@pytest.mark.parametrize("blocks,below", [(16, 0), (16, 1), (8, 0), (8, 1)])
+@pytest.mark.parametrize("zero_grad_x", [False, True])
+def test_k10_cluster_form_at_its_limit(nit, blocks, below, zero_grad_x):
+    """K10's cluster form on clusters of 8 and 16 blocks (where the card
+    admits them) at the largest grid of 38x38 planes a cluster holds and
+    one plane below it: bitwise equal to nit K1 launches and the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    if blocks > kp.resident_caps(torch.device("cuda"))[1]:
+        pytest.skip(f"the card admits no cluster of {blocks} blocks")
+    ny = nz = 38
+    room = kp.SMEM_LIMIT - kp.RESIDENT_STATIC_SMEM
+    per = max(n for n in range(1, 64) if kp.cluster_smem(n, ny, nz) <= room)
+    shape = (blocks * per - below, ny, nz)
+    plan = kp.ResidentPlan("cluster", blocks, per,
+                           max(kp.cluster_smem(per, ny, nz),
+                               kp.RESIDENT_SOLO_SMEM))
+    _k10_against_k1(shape, _k10_operator(shape, zero_grad_x), nit, plan)
+
+
+def test_k10_cluster_form_is_deterministic():
+    """The cluster form at 63x38x38 (nit 37) from a state near its float32
+    noise floor (100 launches in place first) and from the seeded one:
+    forty launches from the same state all give the same pr, dpr and check
+    value, the K1 chain's. (A barrier that let a block read a ghost plane
+    early would show here now and then, not in every run.)"""
+    solver = _solver(63)
+    op, shape = solver._op, solver.grid.shape_c
+    pr, dpr, rhs = _k10_inputs(shape)
     p, d = pr.clone(), dpr.clone()
-    e = kp.poisson_iter_resident(p, d, rhs, solver._op, nit,
-                                 torch.full_like(pr, float("nan")))
-    q, dq = pr.clone(), dpr.clone()
-    for j in range(nit):
-        o = torch.empty_like(q)
-        e1 = kp.poisson_iter(q, o, dq, rhs, solver._op, j == nit - 1)
-        q = o
-    pp, dp = pr.clone(), dpr.clone()
-    ep = kp.poisson_iter_resident_plain(pp, dp, rhs, solver._op, nit)
-    assert torch.equal(p, q) and torch.equal(d, dq)
-    assert torch.equal(p, pp) and torch.equal(d, dp)
-    assert float(e) == float(e1) == float(ep)
+    for _ in range(100):
+        kp.poisson_iter_resident(p, d, rhs, op, 37)
+    for p0, d0 in ((pr, dpr), (p, d)):
+        want = None
+        for _ in range(40):
+            q, dq = p0.clone(), d0.clone()
+            e = float(kp.poisson_iter_resident(q, dq, rhs, op, 37))
+            if want is None:
+                want = (q, dq, e)
+                k1, dk1 = p0.clone(), d0.clone()
+                for j in range(37):
+                    o = torch.empty_like(k1)
+                    e1 = kp.poisson_iter(k1, o, dk1, rhs, op, j == 36)
+                    k1 = o
+                assert torch.equal(q, k1) and torch.equal(dq, dk1)
+                assert e == float(e1)
+            assert torch.equal(q, want[0]) and torch.equal(dq, want[1])
+            assert e == want[2]
+
+
+@pytest.mark.parametrize("nit", [1, 2, 7])
+@pytest.mark.parametrize("shape,blocks", [((40, 25, 70), None),
+                                          ((33, 17, 65), 7),
+                                          ((12, 9, 33), 5)])
+def test_k10_grid_form(nit, shape, blocks):
+    """K10's grid form (dpr in shared memory) on grids of several tiles on
+    every axis, ragged in y and z, one block per SM or a forced few
+    blocks: bitwise equal to nit K1 launches and the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    sms = _build.sm_count(torch.device("cuda"))
+    blocks = blocks or sms
+    tiles = -(-shape[2] // 32) * -(-shape[1] // 8) * shape[0]
+    per = -(-tiles // blocks)
+    plan = kp.ResidentPlan("grid", blocks, per,
+                           max(kp.grid_smem(per),
+                               kp.RESIDENT_SOLO_SMEM))
+    for zero_grad_x in (False, True):
+        _k10_against_k1(shape, _k10_operator(shape, zero_grad_x), nit, plan)
+
+
+def test_k10_refused_launches_raise():
+    """A launch the card refuses raises with its CUDA error and does not
+    fall back: no count, no plain version, no K1 launch; a grid with no
+    resident form raises before launching."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    shape = (12, 9, 33)
+    op = _k10_operator(shape)
+    pr, dpr, rhs = _k10_inputs(shape)
+    sms = _build.sm_count(torch.device("cuda"))
+    kernels.reset_counts()
+    refused = (
+        # more blocks than the card holds co-resident
+        kp.ResidentPlan("grid", 4 * sms, 1, kp.SMEM_LIMIT),
+        # more shared memory than a block has
+        kp.ResidentPlan("cluster", 8, 2, kp.SMEM_LIMIT + 4096),
+        # a cluster larger than any the card forms
+        kp.ResidentPlan("cluster", 32, 1, kp.RESIDENT_SOLO_SMEM))
+    for plan in refused:
+        with pytest.raises(RuntimeError, match="poisson_iter_resident"):
+            kp.launch_resident(pr.clone(), dpr.clone(), rhs, op, 3, plan)
+    # one plane more than the grid form holds at 153x153 (100 tiles a plane)
+    room = kp.SMEM_LIMIT - kp.RESIDENT_STATIC_SMEM
+    per = max(n for n in range(1, 300)
+              if kp.grid_smem(n) <= room)
+    big = (per * sms // 100 + 1, 153, 153)
+    assert kp.resident_plan(big, sms, 16) is None
+    p = torch.zeros(big, device="cuda")
+    with pytest.raises(ValueError, match="no resident form"):
+        kp.poisson_iter_resident(p, p.clone(), p.clone(),
+                                 _k10_operator(big), 2)
+    assert kp.make_resident(2, big, "cuda") is None
+    for k in kernels.KERNELS:
+        assert k.wrapper.launches == 0 and k.plain.calls == 0, k.name
 
 
 @pytest.mark.parametrize("preset", ["gpu", "multi"])

@@ -1,5 +1,5 @@
 """The unchained step (ChorinSolver(..., fused_step=False): the chain as
-torch ops, the same Poisson solve, the advection branches on K6) against
+torch ops, the same Poisson solve, the advection branches on K6, one call for the four) against
 the JAX package's unchained `_step_impl` branch, which it takes under
 NS3D_FUSED_STEP=0 (models/chorin.py:1806-1841): two steps of the gpu
 preset at nx=15 (it diverges at 24 in the JAX package itself) and of the
@@ -33,6 +33,7 @@ import torch
 
 import navierstokes3d_tpu_torch as nt
 from navierstokes3d_tpu_torch import kernels
+from navierstokes3d_tpu_torch.kernels import advect as ka
 
 torch.set_num_threads(2)
 FIELDS = ("pr", "vx", "vy", "vz", "c", "dprdtau")
@@ -129,10 +130,11 @@ def test_unchained_steps_match_jax(jax_ref, name):
                 _close(getattr(st, f).numpy(), ref[f"{name}{k}_{f}"], tol,
                        f"{f} step {k + 1}")
         assert s.stored_residual_err(st, divv=divv) < 1e-3
-    # K6 ran four times a step; K3, K4 and K5 not at all (predictor_divv
-    # runs the unchained chain too)
+    # K6 ran once a step, on the four branches; K3, K4 and K5 not at all
+    # (predictor_divv runs the unchained chain too)
     calls = {kk.name.split()[0]: kk.plain.calls for kk in kernels.KERNELS}
-    assert calls["K6"] == 4 * NSTEPS
+    assert calls["K6"] == NSTEPS
+    assert ka.advect_branch_pre_plain.calls == 4 * NSTEPS
     assert calls["K3"] == calls["K4"] == calls["K5"] == 0
     assert calls["K1"] > 0
 
@@ -160,7 +162,8 @@ def test_unchained_plain_runs_k6_plain():
     _, stats = s.step(s.init_state())
     assert stats.iters > 0
     calls = {kk.name.split()[0]: kk.plain.calls for kk in kernels.KERNELS}
-    assert calls["K6"] == 4 and calls["K5"] == 0
+    assert calls["K6"] == 1 and calls["K5"] == 0
+    assert ka.advect_branch_pre_plain.calls == 4
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--jax"]:
