@@ -121,6 +121,38 @@ Phases (any failure exits non-zero; nothing is caught):
      the rest in pt_loop_fused(seed0=True) on K1, with the launch counts
      set to 0 just before and read just after: the unseeded K1 loop's
      iterations, err and fields, bitwise
+ 17. fdm solve: the fdm backend's direct solve alone at 255 (gpu
+     variant, ops/fdm_poisson.py, refine=0) on a seeded RHS against the
+     host's float64 solve (solve_host_f64), the relative error printed and
+     bounded by FDM_SOLVE_RTOL; with TF32 turned on
+     (set_float32_matmul_precision('high')) an unguarded product differs
+     while the solve stays bitwise equal; its time (and that of its three
+     forward transforms and of the modal division) against its bound, the
+     FLOPs of six transforms at the float32 rate against the bytes of the
+     RHS, the solution and the eigenbases at the HBM rate
+ 18. fdm paths: ChorinSolver with poisson_backend='fdm' for the gpu and the
+     multi preset at 255, 4 steps each from init_state, launch counts set
+     to 0 just before and read just after: K3, K4 and K5 launched, no
+     Poisson kernel, no plain version; every step within fdm_refine
+     refinement rounds, err and the stored-state error below eps_it,
+     finite fields; the rounds and err per step beside the JAX package's
+     record; K3 with the step's constants (the gpu variant's g_eff = g:
+     no hydrostatic split under fdm) bitwise, K4 with the unsplit pressure
+     within MAX_ULP and K5 bitwise, on the last state; one more step
+     traced, its device time grouped into the transforms (cuBLAS), K3, K4,
+     K5 and the elementwise rest, with the idle share; the gpu path's step
+     1 again with TF32 on, every field bitwise equal
+ 19. io: run.main on the card, the multi preset at 63: --nt 4 --save
+     --nsave 2 --checkpoint-every 2, then --resume --nt 6, against an
+     uninterrupted --nt 6: the final checkpoints bitwise equal, the .bin
+     frames of step 4 byte-identical to numpy's column-major writer, the
+     native writer (csrc/ns3dio.cpp, g++) built
+ 20. compat_api: run_navierstokes3d(nx=63, nt=3) with its defaults
+     (compat, float64) on the card: the golden iterations [37, 259, 296]
+     and Pr probes; runme(do_vis=False, do_save=True, nx=63, nt=2): the
+     CPU's iterations, finite fields, step_0.mat written
+ 21. fdm wide: the gpu preset with the fdm backend at 511x307x307 for 2
+     steps, as phase 18 (K3 at g_eff = g bitwise there too)
 Each traced step launches a marker kernel first and counts what follows
 it (the tracer may drop a launch at its window's edge), and says how many
 of its K3 launches the trace holds. The line before the last is a JSON
@@ -136,6 +168,7 @@ import dataclasses
 import functools
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -242,6 +275,23 @@ WIDE_NX = 511
 WIDE_STEPS = 2
 WIDE_SWEEPS = 3
 COMPAT_STEPS = 4
+# the fdm backend's paths: the gpu and multi presets at 255 for FDM_STEPS
+# steps, the gpu preset at the wide grid for FDM_WIDE_STEPS; the solve
+# alone at 255 against the host's float64 solve within FDM_SOLVE_RTOL of
+# max|p| (float32 transforms of ~250 terms: ~1e-6 expected)
+FDM_STEPS = 4
+FDM_WIDE_STEPS = 2
+FDM_SOLVE_RTOL = 1e-4
+# the traced fdm step's groups: the kernels by their device symbols, the
+# transforms by cuBLAS's kernel names, everything else elementwise
+FDM_GROUPS = (("K3", "predict_kernel"), ("K4", "correct_kernel"),
+              ("K5", "advect_kernel"))
+MATMUL_NAME = re.compile(r"gemm|xmma|cutlass|cublas", re.IGNORECASE)
+# the I/O round trip through run.main: the multi preset at 63
+IO_NX = 63
+# runme(nx=63, nt=2) with its defaults (gpu preset, compat, float64): the
+# port's iterations on the CPU
+RUNME_ITERS = [814, 814]
 # the golden configuration and its values, copied from tests/test_golden.py
 # (preset_multi(nx=63, nt=3), compat, float64, 3 steps from init_state):
 # Poisson iterations per step and Pr at the reference test's 1-based probe
@@ -805,7 +855,8 @@ def run_steps(solver, nsteps: int, label: str, ref_iters=None,
     total = sum(wall)
     print(f"[{label}] {total / nsteps:.4f} s/step, "
           f"{sum(iters) / total:.1f} Poisson iterations/s "
-          f"({sum(iters)} iterations, {sum(ext)} of them K2 or defect "
+          f"({sum(iters)} iterations, {sum(e or 0 for e in ext)} of them "
+          f"K2 or defect "
           f"correction, in {total:.3f} s)")
     for name, (launches, plain) in counts.items():
         print(f"[{label}] {name}: {launches} launches, plain version "
@@ -1851,6 +1902,274 @@ def phase_resident(smi):
     return {K10_NAME: r}, counts
 
 
+def fdm_solver(make, nx: int) -> "nt.ChorinSolver":
+    """The preset's float32 solver with the fdm backend, on the card."""
+    cfg = make(nx=nx, compat=False, dtype="float32")
+    return nt.ChorinSolver(cfg.replace(numerics=dataclasses.replace(
+        cfg.numerics, poisson_backend="fdm")), device="cuda")
+
+
+def fdm_flops(shape) -> int:
+    """float32 operations of one direct solve (refine=0): six transforms,
+    each 2*m1*m2*m3*(m1+m2+m3) over the three axes' products, and one
+    division a cell."""
+    m1, m2, m3 = shape
+    return 2 * (2 * m1 * m2 * m3 * (m1 + m2 + m3)) + m1 * m2 * m3
+
+
+def phase_fdm_solve(smi) -> dict:
+    """The fdm solve alone at 255 (gpu variant): the card's float32 solve
+    of a seeded RHS against the host's float64 solve (relative error
+    bounded by FDM_SOLVE_RTOL), bitwise the same with TF32 turned on (and
+    an unguarded product under TF32 shown to differ, so the switch was
+    live), then its time against its bound."""
+    from navierstokes3d_tpu_torch.ops.fdm_poisson import solve_host_f64
+    s = fdm_solver(nt.preset_gpu, NX)
+    g, fdm = s.grid, s._fdm
+    rng = np.random.default_rng(7)
+    rhs64 = rng.normal(size=fdm.shape) * 1e5
+    rhs = torch.tensor(rhs64.astype(np.float32), device="cuda")
+    p = fdm(rhs, refine=0)
+    torch.cuda.synchronize()
+    ref = solve_host_f64(g, "gpu", rhs64)
+    rel = float(np.abs(p.cpu().numpy() - ref).max() / np.abs(ref).max())
+    print(f"[fdm solve] {g.nx}x{g.ny}x{g.nz} (interior {fdm.shape}): card "
+          f"float32 against host float64, max rel err {rel:.3e} (bound "
+          f"{FDM_SOLVE_RTOL:g})")
+    require(rel < FDM_SOLVE_RTOL, f"fdm solve rel err {rel}")
+    prev = torch.get_float32_matmul_precision()
+    f2 = rhs.reshape(fdm.shape[0], -1)
+    raw_ieee = torch.matmul(fdm._qxT, f2)
+    torch.set_float32_matmul_precision("high")
+    try:
+        raw_tf32 = torch.matmul(fdm._qxT, f2)
+        p_tf32 = fdm(rhs, refine=0)
+        require(torch.get_float32_matmul_precision() == "high",
+                "fdm solve did not restore the caller's precision")
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    torch.cuda.synchronize()
+    live = not bitwise(raw_ieee, raw_tf32)
+    print(f"[fdm solve] TF32 on: an unguarded x transform differs "
+          f"({live}); the solve bitwise equal to the IEEE one "
+          f"({bitwise(p, p_tf32)})")
+    require(live, "TF32 did not change an unguarded product: the check "
+            "would not see the guard fail")
+    require(bitwise(p, p_tf32), "fdm solve differs with TF32 on")
+    ms = cuda_ms(lambda: fdm(rhs, refine=0), 20)
+    ms_t = cuda_ms(lambda: fdm.to_modal(rhs), 20)
+    ms_d = cuda_ms(lambda: fdm.modal_scale(rhs), 20)
+    flops = fdm_flops(fdm.shape)
+    nbytes = 2 * rhs.numel() * 4 + sum(
+        q.numel() * 4 for q in (fdm._qx, fdm._qy, fdm._qz))
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row = dict(ms=ms, to_modal_ms=ms_t, modal_scale_ms=ms_d,
+               flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               rel_err_vs_f64=rel)
+    print(f"[fdm solve] one solve {ms:.4f} ms (three transforms "
+          f"{ms_t:.4f} ms, the modal division {ms_d:.4f} ms); "
+          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB: bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}), at "
+          f"{100 * row['bound_ms'] / ms:.1f}% of it; "
+          f"{flops / ms / 1e9:.2f} TFLOP/s ({smi})")
+    print(f"[fdm solve] {json.dumps(row)}")
+    return row
+
+
+def fdm_breakdown(prof: dict, label: str) -> None:
+    """One traced fdm step's device time by group: cuBLAS's matmuls (the
+    transforms), K3, K4, K5, and the rest (elementwise passes and
+    reductions: the RHS pair, the compensated residual, the refinement's
+    two_sum, the BCs, the modal division), with the idle share."""
+    groups = dict.fromkeys(("matmuls", "K3", "K4", "K5", "elementwise"), 0.0)
+    for name, (us, _) in prof["by_name"].items():
+        key = next((k for k, sym in FDM_GROUPS if sym in name), None)
+        if key is None:
+            key = "matmuls" if MATMUL_NAME.search(name) else "elementwise"
+        groups[key] += us
+    busy, span = prof["busy"], prof["span"]
+    require(busy > 0, f"{label}: the traced step recorded no device time")
+    parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({100 * v / busy:.1f}%)"
+                      for k, v in groups.items())
+    print(f"[{label} trace] by group: {parts}; busy {busy / 1e3:.3f} ms, "
+          f"idle {100 * (1 - busy / span):.2f}% of the kernel span, wall "
+          f"{prof['wall'] * 1e3:.2f} ms")
+
+
+def check_fdm_kernels(solver, state, label) -> None:
+    """K3 with the fdm step's constants (g_eff = g in the gpu variant: no
+    hydrostatic split) on the state's velocities, bitwise; K4 with its
+    unsplit pressure within MAX_ULP; K5 on its velocities, bitwise."""
+    k, masks = solver._consts, solver.masks
+    vx, vy, vz = state.vx, state.vy, state.vz
+    check_k3(vx, vy, vz, masks, k, f"{label}, g_eff {k.g_eff}")
+    a = k_step.correct(vx, vy, vz, state.pr, masks, k)
+    b = k_step.correct_plain(vx, vy, vz, state.pr, masks, k)
+    u = max(max_ulp(x, y) for x, y in zip(a, b))
+    print(f"[kernels] K4 correct ({label}, unsplit pressure up to "
+          f"{float(state.pr.abs().max()):.4g}): max ulp {u}")
+    require(u <= MAX_ULP, f"K4 ({label}) differs by {u} ulp")
+    del a, b
+    check_k5((vx, vy, vz, state.c), k, solver.advect_k, label)
+
+
+def run_fdm(solver, nsteps: int, label: str, smi) -> dict:
+    """nsteps of an fdm path from init_state (counts as the main paths'):
+    K3, K4 and K5 launched, no Poisson kernel and no plain version; every
+    step within fdm_refine rounds, err and the stored-state error below
+    eps_it, finite fields; the rounds and err beside the JAX package's
+    record; then K3/K4/K5 held on the last state and one step traced."""
+    g, num = solver.grid, solver.cfg.numerics
+    print(f"[{label}] grid {g.nx}x{g.ny}x{g.nz} float32, fdm_refine "
+          f"{num.fdm_refine}, eps_it {num.eps_it}, g_eff "
+          f"{solver._consts.g_eff} ({smi}); the JAX package's TPU record: "
+          f"1 round a step, err ~1.4e-8 at 255, 6.6e-8 at 511")
+    counts, iters, states, stats = run_steps(solver, nsteps, label,
+                                             clamps_allowed=True)
+    for name, (launches, _) in counts.items():
+        on_path = name.split()[0] in ("K3", "K4", "K5")
+        require((launches > 0) == on_path,
+                f"{label}: {name} launched {launches} times")
+    for step, st in enumerate(stats):
+        require(st.iters <= num.fdm_refine,
+                f"{label} step {step + 1}: {st.iters} rounds")
+    stored_errs(solver, states, label, range(1, nsteps + 1))
+    print(f"[{label}] rounds {iters}, err "
+          f"{[float(st.err) for st in stats]}")
+    check_fdm_kernels(solver, states[-1], label)
+    fdm_breakdown(profile_step(solver, states[-1], label), label)
+    return counts, states
+
+
+def phase_fdm_paths(smi) -> list:
+    """The fdm backend's paths: gpu and multi at 255 for FDM_STEPS steps,
+    the gpu one's step 1 again with TF32 on (bitwise)."""
+    out = []
+    for make in (nt.preset_gpu, nt.preset_multi):
+        s = fdm_solver(make, NX)
+        counts, states = run_fdm(s, FDM_STEPS, f"fdm {s.cfg.variant}", smi)
+        out.append(counts)
+        if s.cfg.variant == "gpu":
+            prev = torch.get_float32_matmul_precision()
+            torch.set_float32_matmul_precision("high")
+            try:
+                st, _ = s.step(states[0])
+            finally:
+                torch.set_float32_matmul_precision(prev)
+            torch.cuda.synchronize()
+            for name in ("pr", "pr_lo", "vx", "vy", "vz", "c", "dprdtau"):
+                require(bitwise(getattr(st, name), getattr(states[1], name)),
+                        f"fdm gpu step 1 with TF32 on: {name} differs")
+            print("[fdm gpu] step 1 with TF32 on: every field bitwise equal")
+        del s, states
+    return out
+
+
+def phase_fdm_wide(smi) -> dict:
+    s = fdm_solver(nt.preset_gpu, WIDE_NX)
+    counts, states = run_fdm(s, FDM_WIDE_STEPS, "fdm wide", smi)
+    return counts
+
+
+def phase_io(smi) -> None:
+    """The I/O layer through run.main on the card (multi preset at 63):
+    --nt 4 --save --checkpoint-every 2, then --resume --nt 6, against an
+    uninterrupted 6-step run: the final checkpoints bitwise equal; the
+    .bin frame of step 4 byte-identical to numpy's column-major writer on
+    the step-4 checkpoint's gathered field; the native writer built."""
+    from navierstokes3d_tpu_torch import run as trun
+    from navierstokes3d_tpu_torch.io import binio, checkpoint, native
+    root = Path(__file__).resolve().parent / "smoke_out" / "io"
+    shutil.rmtree(root, ignore_errors=True)
+    base = ["--preset", "multi", "--nx", str(IO_NX), "--device", "cuda",
+            "--quiet"]
+    try:
+        t0 = time.perf_counter()
+        require(trun.main(base + ["--nt", "6", "--checkpoint-every", "6",
+                                  "--ckpt-dir", str(root / "whole")]) == 0,
+                "io: the uninterrupted run failed")
+        part = ["--ckpt-dir", str(root / "ck"), "--out-dir",
+                str(root / "out"), "--save", "--nsave", "2",
+                "--checkpoint-every", "2"]
+        require(trun.main(base + part + ["--nt", "4"]) == 0,
+                "io: the first part failed")
+        require(trun.main(base + part + ["--nt", "6", "--resume"]) == 0,
+                "io: the resumed part failed")
+        wall = time.perf_counter() - t0
+        a, ia = checkpoint.load_checkpoint(
+            str(root / "whole" / "ckpt_0000006.npz"), device="cuda")
+        b, ib = checkpoint.load_checkpoint(
+            str(root / "ck" / "ckpt_0000006.npz"), device="cuda")
+        require(ia == ib == 6, f"io: checkpoint steps {ia}, {ib}")
+        for name in ("pr", "pr_lo", "vx", "vy", "vz", "c", "dprdtau"):
+            require(bitwise(getattr(a, name), getattr(b, name)),
+                    f"io: resumed {name} differs from the uninterrupted run")
+        require(native.lib() is not None,
+                f"io: the native writer did not build ({native.build_error})")
+        st4, _ = checkpoint.load_checkpoint(
+            str(root / "ck" / "ckpt_0000004.npz"), device="cuda")
+        fields = dict(zip(("C", "Pr", "Vx", "Vy", "Vz"),
+                          nt.gather_inner(st4)))
+        for name, arr in fields.items():
+            got = (root / "out" / f"out_{name}_v_0002.bin").read_bytes()
+            want = np.asarray(arr, np.float32).flatten(order="F").tobytes()
+            require(got == want, f"io: out_{name}_v_0002.bin differs from "
+                    "numpy's writer")
+        require(binio.load_array(str(root / "out" / "out_Pr_v_0003.bin"),
+                                 fields["Pr"].shape).shape
+                == fields["Pr"].shape, "io: frame 3 missing")
+        libs = sorted(p.name for p in native.BUILD_DIR.glob("libns3dio-*"))
+        print(f"[io] multi {IO_NX}: 4 steps + checkpoint, resume to 6: "
+              f"every field bitwise equal to the uninterrupted 6 steps; "
+              f".bin frames byte-identical to numpy's writer; native "
+              f"library {libs}; {wall:.1f} s for the three runs ({smi})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_compat_api(smi) -> None:
+    """The reference's entry functions on the card with their defaults
+    (compat, float64): run_navierstokes3d(nx=63, nt=3), the golden
+    configuration (iterations [37, 259, 296] and tests/test_golden.py's
+    Pr probes), and runme(do_vis=False) at nx=63 for 2 steps with a .mat
+    snapshot."""
+    from navierstokes3d_tpu_torch import compat_api
+    iters, step = [], nt.ChorinSolver.step
+
+    def recording(self, state):
+        state, stats = step(self, state)
+        iters.append(stats.iters)
+        return state, stats
+    root = Path(__file__).resolve().parent / "smoke_out" / "api"
+    shutil.rmtree(root, ignore_errors=True)
+    nt.ChorinSolver.step = recording
+    try:
+        c, pr, vx, vy, vz = compat_api.run_navierstokes3d(nx=63, nt=3)
+        probe = pr[np.ix_(*GOLDEN_INDS)]
+        rel = float(np.max(np.abs(probe / PR_GOLDEN - 1.0)))
+        print(f"[compat_api] run_navierstokes3d(nx=63, nt=3) on the card: "
+              f"iters {iters}, Pr probes max rel diff {rel:.3e}")
+        require(iters == GOLDEN_ITERS, f"compat_api iterations {iters}")
+        require(np.allclose(probe, PR_GOLDEN, rtol=3e-3, atol=1e-8),
+                f"compat_api Pr probes differ by {rel}")
+        iters.clear()
+        st = compat_api.runme(do_vis=False, do_save=True, nx=63, nt=2,
+                              out_dir=str(root))
+        require(st.pr.device.type == "cuda" and finite_state(st),
+                "runme: state not finite on the card")
+        require(iters == RUNME_ITERS, f"runme iterations {iters}, the "
+                f"CPU's {RUNME_ITERS}")
+        require((root / "step_0.mat").exists(), "runme: no step_0.mat")
+        print(f"[compat_api] runme(do_vis=False, nx=63, nt=2): iters "
+              f"{iters}, finite fields on {st.pr.device}, step_0.mat "
+              f"written ({smi})")
+    finally:
+        nt.ChorinSolver.step = step
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     smi = phase_device()
     sass = phase_build()
@@ -1878,6 +2197,10 @@ def main() -> int:
     phase_golden()
     phase_reference()
     del gpu, multi, compat
+    phase_fdm_solve(smi)
+    runs += phase_fdm_paths(smi)
+    phase_io(smi)
+    phase_compat_api(smi)
     results.update(phase_dist_kernels())
     runs += phase_dist_path(smi)
     unchained = nt.ChorinSolver(nt.preset_gpu(nx=NX, compat=False,
@@ -1898,6 +2221,9 @@ def main() -> int:
     runs.append(phase_wide_path(wide, smi))
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"[wide] peak device memory {peak:.2f} GB ({smi})")
+    del wide
+    torch.cuda.empty_cache()
+    runs.append(phase_fdm_wide(smi))
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     for kk in kernels.KERNELS:

@@ -93,7 +93,7 @@ class NumericsConfig:
     cfl_adv: float = 1.0                    # advection CFL
     nt: int = 10
     dtype: str = "float64"          # reference runs Float64 throughout
-    poisson_backend: str = "pt"     # 'pt' (ported) | 'fdm' (not yet)
+    poisson_backend: str = "pt"     # 'pt' | 'fdm' (direct solve)
     fdm_refine: int = 8
     # Hydrostatic split p' = Pr - P_static(z); None = auto (on for the
     # gpu variant, compat=False, g != 0, 'pt' backend).

@@ -45,6 +45,15 @@ compat mode, the reference's own semantics (the JAX package's unfused
      reference's omitted bc_y!(Vy)/bc_z!(Vz)), as torch ops
   4. gather advection with the reference's Vz bug (Vz never advected)
 
+poisson_backend='fdm' (outside compat, on any device; float64 on the CPU
+only, as above): steps 1, 3 and 4 as in the main path, with K3 carrying
+the body force in the gpu variant (the fdm backend has no hydrostatic
+split, so g_eff = g), and the Poisson solve a direct one by fast
+diagonalization (ops/fdm_poisson.py: six dense transforms as matmuls)
+followed by compensated iterative refinement of the stored (hi, lo) pair
+(`_poisson_solve_fdm`); no accuracy phase, stats.iters counts the
+refinement rounds.
+
 Two keyword arguments of ChorinSolver pick the JAX package's other
 single-device paths, which it picks with environment variables:
 
@@ -93,6 +102,7 @@ from ..ops import physics as ph
 from ..ops.stencil import div
 from ..ops.cylinder import (CylinderMasks, apply_cylinder, build_masks,
                             mask_tracer)
+from ..ops.fdm_poisson import build_fdm_solver, solve_host_f64
 from ..parallel.halo import build_poisson_shard_map
 from ..parallel.mesh import Mesh
 from ..ptloop import host_scalar, np_float, pt_loop, pt_loop_fused
@@ -157,10 +167,6 @@ class ChorinSolver:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not "
                                "available")
-        if cfg.numerics.poisson_backend != "pt":
-            raise NotImplementedError(
-                "the fdm Poisson backend is not ported yet (ROADMAP queue "
-                "1, item 2)")
         self.grid: Grid = make_grid(cfg)
         self.dtype = cfg.numerics.torch_dtype
         if (self.dtype == torch.float64 and self.device.type != "cpu"
@@ -233,6 +239,53 @@ class ChorinSolver:
         else:
             self._predict = k_step.predict
             self._correct = k_step.correct
+        # the fdm backend: the direct solver and, for the gpu variant, the
+        # static boundary-driven part of the solution
+        self._fdm = self._fdm_static = None
+        if cfg.numerics.poisson_backend == "fdm":
+            self._fdm = build_fdm_solver(grid, cfg.variant, self.dtype,
+                                         self.device)
+            if cfg.variant == "gpu":
+                self._fdm_static = self._build_fdm_static()
+
+    def _build_fdm_static(self) -> torch.Tensor:
+        """gpu-variant fdm backend: the hydrostatic Dirichlet x planes
+        (gpu.jl:257-261) put ~1e9-scale boundary terms in the Poisson RHS,
+        which would drown the physics in float32. The static
+        boundary-driven part is solved once in float64 on the host; each
+        step solves only the dynamic rho/dt divv part on the device."""
+        grid = self.grid
+        prof2d = np.broadcast_to(self._p_static()[None, :],
+                                 (grid.ny, grid.nz))
+        cx = 1.0 / (grid.dx * grid.dx)
+        rhs_b = np.zeros((grid.nx - 2, grid.ny - 2, grid.nz - 2))
+        rhs_b[0] -= (prof2d[1:-1, 1:-1] + 100.0) * cx
+        rhs_b[-1] -= prof2d[1:-1, 1:-1] * cx
+        static = solve_host_f64(grid, self.cfg.variant, rhs_b)
+        return torch.tensor(static.astype(np_float(self.dtype)),
+                            device=self.device)
+
+    def _p_static(self) -> np.ndarray:
+        """The hydrostatic profile P_static(z) = rho*g*(nz-iz+0.5)*dz of
+        the init and the Dirichlet x planes (gpu.jl:87,257-261), float64,
+        shape (nz,)."""
+        grid, phys = self.grid, self.cfg.physics
+        iz = np.arange(1, grid.nz + 1, dtype=np.float64)
+        return phys.rho * phys.g * (grid.nz - iz + 0.5) * grid.dz
+
+    def full_pressure(self, pr: torch.Tensor) -> torch.Tensor:
+        """Physical pressure Pr from the state's pressure field (identity
+        unless the hydrostatic split is active)."""
+        if not self.pressure_split:
+            return pr
+        return pr + torch.tensor(self._p_static(), dtype=pr.dtype,
+                                 device=pr.device)[None, None, :]
+
+    def gather_inner(self, state: FlowState):
+        """gather_inner with the physical (unsplit) pressure."""
+        if self.pressure_split:
+            state = state.replace(pr=self.full_pressure(state.pr))
+        return gather_inner(state)
 
     def _init_split(self):
         """Hydrostatic pressure split and the float32 accuracy policy
@@ -245,13 +298,26 @@ class ChorinSolver:
         variant, whose correction solve would stall above eps_it)."""
         cfg, phys, grid, num = self.cfg, self.cfg.physics, self.grid, \
             self.cfg.numerics
+        fdm = num.poisson_backend == "fdm"
+        if cfg.compat and fdm:
+            raise ValueError(
+                "poisson_backend='fdm' replaces the reference's Poisson "
+                "loop (direct solve + compensated refinement against the "
+                "folded operator) and cannot compose with compat mode")
         want = num.pressure_split
         if want is None:
-            want = cfg.variant == "gpu" and not cfg.compat and phys.g != 0.0
+            want = (cfg.variant == "gpu" and not cfg.compat
+                    and phys.g != 0.0 and not fdm)
+        elif want and fdm:
+            raise NotImplementedError(
+                "pressure_split composes only with the 'pt' backend (the "
+                "fdm backend hoists the static boundary terms itself)")
         self.pressure_split = bool(want)
         ext = num.extended_precision
         if ext is None:
-            ext = self.dtype == torch.float32 and not cfg.compat
+            # fdm handles its own accuracy (no accuracy phase)
+            ext = (self.dtype == torch.float32 and not cfg.compat
+                   and not fdm)
         elif ext and cfg.compat:
             raise ValueError("extended_precision changes the iterate and "
                              "cannot compose with compat mode")
@@ -318,6 +384,8 @@ class ChorinSolver:
                       ) -> Tuple[torch.Tensor, torch.Tensor, StepStats]:
         """(pr, dprdtau, stats); stats.pr_lo carries the stored pair's low
         word on the float32 accuracy paths."""
+        if self._fdm is not None:
+            return self._poisson_solve_fdm(pr, dprdtau, divv)
         if self._bc_op is not None:
             return self._poisson_solve_bc(pr, dprdtau, divv)
         if self.cfg.compat:
@@ -511,6 +579,76 @@ class ChorinSolver:
         return hi, dpr, StepStats(iters=it1 + it2,
                                   err=err2 if it2 > 0 else errh,
                                   err_hist=hist, iters_ext=it2, pr_lo=lo)
+
+    def _poisson_solve_fdm(self, pr, dprdtau, divv):
+        """Direct solve by fast diagonalization plus compensated iterative
+        refinement, the JAX package's `_poisson_solve_fdm` (chorin.py:738-
+        878): the direct solve of the (hi of the) RHS, plus the static
+        field (gpu variant), zero-padded, the BCs applied (set_bc_pr, then
+        the (hi, lo) image set_bc_pr_pair in float32); then up to
+        fdm_refine rounds of { r = compensated residual of the (hi, lo)
+        pressure pair against the (hi, lo) RHS pair; e = fdm(-r); pair
+        (+)= e } while err >= eps_it, err read on the host once a round.
+        stats.iters counts the rounds; stats.err is the stored pair's
+        residual. float64 refines on the plain folded residual. The
+        incoming pr is not read, and dprdtau passes through untouched."""
+        grid, phys, num = self.grid, self.cfg.physics, self.cfg.numerics
+        ft = np_float(self.dtype)
+        eps = ft(num.eps_it)
+        err_scale = self._err_scale()
+        fdm, op = self._fdm, self._op
+        use_pair = self.dtype == torch.float32
+        if use_pair:
+            # lo carries the float32 rounding of the RHS, so the
+            # refinement targets the true (float64-defined) right-hand side
+            rhs_hi, rhs_lo = ds.rhs_pair(divv[INNER], phys.rho / grid.dt)
+
+            def resid(p, lo):
+                return self._comp_residual(p, lo, rhs_hi, rhs_lo)
+        else:
+            rhs_hi = (phys.rho / grid.dt) * divv[INNER]
+
+            def resid(p, lo):
+                r = k_poisson.folded_lap(p, op) - rhs_hi
+                return r, torch.max(torch.abs(r))
+
+        p_int = fdm(rhs_hi)
+        if self._fdm_static is not None:
+            p_int = p_int + self._fdm_static
+        pr = self.set_bc_pr(torch.nn.functional.pad(p_int,
+                                                    (1, 1, 1, 1, 1, 1)))
+        lo = torch.zeros_like(pr)
+        if use_pair:
+            # the pair image of the Dirichlet planes (their f64 profile's
+            # rounding remainder in lo) before the refinement, which
+            # leaves the planes frozen: the correction problem has
+            # homogeneous BCs, the operator fdm diagonalizes
+            pr, lo = self.set_bc_pr_pair(pr, lo)
+        nchunks = grid.niter // grid.nchk
+        hist = np.full(nchunks, np.nan, ft)
+        r, emax = resid(pr, lo)
+        err = host_scalar(emax * err_scale, ft)
+        hist[0] = err
+        rounds = 0
+        while err >= eps and rounds < num.fdm_refine:
+            # r = lap(p) - rhs, so the correction solves lap(e) = -r
+            e = fdm(-r)
+            nh, t = ds.two_sum(pr[INNER], e)
+            nh, nl = ds.two_sum(nh, lo[INNER] + t)
+            pr[INNER] = nh     # pr and lo are this solve's own tensors
+            lo[INNER] = nl
+            r, emax = resid(pr, lo)
+            err = host_scalar(emax * err_scale, ft)
+            rounds += 1
+            hist[min(rounds, nchunks - 1)] = err
+        if use_pair:
+            pr, lo = self.set_bc_pr_pair(pr, lo)
+            return pr, dprdtau, StepStats(iters=rounds, err=err,
+                                          err_hist=hist, pr_lo=lo)
+        # float64: the folded field (lo stays at its two_sum remainders,
+        # which the plain residual does not read)
+        return self.set_bc_pr(pr), dprdtau, StepStats(
+            iters=rounds, err=err, err_hist=hist)
 
     def _kernel_chain(self, rhs, err_scale) -> Callable:
         """Loop body of one K1 iteration on the carry (p_in, p_out, d_in,
@@ -888,6 +1026,10 @@ class ChorinSolver:
         width 1): the per-shard kernel loop, K2-dist on the (hi, lo) pair
         where the solver is extended, else K7-dist; otherwise the plain
         torch-ops loop (any 3D mesh, any halo width)."""
+        if self._fdm is not None:
+            raise NotImplementedError(
+                "the fdm backend runs on one device: the distributed solve "
+                "is the pseudo-transient loop")
         if use_pallas is None:
             use_pallas = (self.dtype == torch.float32 and not self.plain
                           and mesh.shape[1] == 1 and mesh.shape[2] == 1

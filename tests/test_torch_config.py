@@ -109,15 +109,19 @@ def test_solver_defaults_to_cuda():
 
 
 def test_unported_configs_raise():
-    """What the solver still refuses: the fdm backend, float64 off the CPU
+    """What the solver refuses: the fdm backend under compat mode (the JAX
+    package's rule; outside compat it is ported), float64 off the CPU
     outside compat mode (that path's kernels are float32; compat float64
     runs on any device), and the hydrostatic split on the multi variant."""
     for compat in (True, False):
         cfg = nt.preset_gpu(nx=15, compat=compat, dtype="float32")
         cfg = cfg.replace(numerics=dataclasses.replace(
             cfg.numerics, poisson_backend="fdm"))
-        with pytest.raises(NotImplementedError, match="fdm"):
-            nt.ChorinSolver(cfg, device="cpu")
+        if compat:
+            with pytest.raises(ValueError, match="fdm"):
+                nt.ChorinSolver(cfg, device="cpu")
+        else:
+            assert nt.ChorinSolver(cfg, device="cpu")._fdm is not None
     with pytest.raises(ValueError, match="CPU only"):
         nt.ChorinSolver(nt.preset_gpu(nx=15, compat=False), device="meta")
     cfg = nt.preset_multi(nx=15, compat=False, dtype="float32")

@@ -853,3 +853,83 @@ def test_unchained_and_dma_steps_on_card_match_cpu(preset, kw):
     launched = {k.name.split()[0] for k in kernels.KERNELS
                 if k.wrapper.launches > 0}
     assert launched == on_path
+
+
+def _fdm_solver(nx, preset, device="cuda", **num):
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    make = nt.preset_gpu if preset == "gpu" else nt.preset_multi
+    cfg = make(nx=nx, compat=False, dtype="float32")
+    return nt.ChorinSolver(cfg.replace(numerics=dataclasses.replace(
+        cfg.numerics, poisson_backend="fdm", **num)), device=device)
+
+
+@pytest.mark.parametrize("preset", ["gpu", "multi"])
+def test_fdm_step_bitwise_with_tf32_on(preset):
+    """The fdm solve computes in IEEE float32 whatever the caller set:
+    with TF32 turned on (set_float32_matmul_precision('high')) two steps
+    give bitwise the fields of two steps with it off, on two refinement
+    budgets (the direct solve alone, and rounds forced by eps_it 1e-7);
+    the caller's setting is restored after each step."""
+    prev = torch.get_float32_matmul_precision()
+    for num in ({}, {"eps_it": 1e-7}):
+        s = _fdm_solver(33, preset, **num)
+        runs = []
+        for precision in ("highest", "high"):
+            torch.set_float32_matmul_precision(precision)
+            try:
+                st, rounds = s.init_state(), []
+                for _ in range(2):
+                    st, stats = s.step(st)
+                    rounds.append(stats.iters)
+                    assert torch.get_float32_matmul_precision() == precision
+            finally:
+                torch.set_float32_matmul_precision(prev)
+            runs.append((st, rounds))
+        (a, ra), (b, rb) = runs
+        assert ra == rb
+        for name in ("pr", "pr_lo", "vx", "vy", "vz", "c", "dprdtau"):
+            assert _bitwise(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.parametrize("nx", [17, 255])
+def test_k3_g_eff_of_the_fdm_step_bitwise(nx, nan_outputs):
+    """The fdm gpu step has no hydrostatic split, so K3 carries the body
+    force (g_eff = g): with that solver's own masks and constants, K3 is
+    bitwise equal to its plain version."""
+    s = _fdm_solver(nx, "gpu")
+    assert s._consts.g_eff == s.cfg.physics.g != 0.0
+    g, rng = s.grid, np.random.default_rng(13)
+    v = [_rand(rng, sh) for sh in (g.shape_vx, g.shape_vy, g.shape_vz)]
+    _check_k3(v, s.masks, s._consts)
+
+
+@pytest.mark.parametrize("preset", ["gpu", "multi"])
+def test_fdm_step_on_card_matches_cpu(preset):
+    """Two float32 fdm steps at nx=20 on the card against the CPU: equal
+    refinement rounds and clamp counts, err below eps_it on both, pr
+    within 1e-5 of max|pr| (cuBLAS and the CPU's BLAS sum the transforms
+    in other orders; the refinement holds both to the same residual) and
+    the velocities within 1e-5 of their max away from vy's symmetry
+    plane (tests/test_torch_fdm.py); K3, K4 and K5 launched, no Poisson
+    kernel."""
+    s = _fdm_solver(20, preset)
+    cpu = _fdm_solver(20, preset, device="cpu")
+    assert s.grid.ny % 2 == 0   # vy has a face on the symmetry plane
+    kernels.reset_counts()
+    a, b = s.init_state(), cpu.init_state()
+    for _ in range(2):
+        a, sa = s.step(a)
+        b, sb = cpu.step(b)
+        assert (sa.iters, sa.advect_clamped) == (sb.iters, sb.advect_clamped)
+        assert sa.err < 1e-3 and sb.err < 1e-3
+        for name in ("pr", "vx", "vy", "vz", "c"):
+            x, y = getattr(a, name).cpu().numpy(), getattr(b, name).numpy()
+            far = np.abs(x - y) > 1e-5 * max(1.0, np.abs(y).max())
+            if name == "vy":
+                far[:, s.grid.ny // 2] = False
+            assert not far.any(), name
+    on_path = {"K3", "K4", "K5"}
+    for k in kernels.KERNELS:
+        assert ((k.wrapper.launches > 0)
+                == (k.name.split()[0] in on_path)), k.name

@@ -295,7 +295,7 @@ def test_cli_shard_map(capsys):
         assert lines[k + 1].startswith(f"step {k + 1}: iters {stats.iters} ")
     # auto on an x-only mesh resolves to fullstep, which is not ported
     assert trun.main(argv + ["--mesh", "4x1x1"]) == 2
-    assert "ROADMAP.md queue 1, item 11" in capsys.readouterr().err
+    assert "ROADMAP.md queue 1, items 5-6" in capsys.readouterr().err
     # a one-shard mesh under auto runs the single-device step
     assert trun.main(argv + ["--mesh", "1x1x1"]) == 0
     assert "comm auto" in capsys.readouterr().out
