@@ -153,11 +153,31 @@ Phases (any failure exits non-zero; nothing is caught):
      CPU's iterations, finite fields, step_0.mat written
  21. fdm wide: the gpu preset with the fdm backend at 511x307x307 for 2
      steps, as phase 18 (K3 at g_eff = g bitwise there too)
+ 22. fullstep (run after phase 12, whose runs it is held against):
+     preset_multi(nx=255, dtype='float32') on the same (3,1,1) mesh of
+     cuda:0 shards through ChorinSolver.step_fullstep (every stage per
+     shard on the owned-face layout), 4 steps with compat off (K2-dist) and
+     2 with it on (K7-dist) from init_state, launch counts set to 0 just
+     before each run and read just after: its dist kernel the only kernel
+     launched, 3 launches per Poisson iteration, no plain version; every
+     block finite, no clamps, every compat-off solve converged; the
+     iterations equal to phase 12's, the final state (from_dist) within
+     FULLSTEP_TOL of phase 12's (max abs difference printed, bitwise
+     reported); s/step; one more step traced, its device time by group
+     (the dist kernel, the torch ops by kind) and its idle share beside
+     phase 12's
+ 23. float64 (the solver's dtype rule: float64 runs the plain versions on
+     every device, as the JAX package's float32-only kernels make it do):
+     preset_multi(nx=63, dtype='float64') for 8 steps on the card and on
+     the CPU: iterations equal to each other and to the JAX package's
+     (REF_ITERS_F64_63), fields within F64_TOL; preset_gpu(nx=255,
+     dtype='float64') for 1 step: err below eps_it, iterations, s/step; no
+     kernel launched in either
 Each traced step launches a marker kernel first and counts what follows
 it (the tracer may drop a launch at its window's edge), and says how many
 of its K3 launches the trace holds. The line before the last is a JSON
-object of per-kernel results (with each kernel's SASS counts); the last
-line is {"ok": true, "device": {...}}.
+object of per-kernel results (with each kernel's SASS counts and the
+paths that launched it); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -187,6 +207,8 @@ from navierstokes3d_tpu_torch.kernels import fused_step as k_step  # noqa: E402
 from navierstokes3d_tpu_torch.kernels import poisson as k_poisson  # noqa: E402
 from navierstokes3d_tpu_torch.parallel import (  # noqa: E402
     build_poisson_shard_map, make_mesh)
+from navierstokes3d_tpu_torch.parallel.fullstep import (  # noqa: E402
+    from_dist, to_dist)
 from navierstokes3d_tpu_torch.ptloop import pt_loop_fused  # noqa: E402
 
 NX = 255
@@ -269,6 +291,25 @@ COPY_GRIDS = ((256, 4), (256, 8), (1024, 1), (1024, 2))
 DIST_SHAPE = (3, 1, 1)
 DIST_STEPS = 4
 DIST_COMPAT_STEPS = 2
+# the fullstep phase: the same runs through step_fullstep, held against
+# the shard_map runs' final states within FULLSTEP_TOL of max(1, max|f|)
+# (tests/test_fullstep.py's float32 tolerance; the CPU tests find them
+# bitwise equal); its traced step's torch ops grouped by kernel name
+FULLSTEP_TOL = 2e-5
+FULLSTEP_FIELDS = ("pr", "vx", "vy", "vz", "c", "dprdtau")
+FULLSTEP_GROUPS = (("cat and copy", re.compile(r"CatArray|copy", re.I)),
+                   ("reductions", re.compile(r"reduce", re.I)),
+                   ("index and gather", re.compile(r"index|gather|scatter",
+                                                   re.I)),
+                   ("elementwise", re.compile(r"elementwise", re.I)))
+# the float64 phase: preset_multi(nx=63, float64, compat=False), 8 steps
+# from init_state; the JAX package's Poisson iterations per step for it
+# (its float64 step on the CPU with select-shift advection,
+# NS3D_FUSED_INTERPRET=1), and the card's fields against the CPU's within
+# F64_TOL of max(1, max|f|)
+F64_STEPS = 8
+REF_ITERS_F64_63 = (259, 296, 333, 407, 481, 518, 592, 666)
+F64_TOL = 1e-9
 # the wide grid of README.md's "Wide grids" (511x307x307), where the JAX
 # package lane-tiles its kernels and runs temporal 3-sweeps
 WIDE_NX = 511
@@ -1469,7 +1510,9 @@ def run_dist(compat: bool, nsteps: int, mesh, smi) -> dict:
           f"{1e3 * w1 / max(it1, 1):.4f} ms per iteration")
     require(it1 == all_stats[0].iters and err1 == all_stats[0].err and same,
             f"{label}: the one-shard solve differs from the sharded one")
-    tr = profile_step(s, states[-1], label, step=step)
+    final = states[-1]
+    del states
+    tr = profile_step(s, final, label, step=step)
     print(f"[{label} trace] traced step: wall {tr['wall'] * 1e3:.2f} ms, "
           f"device busy {tr['busy'] / 1e3:.3f} ms, idle "
           f"{100 * (1 - tr['busy'] / max(tr['span'], 1e-9)):.2f}% of the "
@@ -1481,13 +1524,210 @@ def run_dist(compat: bool, nsteps: int, mesh, smi) -> dict:
           f"ms, the dist kernel {kern_us / 1e3 / n:.4f} ms of device time, "
           f"device busy {tr['busy'] / 1e3 / n:.4f} ms ({tr['iters']} "
           f"iterations; {smi})")
-    return counts
+    return dict(counts=counts, iters=[st.iters for st in all_stats],
+                err=[st.err for st in all_stats], state=final, trace=tr)
 
 
 def phase_dist_path(smi) -> list:
+    """The shard_map runs (compat off, then on): their counts, iterations,
+    final states and traces, which the fullstep phase is held against."""
     mesh = make_mesh(DIST_SHAPE, "cuda:0")
     return [run_dist(False, DIST_STEPS, mesh, smi),
             run_dist(True, DIST_COMPAT_STEPS, mesh, smi)]
+
+
+def group_breakdown(prof: dict, label: str, kernel_symbol: str) -> dict:
+    """One traced step's device time by group: the dist kernel (its
+    device symbol), then the torch ops by kind (FULLSTEP_GROUPS, the rest
+    'other'), with the idle share."""
+    groups = dict.fromkeys(("dist kernel", *(k for k, _ in FULLSTEP_GROUPS),
+                            "other"), 0.0)
+    for name, (us, _) in prof["by_name"].items():
+        key = "dist kernel" if kernel_symbol in name else next(
+            (k for k, rx in FULLSTEP_GROUPS if rx.search(name)), "other")
+        groups[key] += us
+    busy, span = prof["busy"], prof["span"]
+    require(busy > 0, f"{label}: the traced step recorded no device time")
+    parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({100 * v / busy:.1f}%)"
+                      for k, v in groups.items())
+    print(f"[{label} trace] by group: {parts}; busy {busy / 1e3:.3f} ms, "
+          f"idle {100 * (1 - busy / span):.2f}% of the kernel span, wall "
+          f"{prof['wall'] * 1e3:.2f} ms")
+    return groups
+
+
+def idle(prof: dict) -> float:
+    return 100 * (1 - prof["busy"] / max(prof["span"], 1e-9))
+
+
+def run_fullstep(compat: bool, nsteps: int, mesh, smi, dist: dict) -> dict:
+    """nsteps of the multi preset at 255 through step_fullstep(mesh) from
+    init_state, the launch counts set to 0 just before and read just
+    after: its dist kernel the only kernel launched, mesh.size launches
+    per Poisson iteration, no plain version; every block finite, no
+    clamps, every compat-off solve converged; the iterations beside (and
+    equal to) the shard_map run's, the final state against it; then one
+    more step traced, by group, its idle share beside the shard_map
+    run's."""
+    label = "fullstep compat" if compat else "fullstep"
+    s = nt.ChorinSolver(nt.preset_multi(nx=NX, compat=compat,
+                                        dtype="float32"), device="cuda")
+    g, eps_it = s.grid, s.cfg.numerics.eps_it
+    on = K7D_NAME if compat else K2D_NAME
+    require(s._dist_kernels(mesh), f"{label}: the kernel loop is off")
+    print(f"[{label}] grid {g.nx}x{g.ny}x{g.nz} float32 on a "
+          f"{'x'.join(map(str, mesh.shape))} mesh of {mesh.devices[0]} "
+          f"shards (one card: the schedule and the kernels, not an exchange "
+          f"between cards), every stage per shard, {on} per shard ({smi})")
+    step = s.step_fullstep(mesh)
+    d = to_dist(s.init_state(), mesh)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    iters, wall = [], []
+    for k in range(nsteps):
+        t0 = time.perf_counter()
+        d, stats = step(d)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        iters.append(stats.iters)
+        print(f"[{label}] step {k + 1}: iters {stats.iters} (shard_map "
+              f"{dist['iters'][k]}) err {float(stats.err):.6e} advect_clamped"
+              f" {stats.advect_clamped} {wall[-1]:.4f} s/step", flush=True)
+        require(all(bool(torch.isfinite(b).all()) for f in FULLSTEP_FIELDS
+                    for b in getattr(d, f)),
+                f"{label} step {k + 1}: non-finite fields")
+        require(stats.advect_clamped == 0,
+                f"{label} step {k + 1} clamped {stats.advect_clamped}")
+        if not compat:
+            require(bool(np.isfinite(stats.err)) and stats.err < eps_it
+                    and stats.iters < g.niter,
+                    f"{label} step {k + 1} did not converge "
+                    f"(iters {stats.iters}, err {stats.err})")
+    counts = {kk.name: (kk.wrapper.launches, kk.plain.calls)
+              for kk in kernels.KERNELS}
+    print(f"[{label}] {sum(wall) / nsteps:.4f} s/step, "
+          f"{1e3 * sum(wall) / sum(iters):.4f} ms per iteration ({sum(iters)}"
+          f" iterations in {sum(wall):.3f} s; {smi})")
+    for name, (launches, plain) in counts.items():
+        print(f"[{label}] {name}: {launches} launches, plain version "
+              f"{plain} calls")
+        require(plain == 0, f"{label}: {name} ran its plain version")
+        require((launches > 0) == (name == on),
+                f"{label}: {name} launched {launches} times")
+    require(counts[on][0] == mesh.size * sum(iters),
+            f"{label}: {counts[on][0]} launches of {on} for {sum(iters)} "
+            f"iterations on {mesh.size} shards")
+    print(f"[{label}] iterations {iters}, the shard_map path's "
+          f"{dist['iters']} in this run: equal {iters == dist['iters']}")
+    require(iters == dist["iters"],
+            f"{label}: iterations {iters} differ from the shard_map path's "
+            f"{dist['iters']}")
+    got, want = from_dist(d), dist["state"]
+    same = True
+    for f in FULLSTEP_FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        diff = float((a - b).abs().max())
+        scale = max(1.0, float(b.abs().max()))
+        same = same and bitwise(a, b)
+        print(f"[{label}] {f}: max abs difference from the shard_map path "
+              f"{diff:.3e} (tolerance {FULLSTEP_TOL:g} x {scale:.4g})")
+        require(diff <= FULLSTEP_TOL * scale,
+                f"{label}: {f} differs from the shard_map path by {diff}")
+    print(f"[{label}] every field bitwise equal to the shard_map path's: "
+          f"{same}")
+    del got, want
+    tr = profile_step(s, d, label, step=step)
+    sym = DIST_SYMBOLS["K7" if compat else "K2"]
+    group_breakdown(tr, label, sym)
+    print(f"[{label} trace] idle {idle(tr):.2f}% against the shard_map "
+          f"path's {idle(dist['trace']):.2f}% in this run; wall "
+          f"{tr['wall'] * 1e3:.2f} ms against {dist['trace']['wall'] * 1e3:.2f}"
+          f" ms ({smi})")
+    return counts
+
+
+def phase_fullstep(smi, dist: list) -> list:
+    mesh = make_mesh(DIST_SHAPE, "cuda:0")
+    return [run_fullstep(False, DIST_STEPS, mesh, smi, dist[0]),
+            run_fullstep(True, DIST_COMPAT_STEPS, mesh, smi, dist[1])]
+
+
+def phase_float64(smi) -> list:
+    """float64 outside compat on the card, by the solver's dtype rule (the
+    JAX package's: its kernels are float32-only, so float64 runs the
+    plain versions everywhere): the multi preset at 63 for F64_STEPS steps
+    against the same run on the CPU and the JAX package's counts, and one
+    step of the gpu preset at 255. No kernel may launch."""
+    out = []
+    cfg = nt.preset_multi(nx=MULTI_NX_SMALL, compat=False, dtype="float64")
+    card = nt.ChorinSolver(cfg, device="cuda")
+    cpu = nt.ChorinSolver(cfg, device="cpu")
+    require(card.plain, "float64 on the card: the kernel routes are on")
+    print(f"[f64] multi {card.grid.nx}x{card.grid.ny}x{card.grid.nz} "
+          f"float64 on the card and on the CPU, {F64_STEPS} steps; "
+          f"accuracy phase {card.acc}; the dtype rule routes every kernel "
+          f"to its plain version ({smi})")
+    runs = {}
+    for label, s in (("card", card), ("cpu", cpu)):
+        st = s.init_state()
+        kernels.reset_counts()
+        t0, iters, errs = time.perf_counter(), [], []
+        for _ in range(F64_STEPS):
+            st, stats = s.step(st)
+            iters.append(stats.iters)
+            errs.append(float(stats.err))
+        if label == "card":
+            torch.cuda.synchronize()
+            counts = {kk.name: (kk.wrapper.launches, kk.plain.calls)
+                      for kk in kernels.KERNELS}
+            out.append(counts)
+        w = time.perf_counter() - t0
+        runs[label] = (iters, st)
+        print(f"[f64] {label}: iterations {iters}, err "
+              f"{[f'{e:.6e}' for e in errs]}, {w / F64_STEPS:.4f} s/step")
+    print(f"[f64] the JAX package's float64 counts (CPU): {REF_ITERS_F64_63}")
+    for name, (launches, plain) in out[0].items():
+        print(f"[f64] {name}: {launches} launches, plain version {plain} "
+              f"calls")
+        require(launches == 0, f"f64: {name} launched {launches} times")
+    require(runs["card"][0] == runs["cpu"][0] == list(REF_ITERS_F64_63),
+            f"f64: iterations card {runs['card'][0]}, CPU {runs['cpu'][0]}, "
+            f"JAX {REF_ITERS_F64_63}")
+    for f in FULLSTEP_FIELDS:
+        a, b = getattr(runs["card"][1], f).cpu(), getattr(runs["cpu"][1], f)
+        diff = float((a - b).abs().max())
+        scale = max(1.0, float(b.abs().max()))
+        print(f"[f64] {f} after step {F64_STEPS}: card - CPU max abs "
+              f"{diff:.3e} (tolerance {F64_TOL:g} x {scale:.4g}), bitwise "
+              f"{bitwise(a, b)}")
+        require(diff <= F64_TOL * scale, f"f64: {f} differs by {diff}")
+    del runs, card, cpu
+    gpu = nt.ChorinSolver(nt.preset_gpu(nx=NX, compat=False,
+                                        dtype="float64"), device="cuda")
+    g = gpu.grid
+    st = gpu.init_state()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    st, stats = gpu.step(st)
+    torch.cuda.synchronize()
+    w = time.perf_counter() - t0
+    counts = {kk.name: (kk.wrapper.launches, kk.plain.calls)
+              for kk in kernels.KERNELS}
+    print(f"[f64 gpu] {g.nx}x{g.ny}x{g.nz} float64 (the reference's own "
+          f"dtype and size), step 1: iters {stats.iters} err "
+          f"{float(stats.err):.6e} (eps_it {gpu.cfg.numerics.eps_it}), "
+          f"advect_clamped {stats.advect_clamped}, {w:.3f} s/step, "
+          f"{1e3 * w / max(stats.iters, 1):.4f} ms per iteration ({smi})")
+    require(stats.err < gpu.cfg.numerics.eps_it and stats.iters < g.niter,
+            f"f64 gpu step 1 did not converge ({stats.iters}, {stats.err})")
+    require(finite_state(st), "f64 gpu: non-finite fields")
+    for name, (launches, plain) in counts.items():
+        require(launches == 0, f"f64 gpu: {name} launched {launches} times")
+    print(f"[f64 gpu] kernel launches 0 (plain calls: "
+          f"{ {n: c[1] for n, c in counts.items() if c[1]} })")
+    out.append(counts)
+    return out
 
 
 def nan_pads(branch, vels):
@@ -2192,45 +2432,53 @@ def main() -> int:
               f"{g.niter % g.nchk}, stall exit {s._stall}")
     results = phase_kernels(gpu, multi)
     results.update(phase_k7(compat))
-    runs = [phase_gpu_path(gpu), *phase_multi_paths(multi)]
-    runs += [phase_compat(s, f"{s.cfg.variant} compat") for s in compat]
+    # each path's launch counts by its label (the JSON line's "paths")
+    runs = {"gpu": phase_gpu_path(gpu)}
+    runs.update(zip(("multi", "multi63"), phase_multi_paths(multi)))
+    runs.update((f"{s.cfg.variant} compat", phase_compat(
+        s, f"{s.cfg.variant} compat")) for s in compat)
     phase_golden()
     phase_reference()
     del gpu, multi, compat
     phase_fdm_solve(smi)
-    runs += phase_fdm_paths(smi)
+    runs.update(zip(("fdm gpu", "fdm multi"), phase_fdm_paths(smi)))
     phase_io(smi)
     phase_compat_api(smi)
     results.update(phase_dist_kernels())
-    runs += phase_dist_path(smi)
+    dist = phase_dist_path(smi)
+    runs.update(zip(("dist", "dist compat"), (r["counts"] for r in dist)))
+    runs.update(zip(("fullstep", "fullstep compat"),
+                    phase_fullstep(smi, dist)))
+    del dist
+    runs.update(zip(("f64 multi63", "f64 gpu"), phase_float64(smi)))
     unchained = nt.ChorinSolver(nt.preset_gpu(nx=NX, compat=False,
                                               dtype="float32"),
                                 device="cuda", fused_step=False)
     results.update(phase_unchained_kernels(unchained))
-    runs.append(phase_unchained_path(unchained, smi))
+    runs["unchained"] = phase_unchained_path(unchained, smi)
     del unchained
     dma_counts, k11 = phase_dma_path(smi)
-    k10_results, k10_counts = phase_resident(smi)
+    k10_results, runs["resident"] = phase_resident(smi)
     results.update(k10_results)
-    runs.append(k10_counts)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     wide = nt.ChorinSolver(nt.preset_gpu(nx=WIDE_NX, compat=False,
                                          dtype="float32"), device="cuda")
     phase_kernels_wide(wide, results)
-    runs.append(phase_wide_path(wide, smi))
+    runs["wide"] = phase_wide_path(wide, smi)
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"[wide] peak device memory {peak:.2f} GB ({smi})")
     del wide
     torch.cuda.empty_cache()
-    runs.append(phase_fdm_wide(smi))
+    runs["fdm wide"] = phase_fdm_wide(smi)
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     for kk in kernels.KERNELS:
         r = results[kk.name]
         row = {"name": kk.name, "route": "cuda", "source": kk.source,
                "replaces": kk.replaces,
-               "launches": sum(c[kk.name][0] for c in runs),
+               "launches": sum(c[kk.name][0] for c in runs.values()),
+               "paths": [p for p, c in runs.items() if c[kk.name][0] > 0],
                **{key: r[key] for key in keys}, "library_ms": None,
                "sass": sass.get(kk.name)}
         if kk.name == K10_NAME:
@@ -2258,7 +2506,7 @@ def main() -> int:
     # K11, the dma-mode kernel: K7's kernel under the split gpu spec, its
     # launches those of the dma path
     rows.append({**K11_ROW, "route": "cuda",
-                 "launches": dma_counts[K7_NAME][0],
+                 "launches": dma_counts[K7_NAME][0], "paths": ["dma"],
                  **{key: k11[key] for key in keys}, "library_ms": None,
                  "sass": sass.get(K7_NAME)})
     print(json.dumps({"kernels": rows}))

@@ -27,9 +27,12 @@ and NavierStokes3D_multi_gpu.jl:383-444):
   4. four semi-Lagrangian advection branches (K5)
 
 float32 runs that path on any device (CUDA tensors launch the kernels,
-CPU tensors run their plain versions). float64 runs on the CPU only, with
-the plain folded solve and no accuracy phase, as the JAX package does when
-its extended precision is off (chorin.py:1041-1067).
+CPU tensors run their plain versions). The dtype rule (`uses_kernels`, the
+JAX package's own: its Pallas kernels are float32-only, chorin.py:333,
+:416, :507): float64 runs the plain versions on every device, the card
+included, with the plain folded solve and no accuracy phase, as the JAX
+package does when its extended precision is off (chorin.py:1041-1067);
+no kernel is launched.
 
 compat mode, the reference's own semantics (the JAX package's unfused
 `_step_impl` branch, chorin.py:1806-1841), on any device in either dtype:
@@ -45,8 +48,8 @@ compat mode, the reference's own semantics (the JAX package's unfused
      reference's omitted bc_y!(Vy)/bc_z!(Vz)), as torch ops
   4. gather advection with the reference's Vz bug (Vz never advected)
 
-poisson_backend='fdm' (outside compat, on any device; float64 on the CPU
-only, as above): steps 1, 3 and 4 as in the main path, with K3 carrying
+poisson_backend='fdm' (outside compat, on any device, in either dtype):
+steps 1, 3 and 4 as in the main path, with K3 carrying
 the body force in the gpu variant (the fdm backend has no hydrostatic
 split, so g_eff = g), and the Poisson solve a direct one by fast
 diagonalization (ops/fdm_poisson.py: six dense transforms as matmuls)
@@ -80,6 +83,8 @@ single-device paths, which it picks with environment variables:
 Poisson solve runs over a mesh of shards (parallel/halo.py; per shard
 K2-dist on the (hi, lo) pair outside compat mode, K7-dist under it, on an
 x-only mesh), the rest of the step is the unfused chain as torch ops.
+`step_fullstep(mesh)` (`--comm fullstep`, parallel/fullstep.py) runs every
+stage per shard on the owned-face layout, with the same Poisson solve.
 """
 
 from __future__ import annotations
@@ -136,6 +141,17 @@ def sweep_depths(ny: int, nz: int) -> Tuple[int, ...]:
     return tuple(s for s in range(2, SWEEP_DEPTH + 1) if s * (nz + 1) <= hw)
 
 
+def uses_kernels(cfg: SimConfig) -> bool:
+    """The dtype rule of the solver's kernel routes: the hand-written
+    kernels are float32 (the JAX package's Pallas kernels are float32-only
+    too, models/chorin.py:333, :416, :507), so a float64 solver takes the
+    plain versions on every device, as does use_pallas=False. A float32
+    solver's wrappers launch the kernels on CUDA tensors (and run their
+    plain versions on CPU tensors)."""
+    return (cfg.use_pallas is not False
+            and cfg.numerics.torch_dtype == torch.float32)
+
+
 def _two_sum(a, b):
     """Knuth two_sum: s = fl(a + b), e such that a + b = s + e exactly."""
     s = a + b
@@ -169,10 +185,6 @@ class ChorinSolver:
                                "available")
         self.grid: Grid = make_grid(cfg)
         self.dtype = cfg.numerics.torch_dtype
-        if (self.dtype == torch.float64 and self.device.type != "cpu"
-                and not cfg.compat):
-            raise ValueError("float64 runs on the CPU only outside compat "
-                             "mode: that path's CUDA kernels are float32")
         self._init_split()
         grid, phys = self.grid, cfg.physics
         self.set_bc_vel, self.set_bc_pr = make_bc_fns(
@@ -197,10 +209,11 @@ class ChorinSolver:
         # compat keeps the reference's gather advection (any displacement,
         # clamped to the array bounds); otherwise select-shift (advect_k)
         self.advect_method = "gather" if cfg.compat else "selectshift"
-        # use_pallas=False runs the plain PyTorch versions on every
-        # device; otherwise the wrappers launch the hand-written kernels
-        # for CUDA tensors (CPU tensors always take the plain versions)
-        self.plain = cfg.use_pallas is False
+        # the dtype rule (uses_kernels): float64 and use_pallas=False run
+        # the plain PyTorch versions on every device; otherwise the
+        # wrappers launch the hand-written kernels for CUDA tensors (CPU
+        # tensors always take the plain versions)
+        self.plain = not uses_kernels(cfg)
         # K7's constants: the float32 solves that iterate with the BCs
         # applied in-kernel (the JAX package's non-folded kernel, which it
         # builds under compat and in dma mode, chorin.py:382): compat, and
@@ -1021,19 +1034,13 @@ class ChorinSolver:
         K6). The solve's iters, err and err_hist go into the
         StepStats; there is no stored pair (pr_lo is None).
 
-        use_pallas (auto: the solver's kernels carry its hot path, i.e.
-        float32 and use_pallas not False, the mesh is x-only and the halo
-        width 1): the per-shard kernel loop, K2-dist on the (hi, lo) pair
-        where the solver is extended, else K7-dist; otherwise the plain
-        torch-ops loop (any 3D mesh, any halo width)."""
-        if self._fdm is not None:
-            raise NotImplementedError(
-                "the fdm backend runs on one device: the distributed solve "
-                "is the pseudo-transient loop")
+        use_pallas (auto: `_dist_kernels`): the per-shard kernel loop,
+        K2-dist on the (hi, lo) pair where the solver is extended, else
+        K7-dist; otherwise the plain torch-ops loop (any 3D mesh, any halo
+        width)."""
+        self._check_pt("the distributed solve")
         if use_pallas is None:
-            use_pallas = (self.dtype == torch.float32 and not self.plain
-                          and mesh.shape[1] == 1 and mesh.shape[2] == 1
-                          and self.cfg.parallel.halo == 1)
+            use_pallas = self._dist_kernels(mesh)
         solve = build_poisson_shard_map(
             mesh, self.grid, self.cfg.physics, self.cfg.numerics.eps_it,
             self.cfg.variant, self.dtype, halo_width=self.cfg.parallel.halo,
@@ -1051,6 +1058,32 @@ class ChorinSolver:
                 state, poisson, chained=self.fused_step and mesh.size == 1,
                 advect_kernel=mesh.size == 1)
         return step
+
+    def step_fullstep(self, mesh: Mesh, use_pallas: Optional[bool] = None
+                      ) -> Callable:
+        """The step with every stage per shard on the owned-face layout
+        and explicit halo exchanges (parallel/fullstep.py), the JAX
+        package's `step_fullstep_jit` (models/chorin.py:1690-1699): returns
+        step(dist) -> (dist, stats) on a parallel.fullstep.DistState
+        (to_dist / from_dist convert at the I/O boundaries). use_pallas as
+        in step_shard_map. The step reads advect_method when it is built."""
+        from ..parallel.fullstep import build_fullstep
+        self._check_pt("the full step")
+        return build_fullstep(self, mesh, use_pallas=use_pallas)
+
+    def _check_pt(self, what: str) -> None:
+        if self._fdm is not None:
+            raise NotImplementedError(
+                f"the fdm backend runs on one device: {what} runs the "
+                "pseudo-transient loop")
+
+    def _dist_kernels(self, mesh: Mesh) -> bool:
+        """use_pallas's auto rule of the distributed steps (the JAX
+        package's, models/chorin.py:1656-1660): the solver's kernels carry
+        its hot path (float32 and use_pallas not False, `uses_kernels`),
+        the mesh is x-only and the halo width 1."""
+        return (not self.plain and mesh.shape[1] == 1 and mesh.shape[2] == 1
+                and self.cfg.parallel.halo == 1)
 
     def run(self, nt: Optional[int] = None,
             state: Optional[FlowState] = None,

@@ -19,6 +19,14 @@ interpolates the post-BC snapshot there. Two methods:
 compat=True keeps the reference bug where the third branch advects Vy a
 second time with Vz-face velocities and Vy's bounds, so Vz is never
 advected (gpu.jl:321-326); compat=False advects Vz properly.
+
+Sharded composition (parallel/fullstep.py): the inputs may be halo-padded
+local blocks of the global fields. `origin` (the global 0-based cell index
+of the local element [0,0,0]) and `gshape` (the global cell-centred shape)
+clamp departure points at the GLOBAL bounds, as the reference's per-rank
+clamp into its halos does; `set_fn` masks each branch's write to its global
+region and `count_box` restricts the clamp count to the owned cells. The
+defaults are the single-device semantics (local == global).
 """
 
 from __future__ import annotations
@@ -80,26 +88,30 @@ def _ranges(dtype, device, *specs):
     return out
 
 
-def _backtrack(a_o, vxc, vyc, vzc, ix, iy, iz, dt, dx, dy, dz):
+def _backtrack(a_o, vxc, vyc, vzc, ix, iy, iz, dt, dx, dy, dz,
+               origin=(0, 0, 0), gshape=None):
     """Vectorized backtrack! (NavierStokes3D_gpu.jl:288-304): ix/iy/iz are
-    the 1-based indices of the write region (broadcastable); departure
-    indices clamp to a_o's bounds. Returns the interpolated values over
-    the write region."""
-    n1, n2, n3 = a_o.shape
+    the 1-based LOCAL indices of the write region (broadcastable);
+    departure indices clamp to the global bounds gshape (default a_o's
+    shape), with a_o's element [0,0,0] at the global 0-based index
+    `origin`. Returns the interpolated values over the write region."""
+    gsh = a_o.shape if gshape is None else gshape
     dlx = div(dt * vxc, dx)
     dly = div(dt * vyc, dy)
     dlz = div(dt * vzc, dz)
 
-    def corner(i, dl, n):
+    def corners(i, dl, n, o, n_local):
         # the second clamp keeps a NaN displacement's index in bounds (its
-        # interpolant is NaN through t all the same)
-        return torch.clamp(torch.floor(i - dl), 1, n).long().clamp(1, n)
+        # interpolant is NaN through t all the same); the local clamp reads
+        # a displacement beyond a sharded block's halo at the halo's edge,
+        # as the JAX package's clamped gather does
+        i1 = torch.clamp(torch.floor((i + o) - dl), 1, n).long().clamp(1, n)
+        i2 = torch.clamp(i1 + 1, max=n)
+        return ((i1 - o).clamp(1, n_local), (i2 - o).clamp(1, n_local))
 
-    ix1, iy1, iz1 = corner(ix, dlx, n1), corner(iy, dly, n2), corner(iz, dlz,
-                                                                    n3)
-    ix2 = torch.clamp(ix1 + 1, max=n1)
-    iy2 = torch.clamp(iy1 + 1, max=n2)
-    iz2 = torch.clamp(iz1 + 1, max=n3)
+    (ix1, ix2), (iy1, iy2), (iz1, iz2) = (
+        corners(i, dl, n, o, nl) for i, dl, n, o, nl in zip(
+            (ix, iy, iz), (dlx, dly, dlz), gsh, origin, a_o.shape))
     # Julia: δ = (δ>0) - (δ%1); % is the truncated remainder, fmod
     tx = (dlx > 0).to(a_o.dtype) - torch.fmod(dlx, 1.0)
     ty = (dly > 0).to(a_o.dtype) - torch.fmod(dly, 1.0)
@@ -119,30 +131,39 @@ def _backtrack(a_o, vxc, vyc, vzc, ix, iy, iz, dt, dx, dy, dz):
     return _lerp(fz1, fz2, tz)
 
 
-def backtrack_gather(a_o, vxc, vyc, vzc, starts, dt, dx, dy, dz):
-    """_backtrack over the region that starts at the 1-based `starts` and
-    spans the advecting velocities' broadcast shape."""
+def backtrack_gather(a_o, vxc, vyc, vzc, starts, dt, dx, dy, dz,
+                     origin=(0, 0, 0), gshape=None):
+    """_backtrack over the region that starts at the 1-based local
+    `starts` and spans the advecting velocities' broadcast shape."""
     rs = torch.broadcast_shapes(vxc.shape, vyc.shape, vzc.shape)
     ix, iy, iz = _ranges(a_o.dtype, a_o.device,
                          *((s, s + n - 1) for s, n in zip(starts, rs)))
-    return _backtrack(a_o, vxc, vyc, vzc, ix, iy, iz, dt, dx, dy, dz)
+    return _backtrack(a_o, vxc, vyc, vzc, ix, iy, iz, dt, dx, dy, dz,
+                      origin, gshape)
 
 
-def backtrack_selectshift(a_o, vxc, vyc, vzc, starts, dt, dx, dy, dz, k):
+def backtrack_selectshift(a_o, vxc, vyc, vzc, starts, dt, dx, dy, dz, k,
+                          origin=(0, 0, 0), gshape=None, count_box=None):
     """Gather-free backtrack!: the trilinear corners lie within a bounded
     (2k+2)^3 neighborhood, so the interpolation is a select-weighted
-    stencil of static shifted slices. `starts` are the 1-based region
-    starts per axis. Returns (values, n_clamped) with n_clamped the number
-    of region points whose displacement exceeded k on any axis."""
-    n1, n2, n3 = a_o.shape
+    stencil of static shifted slices. `starts` are the 1-based local
+    region starts per axis; origin/gshape as in _backtrack (a sharded
+    caller's block then needs >= k+1 cells of valid halo around every
+    output it keeps: samples outside the global bounds get zero weight).
+    Returns (values, n_clamped) with n_clamped the number of region points
+    whose displacement exceeded k on any axis, counted only inside
+    count_box where given (per-axis half-open 0-based local bounds: a
+    sharded caller's owned block, so halo points are not counted twice)."""
+    n1, n2, n3 = a_o.shape if gshape is None else gshape
     dtype, dev = a_o.dtype, a_o.device
     rs = torch.broadcast_shapes(vxc.shape, vyc.shape, vzc.shape)
 
     def axis_terms(v, d, axis, start, extent, n):
         shape = [1, 1, 1]
         shape[axis] = extent
+        start = start + origin[axis]                    # global 1-based
         idx = torch.arange(start, start + extent, dtype=dtype,
-                           device=dev).reshape(shape)   # 1-based
+                           device=dev).reshape(shape)
         dl_raw = div(dt * v, d)
         dl = torch.clamp(dl_raw, -k, k)
         i1 = torch.clamp(torch.floor(idx - dl), 1, n)
@@ -155,7 +176,13 @@ def backtrack_selectshift(a_o, vxc, vyc, vzc, starts, dt, dx, dy, dz, k):
     ox1, ox2, tx, cx = axis_terms(vxc, dx, 0, sx, rs[0], n1)
     oy1, oy2, ty, cy = axis_terms(vyc, dy, 1, sy, rs[1], n2)
     oz1, oz2, tz, cz = axis_terms(vzc, dz, 2, sz, rs[2], n3)
-    n_clamped = torch.sum((cx | cy | cz).expand(rs).to(torch.int32))
+    clamped = cx | cy | cz
+    for axis, (lo, hi) in enumerate(count_box or ()):
+        local0 = torch.arange(rs[axis], device=dev) + (starts[axis] - 1)
+        shape = [1, 1, 1]
+        shape[axis] = rs[axis]
+        clamped = clamped & ((local0 >= lo) & (local0 < hi)).reshape(shape)
+    n_clamped = torch.sum(clamped.expand(rs).to(torch.int32))
     P = k + 1
     ap = F.pad(a_o, (P, P, P, P, P, P))
     one = torch.ones((), dtype=dtype, device=dev)
@@ -192,44 +219,77 @@ def advect_branch(branch: str, a, vx, vy, vz, dt, dx, dy, dz, k):
     return _place(a, _STARTS[branch], vals), ncl
 
 
+def _region(starts, vals):
+    """The slices of the region that starts at the 1-based `starts` and
+    spans vals."""
+    return tuple(slice(s - 1, s - 1 + n) for s, n in zip(starts, vals.shape))
+
+
 def _place(a, starts, vals):
-    out = a.clone()
-    sx, sy, sz = starts
-    out[sx - 1:sx - 1 + vals.shape[0], sy - 1:sy - 1 + vals.shape[1],
-        sz - 1:sz - 1 + vals.shape[2]] = vals
+    return set_region(a, _region(starts, vals), vals, None)
+
+
+def set_region(target, region, vals, gbounds):
+    """The default write of advect's set_fn: a copy of target with vals
+    in region (gbounds unused)."""
+    out = target.clone()
+    out[region] = vals
     return out
 
 
 def advect(vx, vy, vz, c, dt, dx, dy, dz, *, compat: bool = False,
-           method: str = "selectshift", k: int = 2):
+           method: str = "selectshift", k: int = 2, origin=(0, 0, 0),
+           gshape=None, set_fn=None, count_box=None):
     """Advect Vx, Vy, Vz and the tracer C from the post-BC snapshots
     (gpu.jl:308-332) with the given method; compat keeps the reference's
     third branch (below). Returns (vx', vy', vz', c', n_clamped) with
-    n_clamped an int32 0-dim tensor (always 0 for 'gather')."""
-    n_clamped = torch.zeros((), dtype=torch.int32, device=vx.device)
+    n_clamped an int32 0-dim tensor (always 0 for 'gather').
 
-    def bt(a_o, vels, starts):
+    Sharded composition (module docstring): origin and gshape clamp the
+    departure points at the global bounds (each branch derives its
+    field's global staggered shape from the cell-centred gshape);
+    set_fn(target, region, vals, gbounds) replaces the write of vals into
+    target[region] (`set_region`), gbounds being the branch's 1-based
+    global inclusive write range per axis on the target's index space
+    (None: the whole axis); count_box restricts the clamp count
+    (backtrack_selectshift)."""
+    n_clamped = torch.zeros((), dtype=torch.int32, device=vx.device)
+    gn = tuple(c.shape if gshape is None else gshape)
+    set_fn = set_region if set_fn is None else set_fn
+
+    def staggered(axis):
+        """The global shape of the field staggered along axis (3: the
+        cell-centred C)."""
+        return tuple(n + (d == axis) for d, n in enumerate(gn))
+
+    def bt(a_o, vels, starts, gsh):
         nonlocal n_clamped
         if method == "gather":
-            return backtrack_gather(a_o, *vels, starts, dt, dx, dy, dz)
+            return backtrack_gather(a_o, *vels, starts, dt, dx, dy, dz,
+                                    origin, gsh)
         if method != "selectshift":
             raise ValueError(f"unknown advection method {method!r}")
         vals, n = backtrack_selectshift(a_o, *vels, starts, dt, dx, dy, dz,
-                                        k)
+                                        k, origin, gsh, count_box)
         n_clamped = n_clamped + n
         return vals
 
     new = {}
-    for branch, a in zip(BRANCHES, (vx, vy, vz, c)):
+    for axis, (branch, a) in enumerate(zip(BRANCHES, (vx, vy, vz, c))):
         vels = face_velocities(branch, vx, vy, vz)
         if branch == "vz" and compat:
             # Reference bug (gpu.jl:325): Vy is written again, from the Vy
             # snapshot with Vy's clamp bounds, over iy 1..ny and iz 2..nz,
             # overwriting branch 2 where the regions overlap; Vz is left
             # as it is
-            new["vy"] = _place(new["vy"], (1, 1, 2), bt(vy, vels, (1, 1, 2)))
+            vals = bt(vy, vels, (1, 1, 2), staggered(1))
+            new["vy"] = set_fn(new["vy"], _region((1, 1, 2), vals), vals,
+                               (None, (1, gn[1]), (2, gn[2])))
             new["vz"] = vz
         else:
-            new[branch] = _place(a, _STARTS[branch],
-                                 bt(a, vels, _STARTS[branch]))
+            # the write region: faces 2..n of the staggered axis
+            starts = _STARTS[branch]
+            vals = bt(a, vels, starts, staggered(axis))
+            new[branch] = set_fn(a, _region(starts, vals), vals, tuple(
+                (2, gn[d]) if d == axis else None for d in range(3)))
     return new["vx"], new["vy"], new["vz"], new["c"], n_clamped

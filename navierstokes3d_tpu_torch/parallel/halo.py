@@ -43,16 +43,30 @@ def _zeros_or(h: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
 def halo_pad(blocks: Sequence[torch.Tensor], mesh: Mesh,
              width: int = 1) -> List[torch.Tensor]:
     """Each shard's block padded by `width` cells per side per mesh axis
-    with its neighbours' face slabs (zeros at open global boundaries). Axes
-    are exchanged in order x, y, z, so corner pads carry the diagonal
-    neighbours' data."""
+    with its neighbours' face slabs (zeros at open global boundaries):
+    halo_pad_asym's symmetric case."""
+    return halo_pad_asym(blocks, mesh, [(width, width)] * 3)
+
+
+def halo_pad_asym(blocks: Sequence[torch.Tensor], mesh: Mesh,
+                  widths: Sequence[Tuple[int, int]],
+                  mesh_axes: Sequence[int] = (0, 1, 2)
+                  ) -> List[torch.Tensor]:
+    """halo_pad with per-axis (lo, hi) widths (the JAX package's
+    halo_pad_asym, parallel/halo.py:66-87): the owned-face layout of
+    parallel/fullstep.py pads a velocity's staggered axis one deeper on
+    the hi side. Block axis d is exchanged along mesh axis mesh_axes[d]
+    (a 2D hi-face plane names its own two), in order, so corner pads carry
+    the diagonal neighbours' data; a (0, 0) axis is skipped."""
     out = list(blocks)
-    for dim in range(3):
+    for dim, (ax, (lo_w, hi_w)) in enumerate(zip(mesh_axes, widths)):
+        if not (lo_w or hi_w):
+            continue
         n = out[0].shape[dim]
-        lo_faces = [b.narrow(dim, 0, width) for b in out]
-        hi_faces = [b.narrow(dim, n - width, width) for b in out]
-        from_left = shift(hi_faces, mesh, dim, +1)
-        from_right = shift(lo_faces, mesh, dim, -1)
+        hi_faces = [b.narrow(dim, n - lo_w, lo_w) for b in out]
+        lo_faces = [b.narrow(dim, 0, hi_w) for b in out]
+        from_left = shift(hi_faces, mesh, ax, +1)
+        from_right = shift(lo_faces, mesh, ax, -1)
         out = [torch.cat((_zeros_or(left, hf), b, _zeros_or(right, lf)), dim)
                for b, lf, hf, left, right in zip(out, lo_faces, hi_faces,
                                                  from_left, from_right)]

@@ -35,11 +35,15 @@ PyTorch versions of the kernels. --mesh decomposes the grid over a mesh
 of shards, all on --device (`auto`: one shard per visible CUDA device, in
 the JAX package's mesh shape); --comm shard_map runs the distributed
 Poisson solve (parallel/halo.py: K2-dist or K7-dist per shard on an
-x-only mesh with --halo-width 1, the plain torch-ops loop otherwise).
---comm auto resolves as the JAX package's run.py does; a one-shard mesh
-runs the single-device step. The `fullstep` schedule and the global-view
-`sharded` path (which the fdm backend takes on a mesh) are not ported yet
-(ROADMAP.md queue 1, items 5-6) and exit with code 2.
+x-only mesh with --halo-width 1, the plain torch-ops loop otherwise);
+--comm fullstep runs every stage of the step per shard on the owned-face
+layout with the same solve (parallel/fullstep.py; the state is converted
+at every I/O boundary). --comm auto resolves as the JAX package's run.py
+does (fullstep on an x-only mesh whose slabs are at least advect_k + 2
+planes thick); a one-shard mesh runs the single-device step. The
+global-view `sharded` path (which auto picks on other meshes and the fdm
+backend takes on a mesh) is not ported yet (ROADMAP.md queue 1, item 6)
+and exits with code 2.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from .config import ParallelConfig, preset_gpu, preset_multi
 from .io import binio, checkpoint, matio
 from .models.chorin import ChorinSolver
 from .parallel import choose_mesh_shape, make_mesh
+from .parallel.fullstep import from_dist, to_dist
 from .utils.timers import RunTimer, StallWatchdog, StepRecord
 
 PRESETS = {"gpu": preset_gpu, "multi": preset_multi}
@@ -91,7 +96,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--comm", choices=("auto", "shard_map", "fullstep"),
                     default="auto",
                     help="the sharded schedule: 'shard_map' runs the "
-                         "distributed Poisson solve (parallel/halo.py)")
+                         "distributed Poisson solve (parallel/halo.py), "
+                         "'fullstep' every stage per shard "
+                         "(parallel/fullstep.py)")
     ap.add_argument("--halo-width", type=int, default=1,
                     help="Poisson iterations per halo exchange in "
                          "shard_map mode (temporal blocking)")
@@ -208,18 +215,19 @@ def main(argv=None) -> int:
         comm = resolve_auto_comm(args.comm, mesh.size, shape, args.nx,
                                  cfg.numerics.poisson_backend,
                                  args.halo_width, ChorinSolver.advect_k)
-        if comm in ("fullstep", "sharded"):
+        if comm == "sharded":
             print(f"--comm {args.comm} -> {comm} on mesh "
-                  f"{'x'.join(map(str, shape))}: the {comm} path is not "
-                  "ported yet (ROADMAP.md queue 1, items 5-6: parallel/ "
-                  "fullstep, then the multi-process transport); run --comm "
-                  "shard_map", file=sys.stderr)
+                  f"{'x'.join(map(str, shape))}: the global-view sharded "
+                  "path is not ported yet (ROADMAP.md queue 1, item 6, with "
+                  "the multi-process transport); run --comm shard_map or "
+                  "fullstep", file=sys.stderr)
             return 2
-        if comm == "shard_map":
+        if comm in ("shard_map", "fullstep"):
             cfg = cfg.replace(parallel=ParallelConfig(
                 mesh_shape=shape, halo=args.halo_width))
-            if (mesh.size > 1 and args.dtype == "float32"
-                    and not args.compat and args.halo_width > 1):
+            if (comm == "shard_map" and mesh.size > 1
+                    and args.dtype == "float32" and not args.compat
+                    and args.halo_width > 1):
                 # halo_width > 1 disqualifies the per-shard kernels, and
                 # the plain loop runs float32 without the (hi, lo) pair,
                 # which the no-split multi variant needs once the flow
@@ -236,7 +244,10 @@ def main(argv=None) -> int:
     g = solver.grid
 
     def build_step():
-        # the solver's step reads solver.advect_method on every call
+        # the solver's step reads solver.advect_method on every call, the
+        # full step when it is built
+        if comm == "fullstep":
+            return solver.step_fullstep(mesh)
         return (solver.step_shard_map(mesh) if comm == "shard_map"
                 else solver.step)
 
@@ -261,6 +272,13 @@ def main(argv=None) -> int:
             print(f"resumed from {ck} at step {it0}", file=sys.stderr)
     else:
         state = solver.init_state()
+    # the full step keeps the owned-face layout between steps; every I/O
+    # boundary sees the canonical state
+    if comm == "fullstep":
+        state, to_flow = to_dist(state, mesh), from_dist
+    else:
+        def to_flow(st):
+            return st
 
     # vis and save run on independent cadences (gpu.jl:143,168); .bin
     # dumps are frame-indexed, .mat snapshots keyed by the step with
@@ -295,9 +313,9 @@ def main(argv=None) -> int:
                                      hist[valid])
 
     if args.save:
-        dump_save(it0, state)
+        dump_save(it0, to_flow(state))
     if args.vis:
-        dump_vis(it0, state)
+        dump_vis(it0, to_flow(state))
 
     it_last = args.nt
     if args.resume and it0 >= it_last:
@@ -362,7 +380,7 @@ def main(argv=None) -> int:
                     snap = os.path.join(args.ckpt_dir,
                                         f"nanstate_{it:07d}.npz")
                     checkpoint.save_checkpoint(
-                        snap, state, it,
+                        snap, to_flow(state), it,
                         pressure_split=solver.pressure_split)
                     raise SystemExit(
                         f"non-finite residual at step {itp} "
@@ -374,13 +392,13 @@ def main(argv=None) -> int:
                     step = new_step
             pending.clear()
             if args.save and it % args.nsave == 0:
-                dump_save(it, state)
+                dump_save(it, to_flow(state))
             if args.vis and it % args.nvis == 0:
-                dump_vis(it, state, stats)
+                dump_vis(it, to_flow(state), stats)
             if args.checkpoint_every and it % args.checkpoint_every == 0:
                 checkpoint.save_checkpoint(
                     os.path.join(args.ckpt_dir, f"ckpt_{it:07d}.npz"),
-                    state, it, pressure_split=solver.pressure_split)
+                    to_flow(state), it, pressure_split=solver.pressure_split)
             if watchdog is not None:
                 watchdog.beat()
             t_block = time.time()

@@ -211,7 +211,8 @@ def test_cli_fdm_on_a_mesh(capsys):
     argv = ["--nx", "16", "--nt", "1", "--device", "cpu",
             "--poisson-backend", "fdm"]
     assert trun.main(argv + ["--mesh", "4x1x1"]) == 2
-    assert "sharded" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "sharded" in err and "ROADMAP.md queue 1, item 6" in err
     with pytest.raises(SystemExit, match="global-view"):
         trun.main(argv + ["--mesh", "4x1x1", "--comm", "shard_map"])
 

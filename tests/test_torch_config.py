@@ -110,9 +110,10 @@ def test_solver_defaults_to_cuda():
 
 def test_unported_configs_raise():
     """What the solver refuses: the fdm backend under compat mode (the JAX
-    package's rule; outside compat it is ported), float64 off the CPU
-    outside compat mode (that path's kernels are float32; compat float64
-    runs on any device), and the hydrostatic split on the multi variant."""
+    package's rule; outside compat it is ported) and the hydrostatic split
+    on the multi variant. float64 off the CPU outside compat mode is no
+    longer refused: the dtype rule routes it to the plain versions
+    (tests/test_torch_slice_f64.py holds the routes)."""
     for compat in (True, False):
         cfg = nt.preset_gpu(nx=15, compat=compat, dtype="float32")
         cfg = cfg.replace(numerics=dataclasses.replace(
@@ -122,8 +123,8 @@ def test_unported_configs_raise():
                 nt.ChorinSolver(cfg, device="cpu")
         else:
             assert nt.ChorinSolver(cfg, device="cpu")._fdm is not None
-    with pytest.raises(ValueError, match="CPU only"):
-        nt.ChorinSolver(nt.preset_gpu(nx=15, compat=False), device="meta")
+    assert nt.ChorinSolver(nt.preset_gpu(nx=15, compat=False),
+                           device="meta").plain
     cfg = nt.preset_multi(nx=15, compat=False, dtype="float32")
     cfg = cfg.replace(numerics=dataclasses.replace(cfg.numerics,
                                                    pressure_split=True))

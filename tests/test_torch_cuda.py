@@ -933,3 +933,68 @@ def test_fdm_step_on_card_matches_cpu(preset):
     for k in kernels.KERNELS:
         assert ((k.wrapper.launches > 0)
                 == (k.name.split()[0] in on_path)), k.name
+
+
+@pytest.mark.parametrize("compat", [False, True])
+def test_fullstep_on_card_matches_shard_map(compat):
+    """Two full steps (ChorinSolver.step_fullstep) of the multi preset at
+    nx=63 on a (3,1,1) mesh of card shards against step_shard_map on the
+    same mesh: equal counts, every field bitwise (the same torch ops on
+    every owned cell, the same dist kernel); the solve launches only its
+    dist kernel, 3 launches per iteration, and no plain version runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    from navierstokes3d_tpu_torch.parallel import make_mesh
+    from navierstokes3d_tpu_torch.parallel.fullstep import from_dist, to_dist
+    s = nt.ChorinSolver(nt.preset_multi(nx=63, compat=compat,
+                                        dtype="float32"), device="cuda")
+    mesh = make_mesh((3, 1, 1), "cuda:0")
+    fs, sm = s.step_fullstep(mesh), s.step_shard_map(mesh)
+    d, st = to_dist(s.init_state(), mesh), s.init_state()
+    iters = 0
+    for _ in range(2):
+        kernels.reset_counts()
+        d, ta = fs(d)
+        iters += ta.iters
+        on = "K7-dist" if compat else "K2-dist"
+        for k in kernels.KERNELS:
+            assert k.plain.calls == 0, k.name
+            assert k.wrapper.launches == (3 * ta.iters if k.name.startswith(on)
+                                          else 0), k.name
+        st, tb = sm(st)
+        assert (ta.iters, ta.err, ta.advect_clamped) == (
+            tb.iters, tb.err, tb.advect_clamped)
+        got = from_dist(d)
+        for name in ("pr", "vx", "vy", "vz", "c", "dprdtau"):
+            assert torch.equal(getattr(got, name), getattr(st, name)), name
+    assert iters > 0
+
+
+@pytest.mark.parametrize("preset", ["gpu", "multi"])
+def test_float64_step_on_card_matches_cpu(preset):
+    """float64 outside compat on the card (the dtype rule: the plain
+    versions on every device, no kernel launched): two steps at nx=20
+    against the same on the CPU, equal counts and err, every field within
+    1e-12 of max(1, max|field|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    make = nt.preset_gpu if preset == "gpu" else nt.preset_multi
+    cfg = make(nx=20, compat=False, dtype="float64")
+    card = nt.ChorinSolver(cfg, device="cuda")
+    cpu = nt.ChorinSolver(cfg, device="cpu")
+    assert card.plain
+    kernels.reset_counts()
+    a, b = card.init_state(), cpu.init_state()
+    for _ in range(2):
+        a, sa = card.step(a)
+        b, sb = cpu.step(b)
+        assert (sa.iters, sa.advect_clamped) == (sb.iters, sb.advect_clamped)
+        np.testing.assert_allclose(sa.err, sb.err, rtol=1e-12)
+        for name in ("pr", "vx", "vy", "vz", "c", "dprdtau"):
+            x, y = getattr(a, name).cpu().numpy(), getattr(b, name).numpy()
+            assert a.pr.dtype == torch.float64
+            np.testing.assert_allclose(
+                x / max(1.0, np.abs(y).max()), y / max(1.0, np.abs(y).max()),
+                rtol=0, atol=1e-12, err_msg=name)
+    for k in kernels.KERNELS:
+        assert k.wrapper.launches == 0, k.name

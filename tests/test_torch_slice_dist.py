@@ -20,7 +20,8 @@ in tests/test_torch_step_dist.py.
     (wrap=False, per-shard blocks in and out) bitwise equal to the
     global-view one;
   * `python -m navierstokes3d_tpu_torch.run --mesh 4x1x1 --comm shard_map
-    --device cpu` at nx=16 for 2 steps."""
+    --device cpu` at nx=16 for 2 steps, and `--comm auto`, which resolves
+    to fullstep there (tests/test_torch_fullstep.py holds that step)."""
 
 import dataclasses
 import os
@@ -38,6 +39,7 @@ from navierstokes3d_tpu_torch import run as trun
 from navierstokes3d_tpu_torch.parallel import (build_poisson_shard_map,
                                                join_blocks, make_mesh,
                                                split_blocks)
+from navierstokes3d_tpu_torch.parallel.fullstep import to_dist
 
 torch.set_num_threads(2)
 FIELDS = ("pr", "vx", "vy", "vz", "c", "dprdtau")
@@ -293,9 +295,15 @@ def test_cli_shard_map(capsys):
     for k in range(2):
         st, stats = step(st)
         assert lines[k + 1].startswith(f"step {k + 1}: iters {stats.iters} ")
-    # auto on an x-only mesh resolves to fullstep, which is not ported
-    assert trun.main(argv + ["--mesh", "4x1x1"]) == 2
-    assert "ROADMAP.md queue 1, items 5-6" in capsys.readouterr().err
+    # auto on an x-only mesh of slabs >= advect_k + 2 resolves to fullstep
+    assert trun.main(argv + ["--mesh", "4x1x1"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert "mesh 4x1x1 of cpu, comm fullstep" in lines[0]
+    mesh = make_mesh((4, 1, 1), "cpu")
+    step, d = s.step_fullstep(mesh), to_dist(s.init_state(), mesh)
+    for k in range(2):
+        d, stats = step(d)
+        assert lines[k + 1].startswith(f"step {k + 1}: iters {stats.iters} ")
     # a one-shard mesh under auto runs the single-device step
     assert trun.main(argv + ["--mesh", "1x1x1"]) == 0
     assert "comm auto" in capsys.readouterr().out

@@ -161,3 +161,71 @@ def test_f64_multi_matches(multi_runs):
         _close(getattr(tstates[0], k).numpy(), jstates[0][k], k)
     for k in ("pr", "dprdtau"):
         _close(getattr(tstates[1], k).numpy(), jstates[1][k], k)
+
+
+@pytest.mark.parametrize("make", [nt.preset_gpu, nt.preset_multi])
+def test_f64_routes_to_the_plain_versions_on_any_device(make):
+    """The dtype rule (models/chorin.py `uses_kernels`, the JAX package's:
+    its Pallas kernels are float32-only): a float64 solver on a device
+    other than the CPU is built without error and routes the predictor,
+    the corrector, every Poisson iteration, the advection (`plain`) and
+    the distributed solves to the plain versions, with the plain folded
+    solve and no accuracy phase; a float32 one routes to the kernel
+    wrappers. Built on the meta device: no card, no allocation."""
+    from navierstokes3d_tpu_torch.kernels import fused_step as k_step
+    from navierstokes3d_tpu_torch.kernels import poisson as kp
+    from navierstokes3d_tpu_torch.models.chorin import uses_kernels
+    from navierstokes3d_tpu_torch.parallel import make_mesh
+    mesh = make_mesh((3, 1, 1), "cpu")
+    f64 = nt.ChorinSolver(make(nx=NX, dtype="float64", compat=False),
+                          device="meta")
+    f32 = nt.ChorinSolver(make(nx=NX, dtype="float32", compat=False),
+                          device="meta")
+    assert not uses_kernels(f64.cfg) and uses_kernels(f32.cfg)
+    routes = ("_predict", "_correct", "_poisson_iter", "_poisson_iter_sweeps",
+              "_poisson_iter_ext", "_poisson_iter_bc")
+    plain = (k_step.predict_plain, k_step.correct_plain,
+             kp.poisson_iter_plain, kp.poisson_iter_sweeps_plain,
+             kp.poisson_iter_ext_plain, kp.poisson_iter_bc_plain)
+    wrappers = (k_step.predict, k_step.correct, kp.poisson_iter,
+                kp.poisson_iter_sweeps, kp.poisson_iter_ext,
+                kp.poisson_iter_bc)
+    assert tuple(getattr(f64, r) for r in routes) == plain
+    assert tuple(getattr(f32, r) for r in routes) == wrappers
+    assert f64.plain and not f32.plain    # k_advect.advect's `plain`
+    assert not f64._dist_kernels(mesh) and f32._dist_kernels(mesh)
+    assert f64.acc == "none" and not f64.extended and f64._bc_op is None
+    assert f32.acc in ("defect", "extended")
+
+
+def test_f64_multi63_counts_are_chip_smokes_reference():
+    """chip_smoke.py's float64 phase holds the card's preset_multi(nx=63,
+    float64) run against REF_ITERS_F64_63: here both packages' CPU runs
+    (the JAX package with select-shift advection) take exactly those
+    iterations over 8 steps from init_state, with no clamp."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    want = list(smoke.REF_ITERS_F64_63)
+    nx, nsteps = smoke.MULTI_NX_SMALL, smoke.F64_STEPS
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NS3D_FUSED_INTERPRET", "1")
+        js = ns.ChorinSolver(ns.preset_multi(nx=nx, dtype="float64",
+                                             compat=False))
+        assert js.advect_method == "selectshift"
+        step = jax.jit(js.step)
+        st, got = js.init_state(), []
+        for _ in range(nsteps):
+            st, s = step(st)
+            got.append((int(s.iters), int(s.advect_clamped)))
+    assert got == [(n, 0) for n in want]
+    ts = nt.ChorinSolver(nt.preset_multi(nx=nx, dtype="float64",
+                                         compat=False), device="cpu")
+    st, got = ts.init_state(), []
+    for _ in range(nsteps):
+        st, s = ts.step(st)
+        got.append((s.iters, s.advect_clamped))
+    assert got == [(n, 0) for n in want]
