@@ -112,6 +112,7 @@ from ..parallel.halo import build_poisson_shard_map
 from ..parallel.mesh import Mesh
 from ..ptloop import host_scalar, np_float, pt_loop, pt_loop_fused
 from ..state import FIELDS, FlowState, StepStats, zeros_state
+from ..utils.profiling import span
 
 INNER = (slice(1, -1),) * 3
 # the Poisson kernel modes (the JAX package's NS3D_PALLAS_MODE): 'blocked'
@@ -496,10 +497,11 @@ class ChorinSolver:
         the incoming boundary planes as the reference does), then the
         Dirichlet planes are frozen via set_bc_pr."""
         grid, phys = self.grid, self.cfg.physics
-        pr, dpr = ph.poisson_iter(pr, dprdtau, divv, phys.rho, grid.dt,
-                                  grid.dtau, grid.damp, grid.dx, grid.dy,
-                                  grid.dz)
-        return self.set_bc_pr(pr), dpr
+        with span("ns3d.poisson.first"):
+            pr, dpr = ph.poisson_iter(pr, dprdtau, divv, phys.rho, grid.dt,
+                                      grid.dtau, grid.damp, grid.dx, grid.dy,
+                                      grid.dz)
+            return self.set_bc_pr(pr), dpr
 
     def _poisson_solve_folded(self, pr, dprdtau, divv):
         """Plain folded solve (JAX `_poisson_solve_jnp_folded` with the
@@ -762,9 +764,10 @@ class ChorinSolver:
         # trajectory with better arithmetic); a stall detector always
         # runs here, and the trailing partial chunk belongs to phase 2
         stall1 = self._stall or (num.stall_ratio, num.stall_checks)
-        carry, it1, _, hist1 = self._folded_loop(
-            rhs3d, err_scale, (pr, torch.empty_like(pr), dpr, None), 1,
-            nchunks * nchk, 0, eps_it * 1000.0, stall1)
+        with span("ns3d.poisson.phase1"):
+            carry, it1, _, hist1 = self._folded_loop(
+                rhs3d, err_scale, (pr, torch.empty_like(pr), dpr, None), 1,
+                nchunks * nchk, 0, eps_it * 1000.0, stall1)
         p1, dpr = carry[0], carry[2]
 
         # ---- phase 2: restarted defect correction. r0 is evaluated ONCE
@@ -773,15 +776,16 @@ class ChorinSolver:
         # CARRIES OVER (by linearity the correction continues phase 1's
         # trajectory). Seeding err0 makes the loop a no-op when phase 1
         # already converged.
-        r0, emax = k_poisson.compensated_residual(p1, rhs3d, rhs_lo3d,
-                                                  self._op)
-        errh = host_scalar(emax * err_scale, ft)
-        n2 = nchunks * nchk + rem
-        rhs2 = -r0
-        carry, it2, err, hist2 = self._folded_loop(
-            rhs2, err_scale, (torch.zeros_like(p1), torch.empty_like(p1),
-                              dpr, carry[3]),
-            0, nchunks * nchk, rem, eps_it, self._stall, err0=errh)
+        with span("ns3d.poisson.phase2"):
+            r0, emax = k_poisson.compensated_residual(p1, rhs3d, rhs_lo3d,
+                                                      self._op)
+            errh = host_scalar(emax * err_scale, ft)
+            n2 = nchunks * nchk + rem
+            rhs2 = -r0
+            carry, it2, err, hist2 = self._folded_loop(
+                rhs2, err_scale, (torch.zeros_like(p1), torch.empty_like(p1),
+                                  dpr, carry[3]),
+                0, nchunks * nchk, rem, eps_it, self._stall, err0=errh)
         chain2 = self._kernel_chain(rhs2, err_scale)
         hist = np.where(np.isnan(hist1), np.roll(hist2, it1 // nchk), hist1)
 
@@ -791,7 +795,8 @@ class ChorinSolver:
         if self._marginal(err) and it2 > 0:
             carry, it2, err = self._stored_state_guarantee(
                 carry, chain2, it2, n2, pair_of, (rhs3d, rhs_lo3d))
-        hi, lo = pair_of(carry)
+        with span("ns3d.poisson.pair"):
+            hi, lo = pair_of(carry)
         return hi, carry[2], StepStats(iters=it1 + it2, err=err,
                                        err_hist=hist, iters_ext=it2,
                                        pr_lo=lo)
@@ -825,13 +830,15 @@ class ChorinSolver:
         # noise floor, where the stall detector (always on here) hands
         # off; the trailing partial chunk belongs to phase 2
         stall1 = self._stall or (num.stall_ratio, num.stall_checks)
-        carry, it1, err1, hist1 = self._folded_loop(
-            rhs3d, err_scale, (pr, torch.empty_like(pr), dpr, None), 1,
-            nchunks * nchk, 0, eps_it, stall1)
+        with span("ns3d.poisson.phase1"):
+            carry, it1, err1, hist1 = self._folded_loop(
+                rhs3d, err_scale, (pr, torch.empty_like(pr), dpr, None), 1,
+                nchunks * nchk, 0, eps_it, stall1)
         p1, dpr = carry[0], carry[2]
         if not (err1 >= ft(eps_it) and np.isfinite(err1)):
             # phase 1 converged (or failed): the pair is (pr1, 0)
-            hi, lo = self.set_bc_pr_pair(p1, torch.zeros_like(p1))
+            with span("ns3d.poisson.pair"):
+                hi, lo = self.set_bc_pr_pair(p1, torch.zeros_like(p1))
             return hi, dpr, StepStats(iters=it1, err=err1, err_hist=hist1,
                                       iters_ext=0, pr_lo=lo)
 
@@ -840,11 +847,12 @@ class ChorinSolver:
         # bits, so the iteration keeps converging below phase 1's floor
         n2 = nchunks * nchk + rem
         chain2 = self._ext_chain(rhs3d, err_scale)
-        carry = (p1, torch.zeros_like(p1), torch.empty_like(p1),
-                 torch.empty_like(p1), dpr)
-        carry, it2, err, hist2 = pt_loop_fused(
-            chain2, carry, 0, n2, nchk, nchunks, eps_it, self.dtype,
-            stall=self._stall)
+        with span("ns3d.poisson.phase2"):
+            carry = (p1, torch.zeros_like(p1), torch.empty_like(p1),
+                     torch.empty_like(p1), dpr)
+            carry, it2, err, hist2 = pt_loop_fused(
+                chain2, carry, 0, n2, nchk, nchunks, eps_it, self.dtype,
+                stall=self._stall)
 
         def pair_of(carry):
             return self.set_bc_pr_pair(carry[0], carry[1])
@@ -855,7 +863,8 @@ class ChorinSolver:
                 ds.rhs_pair(divv, self.cfg.physics.rho / self.grid.dt,
                             self._z_hoist))
         hist = np.where(np.isnan(hist1), np.roll(hist2, it1 // nchk), hist1)
-        hi, lo = pair_of(carry)
+        with span("ns3d.poisson.pair"):
+            hi, lo = pair_of(carry)
         return hi, carry[4], StepStats(iters=it1 + it2, err=err,
                                        err_hist=hist, iters_ext=it2,
                                        pr_lo=lo)
@@ -867,11 +876,12 @@ class ChorinSolver:
         the boundary planes; no stored pair."""
         nchunks, rem = self._budget()
         pr, dpr = self._first_iteration(pr, dprdtau, divv)
-        carry, it, err, hist = self._folded_loop(
-            self._rhs3d(divv), self._err_scale(),
-            (pr, torch.empty_like(pr), dpr, None), 1,
-            nchunks * self.grid.nchk, rem, self.cfg.numerics.eps_it,
-            self._stall)
+        with span("ns3d.poisson.phase1"):
+            carry, it, err, hist = self._folded_loop(
+                self._rhs3d(divv), self._err_scale(),
+                (pr, torch.empty_like(pr), dpr, None), 1,
+                nchunks * self.grid.nchk, rem, self.cfg.numerics.eps_it,
+                self._stall)
         return self.set_bc_pr(carry[0]), carry[2], StepStats(
             iters=it, err=err, err_hist=hist)
 
@@ -899,11 +909,12 @@ class ChorinSolver:
             emax = self._comp_residual(*pair_of(c), rhs_hi, rhs_lo)[1]
             return host_scalar(emax * err_scale, ft)
 
-        while true_err(carry) >= eps and it + nchk <= budget:
-            for _ in range(nchk):
-                carry = chain(carry, 0)[0]   # it=0: no check flag
-            it += nchk
-        return carry, it, true_err(carry)
+        with span("ns3d.poisson.guarantee"):
+            while true_err(carry) >= eps and it + nchk <= budget:
+                for _ in range(nchk):
+                    carry = chain(carry, 0)[0]   # it=0: no check flag
+                it += nchk
+            return carry, it, true_err(carry)
 
     def _comp_residual(self, hi, lo, rhs_hi, rhs_lo):
         """Compensated folded residual of a (hi, lo) pressure pair against
@@ -990,36 +1001,42 @@ class ChorinSolver:
         advect_kernel=False advects with torch ops instead (what its
         distributed step runs on a mesh of more than one device,
         allow_pallas_advect=False); compat always advects by gather."""
-        self._check_state_device(state)
-        k = self._consts
-        if chained:
-            predict, correct = self._predict, self._correct
-        else:
-            predict = k_step.predict_ops
-            correct = functools.partial(k_step.correct_ops,
-                                        set_bc_vel=self.set_bc_vel)
-        vx, vy, vz, divv = predict(state.vx, state.vy, state.vz, self.masks,
-                                   k)
-        c = mask_tracer(state.c, self.masks)
-        pr, dprdtau, stats = poisson_fn(state.pr, state.dprdtau, divv)
-        # pop the stored-pair low word out of the stats channel into the
-        # state (the corrector and the next solve use hi only)
-        pr_lo, stats.pr_lo = stats.pr_lo, None
-        vx, vy, vz = correct(vx, vy, vz, pr, self.masks, k)
-        if self.advect_method == "gather" or not advect_kernel:
-            vx, vy, vz, c, n_clamped = adv.advect(
-                vx, vy, vz, c, k.dt, k.dx, k.dy, k.dz,
-                compat=self.cfg.compat, method=self.advect_method,
-                k=self.advect_k)
-        elif chained:
-            vx, vy, vz, c, n_clamped = k_advect.advect(
-                vx, vy, vz, c, k, self.advect_k, plain=self.plain)
-        else:
-            vx, vy, vz, c, n_clamped = k_advect.advect_unchained(
-                vx, vy, vz, c, k, self.advect_k, plain=self.plain)
-        stats.advect_clamped = int(n_clamped.item())
-        return (FlowState(pr=pr, vx=vx, vy=vy, vz=vz, c=c, dprdtau=dprdtau,
-                          pr_lo=pr_lo), stats)
+        with span("ns3d.step"):
+            self._check_state_device(state)
+            k = self._consts
+            if chained:
+                predict, correct = self._predict, self._correct
+            else:
+                predict = k_step.predict_ops
+                correct = functools.partial(k_step.correct_ops,
+                                            set_bc_vel=self.set_bc_vel)
+            with span("ns3d.predict"):
+                vx, vy, vz, divv = predict(state.vx, state.vy, state.vz,
+                                           self.masks, k)
+                c = mask_tracer(state.c, self.masks)
+            with span("ns3d.poisson"):
+                pr, dprdtau, stats = poisson_fn(state.pr, state.dprdtau,
+                                                divv)
+            # pop the stored-pair low word out of the stats channel into
+            # the state (the corrector and the next solve use hi only)
+            pr_lo, stats.pr_lo = stats.pr_lo, None
+            with span("ns3d.correct"):
+                vx, vy, vz = correct(vx, vy, vz, pr, self.masks, k)
+            with span("ns3d.advect"):
+                if self.advect_method == "gather" or not advect_kernel:
+                    vx, vy, vz, c, n_clamped = adv.advect(
+                        vx, vy, vz, c, k.dt, k.dx, k.dy, k.dz,
+                        compat=self.cfg.compat, method=self.advect_method,
+                        k=self.advect_k)
+                elif chained:
+                    vx, vy, vz, c, n_clamped = k_advect.advect(
+                        vx, vy, vz, c, k, self.advect_k, plain=self.plain)
+                else:
+                    vx, vy, vz, c, n_clamped = k_advect.advect_unchained(
+                        vx, vy, vz, c, k, self.advect_k, plain=self.plain)
+                stats.advect_clamped = host_scalar(n_clamped, int)
+            return (FlowState(pr=pr, vx=vx, vy=vy, vz=vz, c=c,
+                              dprdtau=dprdtau, pr_lo=pr_lo), stats)
 
     def step_shard_map(self, mesh: Mesh, use_pallas: Optional[bool] = None
                        ) -> Callable:

@@ -49,7 +49,9 @@ import torch
 from ..ops import advect as adv
 from ..ops import physics as ph
 from ..ops.stencil import div
+from ..ptloop import host_scalar
 from ..state import FlowState, StepStats
+from ..utils.profiling import span
 from .halo import build_poisson_shard_map, halo_pad, halo_pad_asym
 from .mesh import Mesh, join_blocks, split_blocks
 from .transport import mesh_sum, pick_hi
@@ -370,6 +372,10 @@ def build_fullstep(solver, mesh: Mesh, use_pallas: bool | None = None
     c_corr = -dt / rho
 
     def step(dist: DistState) -> Tuple[DistState, StepStats]:
+        with span("ns3d.step"):
+            return _step(dist)
+
+    def _step(dist: DistState) -> Tuple[DistState, StepStats]:
         if dist.mesh != mesh:
             raise ValueError("the state lies on another mesh than the step's")
         st = {f.name: list(getattr(dist, f.name))
@@ -430,7 +436,7 @@ def build_fullstep(solver, mesh: Mesh, use_pallas: bool | None = None
                 st[name][s] = a[own_sl]
             clamped.append(out[4])
         # advect never writes the hi-face planes (regions end at face n-1)
-        n_clamped = int(mesh_sum(clamped, mesh).item())
+        n_clamped = host_scalar(mesh_sum(clamped, mesh), int)
         return (DistState(mesh=mesh, **st),
                 StepStats(iters=iters, err=err, err_hist=hist,
                           advect_clamped=n_clamped))

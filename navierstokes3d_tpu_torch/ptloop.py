@@ -24,6 +24,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .utils.profiling import span
+
 
 def np_float(dtype) -> type:
     """numpy scalar type of a torch or numpy float dtype."""
@@ -34,10 +36,23 @@ def np_float(dtype) -> type:
 
 def host_scalar(e, ft: type):
     """A device or host scalar as a numpy scalar of type ft (one device
-    read for a tensor)."""
+    read for a tensor, counted in `host_scalar.reads` and spanned as
+    ns3d.read). Every read of a device scalar by the step goes through
+    here, so the count is the number of times a step makes the card wait
+    on the host (reset_reads clears it)."""
     if isinstance(e, torch.Tensor):
-        e = e.item()
+        host_scalar.reads += 1
+        with span("ns3d.read"):
+            e = e.item()
     return ft(e)
+
+
+host_scalar.reads = 0
+
+
+def reset_reads() -> None:
+    """Set the count of device scalars read by the host to 0."""
+    host_scalar.reads = 0
 
 
 class _Stall:

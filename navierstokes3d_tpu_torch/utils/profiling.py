@@ -1,11 +1,22 @@
-"""Profiling helpers: torch.profiler traces and step instrumentation.
+"""Profiling helpers: the program's spans, torch.profiler traces and step
+timing.
 
+  * span(name): a named range around a phase of the step. With spans on
+    (`spans()`), it is a torch.profiler.record_function range, on the
+    same timeline and clock as the kernels of any torch.profiler trace,
+    nested in the span around it; with spans off (the default) it is one
+    shared no-op context manager, so an untraced step creates no range.
+    The step's spans (models/chorin.py, ptloop.py, parallel/fullstep.py):
+    ns3d.step > ns3d.predict, ns3d.poisson (> ns3d.poisson.first, .phase1,
+    .phase2, .guarantee, .pair), ns3d.correct, ns3d.advect; ns3d.read
+    around every read of a device scalar by the host (ptloop.host_scalar),
+    inside whichever of these is open. None is entered inside a
+    per-iteration loop body.
   * trace(): context manager that profiles the enclosed work (CPU, and
-    the card's kernels where the process has one) and writes a Chrome
-    trace (trace.json, for chrome://tracing or Perfetto),
+    the card's kernels where the process has one) with spans on and
+    writes a Chrome trace (trace.json, for chrome://tracing or Perfetto),
   * profile_steps(): times N solver steps, synchronizing the device around
-    each, and returns the RunTimer summary with the Poisson iteration's
-    bandwidth roofline where the card's memory rate is known.
+    each, and returns the RunTimer summary.
 """
 
 from __future__ import annotations
@@ -16,36 +27,42 @@ from typing import Optional
 
 import torch
 
-from .timers import RunTimer, poisson_roofline_iters_per_sec
+from .timers import RunTimer
 
-# device memory rates by card name (NVIDIA's data sheets), GB/s
-_HBM_GBPS = {"h100": 3350.0}
+# the span switch: read by span() on every call, set by spans()
+spans_on = False
+_NO_SPAN = contextlib.nullcontext()
 
 
-def device_hbm_gbps(device: torch.device | str = "cuda") -> Optional[float]:
-    """The device memory rate of `device` in GB/s, keyed on
-    torch.cuda.get_device_name; None for the CPU or a card not in the
-    table (no rate is assumed)."""
-    device = torch.device(device)
-    if device.type != "cuda" or not torch.cuda.is_available():
-        return None
-    name = torch.cuda.get_device_name(device).lower()
-    for key, gbps in _HBM_GBPS.items():
-        if key in name:
-            return gbps
-    return None
+def span(name: str):
+    """A record_function range named `name` with spans on, else the shared
+    no-op context manager."""
+    if not spans_on:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def spans(on: bool = True):
+    """Turn the program's spans on (or off) for the enclosed block."""
+    global spans_on
+    prev, spans_on = spans_on, bool(on)
+    try:
+        yield
+    finally:
+        spans_on = prev
 
 
 @contextlib.contextmanager
 def trace(log_dir: str = "ns3d_trace"):
     """Profile the enclosed block with torch.profiler (CPU activity, and
-    CUDA where available) and write log_dir/trace.json on exit. Yields
-    log_dir."""
+    CUDA where available), the program's spans on, and write
+    log_dir/trace.json on exit. Yields log_dir."""
     os.makedirs(log_dir, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof, spans():
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
@@ -54,9 +71,7 @@ def profile_steps(solver, state, n_steps: int = 3,
                   trace_dir: Optional[str] = None) -> dict:
     """Run n_steps solver steps (after a warm-up step of the caller's:
     the first step builds the kernels) with the device synchronized around
-    each, and return the timing summary. roofline_iters_per_sec and
-    roofline_fraction are None where the device's memory rate is unknown
-    (the CPU included)."""
+    each, and return the timing summary; with trace_dir, under trace()."""
     sync = (torch.cuda.synchronize if solver.device.type == "cuda"
             else (lambda: None))
     timer = RunTimer()
@@ -68,12 +83,4 @@ def profile_steps(solver, state, n_steps: int = 3,
             state, stats = solver.step(state)
             sync()
             timer.stop(it, int(stats.iters), float(stats.err))
-    g = solver.grid
-    summary = timer.summary(skip_first=0)
-    gbps = device_hbm_gbps(solver.device)
-    roof = None if gbps is None else poisson_roofline_iters_per_sec(
-        g.nx * g.ny * g.nz, solver.dtype.itemsize, gbps)
-    summary["roofline_iters_per_sec"] = roof
-    summary["roofline_fraction"] = (
-        None if roof is None else summary["poisson_iters_per_sec"] / roof)
-    return summary
+    return timer.summary(skip_first=0)

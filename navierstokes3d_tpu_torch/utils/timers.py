@@ -1,6 +1,6 @@
 """Wall-clock accounting and the stall watchdog (framework-free; a copy of
-navierstokes3d_tpu/utils/timers.py): time per step, Poisson iterations per
-second, and the bandwidth roofline of the Poisson iteration.
+navierstokes3d_tpu/utils/timers.py without its roofline): time per step
+and Poisson iterations per second.
 """
 
 from __future__ import annotations
@@ -44,13 +44,6 @@ class RunTimer:
             "poisson_iters_per_sec": iters / total if total else 0.0,
             "total_wall_s": total,
         }
-
-
-def poisson_roofline_iters_per_sec(cells: int, itemsize: int,
-                                   hbm_gbps: float) -> float:
-    """Minimum device-memory traffic per damped iteration: read
-    Pr/dprdtau/divv, write Pr/dprdtau = 5 grid passes."""
-    return hbm_gbps * 1e9 / (5 * cells * itemsize)
 
 
 class StallWatchdog:

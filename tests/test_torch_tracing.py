@@ -1,0 +1,175 @@
+"""The port's spans (utils/profiling.py `span`) and its count of host reads
+(ptloop.host_scalar.reads), on the CPU at nx 15: with spans off a step
+creates no record_function range; with spans on each phase span appears
+once a step, nested as the step runs, and ns3d.read once per counted
+read; every .item() of a step is a counted read; trace()'s Chrome trace
+holds the step span; ptloop.reset_reads clears the count.
+
+Paths: 'extended' (the multi preset's K2 accuracy phase), 'guarantee'
+(the same with the stored-state guarantee forced), 'defect' (the gpu
+preset's defect correction), 'plain' (accuracy 'none'); eps_it 1e-9, so
+the accuracy phases run at nx 15."""
+
+import dataclasses
+import json
+import os
+
+import pytest
+import torch
+
+import navierstokes3d_tpu_torch as nt
+from navierstokes3d_tpu_torch import ptloop
+from navierstokes3d_tpu_torch.parallel import make_mesh
+from navierstokes3d_tpu_torch.parallel.fullstep import to_dist
+from navierstokes3d_tpu_torch.utils import profiling
+
+torch.set_num_threads(2)
+PATHS = ("extended", "guarantee", "defect", "plain")
+PHASES = {"extended": ("first", "phase1", "phase2", "pair"),
+          "guarantee": ("first", "phase1", "phase2", "guarantee", "pair"),
+          "defect": ("first", "phase1", "phase2", "pair"),
+          "plain": ("first", "phase1")}
+
+
+def _solver(path, monkeypatch=None):
+    preset = nt.preset_gpu if path == "defect" else nt.preset_multi
+    cfg = preset(nx=15, compat=False, dtype="float32")
+    num = dataclasses.replace(cfg.numerics, eps_it=1e-9,
+                              accuracy="none" if path == "plain" else None)
+    s = nt.ChorinSolver(cfg.replace(numerics=num), device="cpu")
+    if path == "guarantee":
+        monkeypatch.setattr(s, "_marginal", lambda err: True)
+    return s
+
+
+def _state(s):
+    """The state after one step from init_state (a moving flow)."""
+    return s.step(s.init_state())[0]
+
+
+def _no_range(*a, **k):
+    raise AssertionError("record_function called with spans off")
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_spans_off_create_no_record_function(path, monkeypatch):
+    s = _solver(path, monkeypatch)
+    st = _state(s)
+    assert profiling.spans_on is False
+    monkeypatch.setattr(torch.profiler, "record_function", _no_range)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", _no_range)
+    st, stats = s.step(st)
+    assert stats.iters > 0
+
+
+def _ns3d_parent(e):
+    p = e.cpu_parent
+    while p is not None and not p.name.startswith("ns3d."):
+        p = p.cpu_parent
+    return None if p is None else p.name
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_spans_nest_as_the_step_runs(path, monkeypatch):
+    """One step under torch.profiler with spans on: the four phase spans
+    under ns3d.step, the solve's under ns3d.poisson, each once (so none
+    sits in a loop body, which runs once an iteration); ns3d.read once a
+    counted read, inside phase 1, phase 2, the guarantee or the
+    advection, which reads once."""
+    s = _solver(path, monkeypatch)
+    st = _state(s)
+    r0 = ptloop.host_scalar.reads
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof, \
+            profiling.spans():
+        st, stats = s.step(st)
+    reads = ptloop.host_scalar.reads - r0
+    assert profiling.spans_on is False
+    ev = [e for e in prof.events() if e.name.startswith("ns3d.")]
+    want = {"ns3d.step": None}
+    want.update({f"ns3d.{n}": "ns3d.step"
+                 for n in ("predict", "poisson", "correct", "advect")})
+    want.update({f"ns3d.poisson.{n}": "ns3d.poisson" for n in PHASES[path]})
+    for name, parent in want.items():
+        got = [e for e in ev if e.name == name]
+        assert len(got) == 1, (name, len(got))
+        assert _ns3d_parent(got[0]) == parent, name
+    spans = {e.name for e in ev}
+    assert spans == set(want) | {"ns3d.read"}
+    read_parents = [_ns3d_parent(e) for e in ev if e.name == "ns3d.read"]
+    assert len(read_parents) == reads > 2
+    assert read_parents.count("ns3d.advect") == 1
+    allowed = {"ns3d.advect", "ns3d.poisson.phase1", "ns3d.poisson.phase2",
+               "ns3d.poisson.guarantee"}
+    assert set(read_parents) <= allowed
+    assert read_parents.count("ns3d.poisson.phase1") >= 1
+    assert ("ns3d.poisson.phase2" in read_parents) == (path != "plain")
+    assert ("ns3d.poisson.guarantee" in read_parents) == (
+        path == "guarantee")
+    if path != "plain":
+        assert stats.iters_ext > 0
+
+
+def _count_items(monkeypatch):
+    calls = [0]
+    item = torch.Tensor.item
+
+    def counted(self):
+        calls[0] += 1
+        return item(self)
+    monkeypatch.setattr(torch.Tensor, "item", counted)
+    return calls
+
+
+@pytest.mark.parametrize("path", (*PATHS, "fdm", "fullstep"))
+def test_every_item_of_a_step_is_a_counted_read(path, monkeypatch):
+    """Every .item() a step calls goes through ptloop.host_scalar, which
+    counts it; also on the fdm step and the full step on a (2, 1, 1) mesh
+    of CPU shards (nx 16)."""
+    if path == "fdm":
+        cfg = nt.preset_gpu(nx=15, compat=False, dtype="float32")
+        s = nt.ChorinSolver(cfg.replace(numerics=dataclasses.replace(
+            cfg.numerics, poisson_backend="fdm")), device="cpu")
+        step, st = s.step, _state(s)
+    elif path == "fullstep":
+        s = nt.ChorinSolver(nt.preset_multi(nx=16, compat=False,
+                                            dtype="float32"), device="cpu")
+        mesh = make_mesh((2, 1, 1), "cpu")
+        step, st = s.step_fullstep(mesh), to_dist(_state(s), mesh)
+    else:
+        s = _solver(path, monkeypatch)
+        step, st = s.step, _state(s)
+    calls = _count_items(monkeypatch)
+    ptloop.reset_reads()
+    step(st)
+    assert calls[0] == ptloop.host_scalar.reads > 0
+
+
+def test_trace_writes_the_step_span(tmp_path):
+    """trace() turns spans on for its block (and off after it): its Chrome
+    trace holds ns3d.step and the solve's spans; profile_steps with a
+    trace_dir too."""
+    s = _solver("extended")
+    st = _state(s)
+    with profiling.trace(str(tmp_path / "t")):
+        assert profiling.spans_on is True
+        st, _ = s.step(st)
+    assert profiling.spans_on is False
+    out = profiling.profile_steps(s, st, n_steps=1,
+                                  trace_dir=str(tmp_path / "p"))
+    assert out["steps"] == 1 and "roofline_fraction" not in out
+    for d in ("t", "p"):
+        with open(os.path.join(tmp_path, d, "trace.json")) as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        assert {"ns3d.step", "ns3d.poisson.phase2", "ns3d.read"} <= names
+
+
+def test_reset_reads_clears_the_read_counter():
+    s = _solver("plain")
+    _state(s)
+    assert ptloop.host_scalar.reads > 0
+    ptloop.reset_reads()
+    assert ptloop.host_scalar.reads == 0
+    assert ptloop.host_scalar(torch.tensor(2.5), float) == 2.5
+    assert ptloop.host_scalar(3.0, float) == 3.0
+    assert ptloop.host_scalar.reads == 1

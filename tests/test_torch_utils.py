@@ -18,8 +18,7 @@ import navierstokes3d_tpu_torch as nt
 from navierstokes3d_tpu.utils import timers as jtimers
 from navierstokes3d_tpu_torch import run as trun
 from navierstokes3d_tpu_torch.utils import timers
-from navierstokes3d_tpu_torch.utils.profiling import (device_hbm_gbps,
-                                                      profile_steps, trace)
+from navierstokes3d_tpu_torch.utils.profiling import profile_steps, trace
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -92,24 +91,18 @@ def test_run_timer_matches_jax():
     for skip in (0, 1, 5):
         assert a.summary(skip) == b.summary(skip)
     assert timers.RunTimer().summary() == {}
-    assert (timers.poisson_roofline_iters_per_sec(5_000_000, 4, 3350.0)
-            == jtimers.poisson_roofline_iters_per_sec(5_000_000, 4, 3350.0))
 
 
 def test_profile_steps_on_the_cpu(tmp_path):
     """The summary of 2 steps on the CPU: times and iteration rates; the
-    roofline is None (no device memory rate for the CPU); the trace
-    context writes a Chrome trace."""
+    trace context writes a Chrome trace."""
     s = nt.ChorinSolver(nt.preset_multi(nx=9, compat=False,
                                         dtype="float32"), device="cpu")
     state, _ = s.step(s.init_state())
     out = profile_steps(s, state, n_steps=2, trace_dir=str(tmp_path / "tr"))
     assert out["steps"] == 2
     assert out["time_per_step_s"] > 0 and out["poisson_iters_per_sec"] > 0
-    assert out["roofline_iters_per_sec"] is None
-    assert out["roofline_fraction"] is None
     assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
-    assert device_hbm_gbps("cpu") is None
 
 
 def test_trace_context_manager(tmp_path):
@@ -117,16 +110,6 @@ def test_trace_context_manager(tmp_path):
         (torch.ones((8, 8)) * 2).sum()
     files = glob.glob(os.path.join(d, "*.json"))
     assert files and os.path.getsize(files[0]) > 0
-
-
-def test_device_hbm_gbps_keys_on_the_card_name(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "get_device_name",
-                        lambda d=None: "NVIDIA H100 80GB HBM3")
-    assert device_hbm_gbps("cuda") == 3350.0
-    monkeypatch.setattr(torch.cuda, "get_device_name",
-                        lambda d=None: "Some Other Card")
-    assert device_hbm_gbps("cuda") is None
 
 
 NEW_MODULES = ("navierstokes3d_tpu_torch.ops.fdm_poisson",
