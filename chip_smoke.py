@@ -29,7 +29,8 @@ Phases (any failure exits non-zero; nothing is caught):
      eps_it (the nx=63 ones are reported), and the nx=63 iteration counts
      are held against the JAX package's
   Each main path runs with the launch counts set to 0 just before it and
-  read just after: every kernel of the path (K2 on both multi runs) must
+  read just after: every kernel of the path (K10, the folded loops'
+  bodies, one launch per check interval; K2 on both multi runs) must
   have launched and no plain version may have run. Then one more step of
   the gpu and the nx=255 multi path is traced with torch.profiler: device
   time per kernel and the device's idle share.
@@ -62,10 +63,10 @@ Phases (any failure exits non-zero; nothing is caught):
      dtype='float32')) for 2 steps from init_state with the sweep plan on
      (its default there: bodies of two K8 launches of s = 3), launch
      counts set to 0 just before and read just after: K8, K1, K3, K4 and
-     K5 launched, no plain version ran; every solve converges, stored-state
-     err below eps_it, finite fields; step 1 again with the plan off must
-     take the same counts and give bitwise-equal pr and pr_lo; one more
-     step traced with torch.profiler
+     K5 launched, K10 not (no form fits), no plain version ran; every
+     solve converges, stored-state err below eps_it, finite fields; step
+     1 again with the plan off must take the same counts and give
+     bitwise-equal pr and pr_lo; one more step traced with torch.profiler
  11. dist kernels: K7-dist (the gpu and multi compat BC specs) and K2-dist
      (the split gpu and multi specs) on the shards of 255x153x153 over 3
      (x_off = 0, 85, 170), and K2-dist on the whole grid at x_off = 0 (K2's
@@ -94,7 +95,7 @@ Phases (any failure exits non-zero; nothing is caught):
  14. unchained path: ChorinSolver(preset_gpu(nx=255, compat=False,
      dtype='float32'), fused_step=False) for 4 steps from init_state,
      launch counts set to 0 just before and read just after: K6 1
-     launch a step, K1 launched, K3, K4 and K5 not, no plain version;
+     launch a step, K10 launched, K3, K4 and K5 not, no plain version;
      every solve converges, stored-state err below eps_it, finite fields;
      the counts printed beside phase 4's; one more step traced
  15. dma path: ChorinSolver(preset_gpu(nx=255, ...), poisson_mode='dma')
@@ -992,7 +993,8 @@ def profile_step(solver, state, label, step=None) -> dict:
 
 def phase_gpu_path(solver) -> dict:
     counts, iters, states, _ = run_steps(solver, NSTEPS, "gpu", REF_ITERS)
-    for name in ("K1 poisson_iter", "K3 predict", "K4 correct", "K5 advect"):
+    # the folded loops run one K10 launch per check interval at 255
+    for name in (K10_NAME, "K3 predict", "K4 correct", "K5 advect"):
         require(counts[name][0] > 0, f"gpu: {name} never launched")
     stored_errs(solver, states, "gpu", [NSTEPS])
     profile_step(solver, states[-1], "gpu")
@@ -1004,7 +1006,7 @@ def phase_gpu_path(solver) -> dict:
 
 def phase_multi_paths(multi) -> list:
     counts, _, states, _ = run_steps(multi, NSTEPS, "multi")
-    for name in ("K1 poisson_iter", K2_NAME, "K3 predict", "K4 correct",
+    for name in (K10_NAME, K2_NAME, "K3 predict", "K4 correct",
                  "K5 advect"):
         require(counts[name][0] > 0, f"multi: {name} never launched")
     stored_errs(multi, states, "multi", range(1, NSTEPS + 1))
@@ -1017,7 +1019,7 @@ def phase_multi_paths(multi) -> list:
                                            "multi63", REF_ITERS_MULTI63)
     stored_errs(small, states, "multi63", range(1, MULTI_STEPS_SMALL + 1),
                 required=False)
-    for name in ("K1 poisson_iter", K2_NAME, "K3 predict", "K4 correct",
+    for name in (K10_NAME, K2_NAME, "K3 predict", "K4 correct",
                  "K5 advect"):
         require(counts63[name][0] > 0, f"multi63: {name} never launched")
     for step, (got, ref) in enumerate(zip(iters, REF_ITERS_MULTI63)):
@@ -1240,6 +1242,7 @@ def phase_wide_path(wide, smi) -> dict:
                                              clamps_allowed=True)
     for name in (K8_NAME, K1_NAME, "K3 predict", "K4 correct", "K5 advect"):
         require(counts[name][0] > 0, f"wide: {name} never launched")
+    require(counts[K10_NAME][0] == 0, "wide: K10 launched (no form fits)")
     for step in range(WIDE_STEPS):
         print(f"[wide] step {step + 1}: K8 bodies of {2 * s} iterations, "
               f"advect_clamped {stats[step].advect_clamped}")
@@ -1820,7 +1823,7 @@ def phase_unchained_kernels(solver) -> dict:
 
 def phase_unchained_path(solver, smi) -> dict:
     """The unchained step (fused_step=False) at 255: K6 one launch a step,
-    K1 launched, K3, K4 and K5 not."""
+    K10 launched (the folded loops' bodies), K3, K4 and K5 not."""
     g = solver.grid
     print(f"[unchained] grid {g.nx}x{g.ny}x{g.nz} float32, fused_step "
           f"{solver.fused_step}, accuracy phase {solver.acc} ({smi})")
@@ -1828,7 +1831,7 @@ def phase_unchained_path(solver, smi) -> dict:
                                          "unchained", REF_ITERS)
     require(counts[K6_NAME][0] == UNCHAINED_STEPS,
             f"unchained: K6 launched {counts[K6_NAME][0]} times")
-    require(counts[K1_NAME][0] > 0, "unchained: K1 never launched")
+    require(counts[K10_NAME][0] > 0, "unchained: K10 never launched")
     for name in ("K3 predict", "K4 correct", "K5 advect"):
         require(counts[name][0] == 0, f"unchained: {name} launched")
     stored_errs(solver, states, "unchained",

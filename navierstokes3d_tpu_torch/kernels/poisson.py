@@ -44,9 +44,12 @@ keeps its state on chip in one of two forms that `resident_plan` picks by
 size: the whole state in one thread block cluster's shared memory, or dpr
 in the shared memory of a grid of one block per SM; a grid that fits
 neither has no K10 (`make_resident` returns None, as the JAX package's
-does above its VMEM budget). No solver path runs it (as in the JAX
-package): `make_resident` and ptloop.pt_loop_fused's `seed0` compose it
-with a K1 loop.
+does above its VMEM budget). The solver's folded loops run one K10 launch
+per check interval wherever it has a form and the sweep plan is off
+(models/chorin.py `_folded_loop`); `make_resident` and
+ptloop.pt_loop_fused's `seed0` compose it with a K1 loop as the JAX
+package does. Both versions count the iterations they advanced
+(`.iterations`) beside their launches or calls.
 
 K7 (:914 with folded=False, `compute_slab` :334, `apply_bc_rows` :257) is
 the reference's own loop body: the unfolded iteration on every interior
@@ -432,6 +435,7 @@ def poisson_iter_resident_plain(pr, dpr, rhs, op: PoissonOperator, nit: int,
     iteration checked, pr ping-ponging with scratch."""
     _check_nit(nit, "poisson_iter_resident_plain")
     poisson_iter_resident_plain.calls += 1
+    poisson_iter_resident_plain.iterations += int(nit)
     spare = torch.empty_like(pr) if scratch is None else scratch
     # as the grid form: iteration j reads src and writes dst, then they
     # swap; for an odd nit the input is first copied into the scratch, so
@@ -447,6 +451,7 @@ def poisson_iter_resident_plain(pr, dpr, rhs, op: PoissonOperator, nit: int,
 
 
 poisson_iter_resident_plain.calls = 0
+poisson_iter_resident_plain.iterations = 0
 
 
 # K10's launch geometry (csrc/poisson.cu, the K10 section): blocks of 1024
@@ -595,10 +600,12 @@ def launch_resident(pr, dpr, rhs, op: PoissonOperator, nit: int,
         err.data_ptr(), _build.stream_of(pr))
     _build.check(rc, f"poisson_iter_resident ({plan.form} form)")
     poisson_iter_resident.launches += 1
+    poisson_iter_resident.iterations += int(nit)
     return err.view(torch.float32)[0]
 
 
 poisson_iter_resident.launches = 0
+poisson_iter_resident.iterations = 0
 
 
 def make_resident(nit: int, shape: Optional[Tuple[int, int, int]] = None,

@@ -22,7 +22,10 @@ and NavierStokes3D_multi_gpu.jl:383-444):
      build lane-tiles the iteration: 511x307x307) the folded loops run
      bodies of two K8 launches of s = 3 (or 2) iterations each instead
      of one K1, with the same iterations and check values
-     (`sweep_depths`, `_sweep_plan`)
+     (`sweep_depths`, `_sweep_plan`); elsewhere, where K10 has a form
+     for the grid (`_resident_plan`: 255x153x153, 63x38x38), one K10
+     launch per check interval, again with the same iterations and
+     check values
   3. fused corrector + cylinder mask + the variant's velocity BCs (K4)
   4. four semi-Lagrangian advection branches (K5)
 
@@ -233,15 +236,25 @@ class ChorinSolver:
                 grid, self.device)
         kp = k_poisson
         (self._poisson_iter, self._poisson_iter_sweeps,
-         self._poisson_iter_ext, self._poisson_iter_bc) = (
+         self._poisson_iter_resident, self._poisson_iter_ext,
+         self._poisson_iter_bc) = (
             (kp.poisson_iter_plain, kp.poisson_iter_sweeps_plain,
-             kp.poisson_iter_ext_plain, kp.poisson_iter_bc_plain)
+             kp.poisson_iter_resident_plain, kp.poisson_iter_ext_plain,
+             kp.poisson_iter_bc_plain)
             if self.plain else
-            (kp.poisson_iter, kp.poisson_iter_sweeps, kp.poisson_iter_ext,
+            (kp.poisson_iter, kp.poisson_iter_sweeps,
+             kp.poisson_iter_resident, kp.poisson_iter_ext,
              kp.poisson_iter_bc))
         # the sweep depths the folded loops may run K8 at; () keeps them on
         # 1-iteration K1 bodies (the JAX default, see sweep_depths)
         self._sweep_depths = sweep_depths(grid.ny, grid.nz)
+        # K10's form for this grid on this device (kernels/poisson.py
+        # resident_plan): where the sweep plan is off, the folded loops run
+        # one K10 launch per check interval; None keeps the K1 bodies. The
+        # plain solver (float64) keeps its K1 bodies
+        self._resident_plan = (
+            None if self.plain else
+            kp.resident_plan(grid.shape_c, *kp.resident_caps(self.device)))
         if cfg.compat:
             # the unfused chain of the JAX package's _step_impl, torch ops
             self._predict = k_step.predict_ops
@@ -713,11 +726,35 @@ class ChorinSolver:
         runs to global iteration 2s (one K1, then s-1 K8(2) launches), and
         the trailing `rem` iterations run on K1 after the loop. Otherwise
         it runs 1-iteration K1 bodies over the whole budget. Both run the
-        same iterations with the same check values."""
+        same iterations with the same check values.
+
+        Where the sweep plan is off and K10 has a form for the grid
+        (`_resident_plan`), each body is one K10 launch from global
+        iteration it to the next check, nit = nchk - it % nchk iterations,
+        with pr and dpr updated in place (carry[1] is its scratch) and its
+        check value the one the flagged K1 launch would emit; the trailing
+        `rem` iterations run on K1 after the loop, as under the sweep
+        plan."""
         nchk = self.grid.nchk
         nchunks = n_checked // nchk
         chain = self._kernel_chain(rhs, err_scale)
         s = self._sweep_plan(n_checked)
+
+        def tail(c):
+            for _ in range(rem):
+                c = chain(c, 0)[0]       # it=0: no check flag
+            return c
+
+        if s is None and self._resident_plan is not None and nchunks > 0:
+            def chunk(c, it):
+                nit = nchk - it % nchk
+                ec = self._poisson_iter_resident(c[0], c[2], rhs, self._op,
+                                                 nit, c[1])
+                return c, ec * err_scale, nit
+
+            return pt_loop_fused(chunk, carry, it0, n_checked, nchk, nchunks,
+                                 eps, self.dtype, stall=stall, err0=err0,
+                                 rem=rem, tail_fn=tail)
         if s is None:
             return pt_loop_fused(chain, carry, it0, n_checked + rem, nchk,
                                  nchunks, eps, self.dtype, stall=stall,
@@ -734,11 +771,6 @@ class ChorinSolver:
             c = self._sweep(c, rhs, s, False)[0]
             c, ec = self._sweep(c, rhs, s, (it + 2 * s) % nchk == 0)
             return c, None if ec is None else ec * err_scale, 2 * s
-
-        def tail(c):
-            for _ in range(rem):
-                c = chain(c, 0)[0]       # it=0: no check flag
-            return c
 
         return pt_loop_fused(body, carry, it0, n_checked, nchk, nchunks, eps,
                              self.dtype, stall=stall, err0=err0, rem=rem,

@@ -404,9 +404,11 @@ def test_step_on_card_matches_cpu(preset):
         for name in ("pr", "vx", "vy", "vz", "c", "dprdtau", "pr_lo"):
             assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
     # nx=15 is no wide grid: the sweep plan is off and K8 does not launch;
-    # K7 (compat) and the dist kernels (sharded solves) are off this path
-    on_path = {"K1", "K3", "K4", "K5"} | ({"K2"} if preset == "multi"
-                                          else set())
+    # the folded loops run one K10 launch per check interval (no K1 runs:
+    # no solve exhausts its budget or exits marginally); K7 (compat) and
+    # the dist kernels (sharded solves) are off this path
+    on_path = {"K10", "K3", "K4", "K5"} | ({"K2"} if preset == "multi"
+                                           else set())
     for k in kernels.KERNELS:
         assert ((k.wrapper.launches > 0)
                 == (k.name.split()[0] in on_path)), k.name
@@ -823,6 +825,34 @@ def test_k10_refused_launches_raise():
         assert k.wrapper.launches == 0 and k.plain.calls == 0, k.name
 
 
+def test_k10_route_at_255_is_k1_route():
+    """Step 1 of the multi preset at 255x153x153 from init_state with the
+    folded loops' K10 route on (one launch of the grid form per check
+    interval) and off (`_resident_plan = None`: K1 bodies): the same 3192
+    iterations, err and check history, every field bitwise equal; phase
+    1's 2887 iterations after the exact first one are 19 K10 launches
+    (151 iterations, then 152 each), and 2887 K1 launches with the route
+    off."""
+    on = _solver(255, "multi")
+    assert on._resident_plan is not None
+    assert on._resident_plan.form == "grid"
+    off = nt.ChorinSolver(on.cfg, device="cuda")
+    off._resident_plan = None
+    kernels.reset_counts()
+    b, sb = off.step(off.init_state())
+    assert (kp.poisson_iter.launches, kp.poisson_iter_resident.launches) == (
+        2887, 0)
+    kernels.reset_counts()
+    a, sa = on.step(on.init_state())
+    assert (kp.poisson_iter.launches, kp.poisson_iter_resident.launches,
+            kp.poisson_iter_resident.iterations) == (0, 19, 2887)
+    assert sa.iters == sb.iters == 3192
+    assert (sa.iters_ext, sa.err) == (sb.iters_ext, sb.err)
+    np.testing.assert_array_equal(sa.err_hist, sb.err_hist)
+    for name in ("pr", "vx", "vy", "vz", "c", "dprdtau", "pr_lo"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
 @pytest.mark.parametrize("preset", ["gpu", "multi"])
 @pytest.mark.parametrize("kw", [{"fused_step": False},
                                 {"poisson_mode": "dma"}])
@@ -845,9 +875,10 @@ def test_unchained_and_dma_steps_on_card_match_cpu(preset, kw):
             x, y = getattr(a, name), getattr(b, name)
             assert (x is None) == (y is None), name
             assert x is None or torch.equal(x.cpu(), y), name
-    # at nx=15 the multi solves converge in phase 1 (no K2)
+    # at nx=15 the multi solves converge in phase 1 (no K2); the folded
+    # loops run on K10 (one launch per check interval)
     if "fused_step" in kw:
-        on_path = {"K1", "K6"}
+        on_path = {"K10", "K6"}
     else:
         on_path = {"K3", "K4", "K5"} | ({"K7"} if preset == "gpu" else set())
     launched = {k.name.split()[0] for k in kernels.KERNELS

@@ -1,0 +1,185 @@
+"""The folded loops' K10 route (models/chorin.py `_folded_loop`): where
+the sweep plan is off and K10 has a form for the grid (`_resident_plan`),
+each check interval runs as one K10 launch. On the CPU the plain versions
+run (K10's form is decided as on an H100), and the route must take every
+decision of the K1 loop:
+
+  1. whole steps of the gpu (defect) and multi (extended) presets and of
+     accuracy='none', route on against `_resident_plan = None`: every
+     field bitwise equal, the same iterations, errors and check history;
+     K10 called once per check the K1 loops ran, for their iterations less
+     the trailing partial chunk;
+  2. `_folded_loop` alone, on a budget that runs out unconverged (so the
+     trailing `rem` iterations run on K1) and on one where the stall exit
+     fires, from global iteration 1 and 0: the K1 loop's carry, iterations,
+     err and history."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import navierstokes3d_tpu_torch as nt
+from navierstokes3d_tpu_torch import kernels
+from navierstokes3d_tpu_torch.kernels import poisson as kp
+
+torch.set_num_threads(2)
+FIELDS = ("pr", "vx", "vy", "vz", "c", "dprdtau", "pr_lo")
+
+
+def _cfg(case):
+    preset, nx, acc = case
+    make = nt.preset_gpu if preset == "gpu" else nt.preset_multi
+    cfg = make(nx=nx, compat=False, dtype="float32")
+    if acc is not None:
+        cfg = cfg.replace(numerics=dataclasses.replace(cfg.numerics,
+                                                       accuracy=acc))
+    return cfg
+
+
+def _solver(cfg, route: bool):
+    s = nt.ChorinSolver(cfg, device="cpu")
+    assert s._sweep_depths == () and s._resident_plan is not None
+    if not route:
+        s._resident_plan = None
+    return s
+
+
+def _record_loops(s):
+    """Wrap the solver's _folded_loop: each call's (it0, n_checked, rem,
+    iterations run)."""
+    calls, loop = [], s._folded_loop
+
+    def wrapped(rhs, err_scale, carry, it0, n_checked, rem, *a, **kw):
+        out = loop(rhs, err_scale, carry, it0, n_checked, rem, *a, **kw)
+        calls.append((it0, n_checked, rem, out[1]))
+        return out
+    s._folded_loop = wrapped
+    return calls
+
+
+def _checks_and_iterations(loops, nchk):
+    """The checks the folded loops ran and their iterations less the
+    trailing partial chunk."""
+    checks = iters = 0
+    for it0, n_checked, _rem, it in loops:
+        end = min(it, n_checked)
+        checks += end // nchk - it0 // nchk
+        iters += end - it0
+    return checks, iters
+
+
+@pytest.mark.parametrize("case", [("gpu", 15, None), ("multi", 15, None),
+                                  ("multi", 31, None), ("multi", 15, "none")],
+                         ids=["gpu15", "multi15", "multi31", "none15"])
+def test_route_steps_are_k1_steps(case):
+    """Two steps from init_state with the route on and off (the gpu preset
+    diverges at nx 24 in the JAX package itself, so it runs at 15)."""
+    cfg = _cfg(case)
+    on, off = _solver(cfg, True), _solver(cfg, False)
+    loops = _record_loops(off)
+    runs = []
+    for s in (off, on):
+        kernels.reset_counts()
+        state, stats = s.init_state(), []
+        for _ in range(2):
+            state, st = s.step(state)
+            stats.append(st)
+        runs.append((state, stats))
+    (b, stats_off), (a, stats_on) = runs
+    for sa, sb in zip(stats_on, stats_off):
+        assert (sa.iters, sa.iters_ext, sa.err, sa.advect_clamped) == (
+            sb.iters, sb.iters_ext, sb.err, sb.advect_clamped)
+        np.testing.assert_array_equal(sa.err_hist, sb.err_hist)
+    for f in FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert (x is None) == (y is None), f
+        assert x is None or torch.equal(x, y), f
+    # the counts are the route's run's (reset before it)
+    checks, iters = _checks_and_iterations(loops, on.grid.nchk)
+    assert checks > 0
+    assert kp.poisson_iter_resident_plain.calls == checks
+    assert kp.poisson_iter_resident_plain.iterations == iters
+    assert kp.poisson_iter_resident.launches == 0
+
+
+def _loop_inputs(s):
+    """A folded loop's inputs from the multi preset's first step: the
+    first iteration's carry and the folded RHS."""
+    state = s.init_state()
+    divv = s.predictor_divv(state)
+    pr, dpr = s._first_iteration(state.pr, state.dprdtau, divv)
+    return s._rhs3d(divv), pr, dpr
+
+
+@pytest.mark.parametrize("it0", [1, 0])
+@pytest.mark.parametrize("exit_by", ["budget", "stall"])
+def test_folded_loop_route_is_k1_loop(it0, exit_by):
+    """`_folded_loop` on a budget of 6 checks and rem = 5: with eps_it out
+    of reach it runs out of budget and the trailing 5 iterations run (on
+    K1); with a stall window of one check at ratio 0.5 it stalls on a
+    check before the last. The route's carry, iterations, err and history are the
+    K1 loop's; K10 ran once a check, for the iterations less the tail."""
+    cfg = _cfg(("multi", 15, None))
+    on, off = _solver(cfg, True), _solver(cfg, False)
+    rhs, pr, dpr = _loop_inputs(on)
+    nchk = on.grid.nchk
+    n_checked, rem = 6 * nchk, 5
+    stall = (0.5, 1) if exit_by == "stall" else None
+    out = []
+    for s in (off, on):
+        kernels.reset_counts()
+        carry = (pr.clone(), torch.empty_like(pr), dpr.clone(), None)
+        out.append(s._folded_loop(rhs, s._err_scale(), carry, it0, n_checked,
+                                  rem, np.float32(1e-30), stall))
+    (c_off, it_off, e_off, h_off), (c_on, it_on, e_on, h_on) = out
+    if exit_by == "budget":
+        assert it_off == n_checked + rem
+        tail = rem
+    else:
+        assert nchk < it_off < n_checked and it_off % nchk == 0
+        tail = 0
+    assert (it_on, e_on) == (it_off, e_off)
+    np.testing.assert_array_equal(h_on, h_off)
+    assert torch.equal(c_on[0], c_off[0]) and torch.equal(c_on[2], c_off[2])
+    assert kp.poisson_iter_resident_plain.calls == (it_on - tail) // nchk
+    assert kp.poisson_iter_resident_plain.iterations == it_on - tail - it0
+    assert kp.poisson_iter_plain.calls == tail
+
+
+def _bench_work():
+    """bench_torch/work.py, loaded from its file as the benchmark's own
+    modules are not on the tests' path."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "bench_torch" / "work.py"
+    spec = importlib.util.spec_from_file_location("bench_work", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_k10_kernel_group_counts_the_route():
+    """K10's kernel group (bench_torch/layers/k10_poisson_resident.json)
+    puts the route's launches in the poisson layer: its counter is the
+    wrapper's launch count, its patterns match both resident kernels of
+    csrc/poisson.cu, and one launch counts K1's 20 B a cell, 119.4 MB at
+    255x153x153."""
+    import re
+    from pathlib import Path
+    work = _bench_work()
+    group = {g["group"]: g for g in work.load_groups()}[
+        "K10 poisson_iter_resident"]
+    assert group["layer"] == "poisson"
+    module, fn = group["counter"].split(".")
+    assert getattr(kernels, module) is kp
+    assert hasattr(getattr(kp, fn), "launches")
+    src = (Path(kp.__file__).resolve().parents[1] / "csrc" / "poisson.cu"
+           ).read_text()
+    for name in ("poisson_resident_grid_kernel",
+                 "poisson_resident_cluster_kernel"):
+        assert name in src
+        assert any(re.search(p, name) for p in group["patterns"])
+    assert round(work.bytes_per_launch(group, (255, 153, 153)) / 1e6,
+                 1) == 119.4
