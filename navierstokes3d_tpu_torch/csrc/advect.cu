@@ -19,7 +19,8 @@
 //     0.5), K6 reads the branch's three operands;
 //   * per axis, computes the displacement dl = (dt*v)/h, clamps it to
 //     [-k, k] (counting points where |dl| exceeded k on any axis), and
-//     the departure cell i1 = clip(floor(idx - dl), 1, n), the corner
+//     the departure cell i1 = clip(idx - ceil(dl), 1, n) (ops/advect.py
+//     departure_cell: floor(idx - dl) computed exactly), the corner
 //     offsets o1 = i1 - idx, o2 = min(i1+1, n) - idx and the fraction
 //     t = (dl > 0) - fmod(dl, 1), computed as (dl > 0) - (dl - trunc(dl));
 //   * sums the trilinear interpolant in the select-shift backend's
@@ -44,7 +45,7 @@
 // What bounds K5 on this card: instruction issue. One launch moves 8
 // field passes (191.8 MB at 255x153x153, 0.0573 ms at 3.35 TB/s; four
 // one-branch launches would move 17, a bound of 0.1218 ms), but each
-// branch-point issues three IEEE divisions, three clamped floors and
+// branch-point issues three IEEE divisions, three clamped corners and
 // fractions, up to 8 gathers and their weights: the kernel is 1280 SASS
 // instructions for the four branches (cuobjdump). The design: one thread
 // per point of the union grid runs all four branches, so the velocities
@@ -85,7 +86,9 @@ __device__ inline AxisTerms axis_terms(float v, float d, float dt, float kf,
   const float dl_raw = (dt * v) / d;
   // jnp.clip semantics (NaN stays NaN)
   const float dl = dl_raw < -kf ? -kf : (dl_raw > kf ? kf : dl_raw);
-  float i1 = floorf(idx - dl);
+  // floor(idx - dl) in exact arithmetic: the rounded idx - dl may land
+  // on a whole number where t (below) is taken from dl unrounded
+  float i1 = idx - ceilf(dl);
   i1 = i1 < 1.0f ? 1.0f : (i1 > fn ? fn : i1);
   const float i2 = (i1 + 1.0f) < fn ? (i1 + 1.0f) : fn;
   AxisTerms r;

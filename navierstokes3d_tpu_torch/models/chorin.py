@@ -809,11 +809,12 @@ class ChorinSolver:
         # trajectory). Seeding err0 makes the loop a no-op when phase 1
         # already converged.
         with span("ns3d.poisson.phase2"):
-            r0, emax = k_poisson.compensated_residual(p1, rhs3d, rhs_lo3d,
-                                                      self._op)
-            errh = host_scalar(emax * err_scale, ft)
+            with span("ns3d.poisson.defect"):
+                r0, emax = k_poisson.compensated_residual(
+                    p1, rhs3d, rhs_lo3d, self._op)
+                errh = host_scalar(emax * err_scale, ft)
+                rhs2 = -r0
             n2 = nchunks * nchk + rem
-            rhs2 = -r0
             carry, it2, err, hist2 = self._folded_loop(
                 rhs2, err_scale, (torch.zeros_like(p1), torch.empty_like(p1),
                                   dpr, carry[3]),

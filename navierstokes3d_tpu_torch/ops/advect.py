@@ -18,7 +18,9 @@ interpolates the post-BC snapshot there. Two methods:
 
 compat=True keeps the reference bug where the third branch advects Vy a
 second time with Vz-face velocities and Vy's bounds, so Vz is never
-advected (gpu.jl:321-326); compat=False advects Vz properly.
+advected (gpu.jl:321-326), and the source's departure cell, floor of the
+rounded i - dl (`departure_cell`); compat=False advects Vz properly and
+takes the departure cell as i - ceil(dl).
 
 Sharded composition (parallel/fullstep.py): the inputs may be halo-padded
 local blocks of the global fields. `origin` (the global 0-based cell index
@@ -88,13 +90,29 @@ def _ranges(dtype, device, *specs):
     return out
 
 
+def departure_cell(i, dl, compat: bool = False):
+    """The unclamped departure cell of a point at the 1-based index i
+    displaced by dl cells. The source takes floor(i - dl) of the rounded
+    difference (gpu.jl:290-293), while its fraction t = (dl > 0) -
+    fmod(dl, 1) is taken from dl: where i - dl rounds onto a whole number
+    (0 < dl below half an ulp of i, or dl that close to a whole number),
+    the corner moves and t does not, so the point reads the cell next to
+    its own. i - ceil(dl) is floor(i - dl) in exact arithmetic, computed
+    exactly, and agrees with t at every point; compat keeps the source's
+    expression, as compat keeps the reference's other quirks."""
+    if compat:
+        return torch.floor(i - dl)
+    return i - torch.ceil(dl)
+
+
 def _backtrack(a_o, vxc, vyc, vzc, ix, iy, iz, dt, dx, dy, dz,
-               origin=(0, 0, 0), gshape=None):
+               origin=(0, 0, 0), gshape=None, compat=False):
     """Vectorized backtrack! (NavierStokes3D_gpu.jl:288-304): ix/iy/iz are
     the 1-based LOCAL indices of the write region (broadcastable);
     departure indices clamp to the global bounds gshape (default a_o's
     shape), with a_o's element [0,0,0] at the global 0-based index
-    `origin`. Returns the interpolated values over the write region."""
+    `origin`; the departure cell is `departure_cell`'s. Returns the
+    interpolated values over the write region."""
     gsh = a_o.shape if gshape is None else gshape
     dlx = div(dt * vxc, dx)
     dly = div(dt * vyc, dy)
@@ -105,7 +123,8 @@ def _backtrack(a_o, vxc, vyc, vzc, ix, iy, iz, dt, dx, dy, dz,
         # interpolant is NaN through t all the same); the local clamp reads
         # a displacement beyond a sharded block's halo at the halo's edge,
         # as the JAX package's clamped gather does
-        i1 = torch.clamp(torch.floor((i + o) - dl), 1, n).long().clamp(1, n)
+        i1 = torch.clamp(departure_cell(i + o, dl, compat), 1,
+                         n).long().clamp(1, n)
         i2 = torch.clamp(i1 + 1, max=n)
         return ((i1 - o).clamp(1, n_local), (i2 - o).clamp(1, n_local))
 
@@ -132,18 +151,19 @@ def _backtrack(a_o, vxc, vyc, vzc, ix, iy, iz, dt, dx, dy, dz,
 
 
 def backtrack_gather(a_o, vxc, vyc, vzc, starts, dt, dx, dy, dz,
-                     origin=(0, 0, 0), gshape=None):
+                     origin=(0, 0, 0), gshape=None, compat=False):
     """_backtrack over the region that starts at the 1-based local
     `starts` and spans the advecting velocities' broadcast shape."""
     rs = torch.broadcast_shapes(vxc.shape, vyc.shape, vzc.shape)
     ix, iy, iz = _ranges(a_o.dtype, a_o.device,
                          *((s, s + n - 1) for s, n in zip(starts, rs)))
     return _backtrack(a_o, vxc, vyc, vzc, ix, iy, iz, dt, dx, dy, dz,
-                      origin, gshape)
+                      origin, gshape, compat)
 
 
 def backtrack_selectshift(a_o, vxc, vyc, vzc, starts, dt, dx, dy, dz, k,
-                          origin=(0, 0, 0), gshape=None, count_box=None):
+                          origin=(0, 0, 0), gshape=None, count_box=None,
+                          compat=False):
     """Gather-free backtrack!: the trilinear corners lie within a bounded
     (2k+2)^3 neighborhood, so the interpolation is a select-weighted
     stencil of static shifted slices. `starts` are the 1-based local
@@ -153,7 +173,8 @@ def backtrack_selectshift(a_o, vxc, vyc, vzc, starts, dt, dx, dy, dz, k,
     Returns (values, n_clamped) with n_clamped the number of region points
     whose displacement exceeded k on any axis, counted only inside
     count_box where given (per-axis half-open 0-based local bounds: a
-    sharded caller's owned block, so halo points are not counted twice)."""
+    sharded caller's owned block, so halo points are not counted twice).
+    The departure cell is `departure_cell`'s."""
     n1, n2, n3 = a_o.shape if gshape is None else gshape
     dtype, dev = a_o.dtype, a_o.device
     rs = torch.broadcast_shapes(vxc.shape, vyc.shape, vzc.shape)
@@ -166,7 +187,7 @@ def backtrack_selectshift(a_o, vxc, vyc, vzc, starts, dt, dx, dy, dz, k,
                            device=dev).reshape(shape)
         dl_raw = div(dt * v, d)
         dl = torch.clamp(dl_raw, -k, k)
-        i1 = torch.clamp(torch.floor(idx - dl), 1, n)
+        i1 = torch.clamp(departure_cell(idx, dl, compat), 1, n)
         t = (dl > 0).to(dtype) - torch.fmod(dl, 1.0)
         o1 = (i1 - idx).to(torch.int32)              # in [-k-1, k]
         o2 = (torch.clamp(i1 + 1, max=n) - idx).to(torch.int32)
@@ -266,11 +287,11 @@ def advect(vx, vy, vz, c, dt, dx, dy, dz, *, compat: bool = False,
         nonlocal n_clamped
         if method == "gather":
             return backtrack_gather(a_o, *vels, starts, dt, dx, dy, dz,
-                                    origin, gsh)
+                                    origin, gsh, compat)
         if method != "selectshift":
             raise ValueError(f"unknown advection method {method!r}")
         vals, n = backtrack_selectshift(a_o, *vels, starts, dt, dx, dy, dz,
-                                        k, origin, gsh, count_box)
+                                        k, origin, gsh, count_box, compat)
         n_clamped = n_clamped + n
         return vals
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import advect_faults
 import navierstokes3d_tpu_torch as nt
 from navierstokes3d_tpu_torch import kernels
 from navierstokes3d_tpu_torch.kernels import _build
@@ -634,6 +635,60 @@ def test_k6_matches_plain_and_k5(solver, scale):
         assert torch.equal(out[name], k5[i]), name
     assert int(n6.item()) == int(n_plain.item()) == int(k5[4].item())
     assert (int(n6.item()) > 0) == (scale > 1.0)
+
+
+def _departure_inputs(shape):
+    """Velocities whose displacements (dt = h = 1) hit the departure
+    corner's fault points (tests/advect_faults.py): vx varies along z,
+    vy along x, vz along y, each over a tiny positive dl, a whole number
+    and one ulp above it, one ulp short of -1, 0, +-1 and 0.3."""
+    nx, ny, nz = shape
+    one = np.float32(1.0)
+    vals = np.array([np.spacing(np.float32(2.0)) / 4,
+                     np.nextafter(one, np.float32(2.0)),
+                     -np.nextafter(one, np.float32(0.0)), 0.0, 1.0, -1.0,
+                     0.3], dtype=np.float32)
+
+    def along(n, axis, full):
+        v = vals[np.arange(n) % len(vals)]
+        view = [1, 1, 1]
+        view[axis] = n
+        return torch.tensor(np.broadcast_to(v.reshape(view), full).copy(),
+                            device="cuda")
+    vx = along(nz, 2, (nx + 1, ny, nz))
+    vy = along(nx, 0, (nx, ny + 1, nz))
+    vz = along(ny, 1, (nx, ny, nz + 1))
+    c = torch.tensor(np.random.default_rng(4).uniform(size=shape)
+                     .astype(np.float32), device="cuda")
+    return vx, vy, vz, c
+
+
+def test_k5_k6_departure_points_bitwise():
+    """At the points where the source's departure corner reads the next
+    cell, K5 and K6 (NaN pads) are bitwise equal to their plain versions,
+    which take the corner as i - ceil(dl)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    k = dataclasses.replace(_solver(17)._consts, dt=1.0, dx=1.0, dy=1.0,
+                            dz=1.0)
+    vx, vy, vz, c = _departure_inputs((21, 15, 33))
+    names = ("vx", "vy", "vz", "c")
+    faults = {n: advect_faults.fault_points(n, vx.cpu(), vy.cpu(), vz.cpu(),
+                                            k, 2) for n in names}
+    assert all(f.any() for f in faults.values())
+    fields = dict(zip(names, (vx, vy, vz, c)))
+    vels = {n: ka.pre_velocities(n, vx, vy, vz) for n in names}
+    k5 = ka.advect(vx, vy, vz, c, k, 2)
+    plain = ka.advect(vx, vy, vz, c, k, 2, plain=True)
+    n6 = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    k6 = ka.advect_pre(fields, {n: _nan_pads(n, v) for n, v in vels.items()},
+                       k, 2, n6)
+    ref6, n_plain = ka.advect_pre_plain(fields, vels, k, 2)
+    for i, n in enumerate(names):
+        assert _bitwise(k5[i], plain[i]), n
+        assert _bitwise(k6[n], ref6[n]), n
+    assert int(k5[4].item()) == int(plain[4].item())
+    assert int(n6.item()) == int(n_plain.item())
 
 
 @pytest.mark.parametrize("shape", [(9, 8, 32), (10, 9, 33), (7, 17, 65)])

@@ -90,6 +90,8 @@ def test_spans_nest_as_the_step_runs(path, monkeypatch):
     want.update({f"ns3d.{n}": "ns3d.step"
                  for n in ("predict", "poisson", "correct", "advect")})
     want.update({f"ns3d.poisson.{n}": "ns3d.poisson" for n in PHASES[path]})
+    if path == "defect":
+        want["ns3d.poisson.defect"] = "ns3d.poisson.phase2"
     for name, parent in want.items():
         got = [e for e in ev if e.name == name]
         assert len(got) == 1, (name, len(got))
@@ -100,14 +102,47 @@ def test_spans_nest_as_the_step_runs(path, monkeypatch):
     assert len(read_parents) == reads > 2
     assert read_parents.count("ns3d.advect") == 1
     allowed = {"ns3d.advect", "ns3d.poisson.phase1", "ns3d.poisson.phase2",
-               "ns3d.poisson.guarantee"}
+               "ns3d.poisson.guarantee", "ns3d.poisson.defect"}
     assert set(read_parents) <= allowed
     assert read_parents.count("ns3d.poisson.phase1") >= 1
     assert ("ns3d.poisson.phase2" in read_parents) == (path != "plain")
     assert ("ns3d.poisson.guarantee" in read_parents) == (
         path == "guarantee")
+    assert read_parents.count("ns3d.poisson.defect") == (path == "defect")
     if path != "plain":
         assert stats.iters_ext > 0
+
+
+def test_defect_span_once_a_step_inside_phase2():
+    """The gpu preset's defect solve, two steps with spans on: one
+    ns3d.poisson.defect a step, inside ns3d.poisson.phase2, holding the
+    compensated residual's one read; the same two steps with spans off
+    count the same host reads, step for step."""
+    s = _solver("defect")
+    st0 = _state(s)
+    counts = []
+    for on in (False, True):
+        st, per_step = st0, []
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            for _ in range(2):
+                r0 = ptloop.host_scalar.reads
+                if on:
+                    with profiling.spans():
+                        st, stats = s.step(st)
+                else:
+                    st, stats = s.step(st)
+                per_step.append(ptloop.host_scalar.reads - r0)
+                assert stats.iters_ext > 0
+        counts.append(per_step)
+        ev = [e for e in prof.events() if e.name.startswith("ns3d.")]
+        defect = [e for e in ev if e.name == "ns3d.poisson.defect"]
+        assert len(defect) == (2 if on else 0)
+        assert all(_ns3d_parent(e) == "ns3d.poisson.phase2" for e in defect)
+        inside = [e for e in ev if e.name == "ns3d.read"
+                  and _ns3d_parent(e) == "ns3d.poisson.defect"]
+        assert len(inside) == (2 if on else 0)
+    assert counts[0] == counts[1] and min(counts[0]) > 2
 
 
 def _count_items(monkeypatch):
