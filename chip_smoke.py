@@ -109,7 +109,12 @@ Phases (any failure exits non-zero; nothing is caught):
  16. resident: K10 (poisson_iter_resident, one launch of nit iterations
      resident on chip) at 63x38x38 with nit = 37 in its cluster form and
      at 255x153x153 with nit = 152 in its grid form (dpr in shared
-     memory), each form required and printed, on resident_probe.py's
+     memory, x-streamed columns), each form required and printed, the
+     grid form's plan checked against its rule and printed (the cut of the
+     column plane, the column slots a block, the runs of planes a column,
+     the shared memory a block: 26 x 5, 192, 5, 195840 B at 255 on 132
+     SMs),
+     on resident_probe.py's
      seeded inputs (gpu operator): pr, dpr and the check value bitwise
      equal to nit K1 launches and to the plain version; K10's time and
      that of the nit K1 launches (device time from torch.profiler, and
@@ -1956,6 +1961,29 @@ def resident_inputs(g):
     return tuple(torch.tensor(a, device="cuda") for a in (pr, dpr, rhs))
 
 
+def check_grid_plan(plan, shape, label) -> None:
+    """K10's grid-form plan against its rule: the cut of the (y, z) column
+    plane that `grid_cut` picks for the card's SMs (z rows of a warp's 32
+    lanes, balanced y parts), one block a region, the largest region's
+    column slots a block (at most one a thread), and the shared memory of
+    their dpr through every plane."""
+    nx, ny, nz = shape
+    sms = k_poisson.resident_caps("cuda")[0]
+    gy, gz = k_poisson.grid_cut(ny, nz, sms)
+    cols = -(-ny // gy) * k_poisson.RESIDENT_LANES
+    need = k_poisson.grid_smem(cols, nx)
+    require(plan.cut == (gy, gz) and plan.blocks == gy * gz <= sms
+            and plan.per_block == cols <= k_poisson.RESIDENT_THREADS
+            and need <= plan.smem_bytes
+            <= k_poisson.SMEM_LIMIT - k_poisson.RESIDENT_STATIC_SMEM,
+            f"K10 ({label}): plan {plan}, expected the cut {gy} x {gz} of "
+            f"{cols} columns a block and {need} B")
+    print(f"[resident] K10 ({label}): cut {gy} x {gz} of the {ny}x{nz} "
+          f"columns, {plan.blocks} blocks of at most {cols} column slots "
+          f"({min(nx, k_poisson.RESIDENT_THREADS // cols)} runs of planes "
+          f"a column), {plan.smem_bytes} B of shared memory a block")
+
+
 def check_k10(solver, nit, smi, form=None) -> dict:
     """K10 in its plan's form (required to be `form` where given) against
     nit K1 launches and its plain version (bitwise), then the times of
@@ -1969,6 +1997,8 @@ def check_k10(solver, nit, smi, form=None) -> dict:
     require(plan is not None and (form is None or plan.form == form),
             f"K10 at {g.shape_c}: plan {plan}, expected the {form} form")
     label = f"{g.nx}x{g.ny}x{g.nz}, nit {nit}, {plan.form} form"
+    if plan.form == "grid":
+        check_grid_plan(plan, g.shape_c, label)
     pr0, dpr0, rhs = resident_inputs(g)
     p, d = pr0.clone(), dpr0.clone()
     scratch = torch.full_like(p, float("nan"))
@@ -1996,6 +2026,7 @@ def check_k10(solver, nit, smi, form=None) -> dict:
         # form: the grid form, held against it and timed
         other = k_poisson.resident_plan(
             g.shape_c, k_poisson.resident_caps("cuda")[0], 0)
+        check_grid_plan(other, g.shape_c, f"{label}, the grid form forced")
         qg, dg = pr0.clone(), dpr0.clone()
         eg = k_poisson.launch_resident(qg, dg, rhs, op, nit, other,
                                        torch.empty_like(qg))

@@ -89,14 +89,15 @@
 //      check value reduces within the cluster and is written once.
 //  (b) grid-persistent with dpr in shared memory, where (a) does not fit
 //      but dpr fits the co-resident blocks' shared memory (255x153x153:
-//      23.9 MB of dpr, 194 of K1's tiles, 194 KB, in each of 132 blocks of
-//      1024 threads, one per SM): each block owns a fixed run of K1's
-//      tiles for all nit iterations, loads their dpr once and writes it
-//      once; pr ping-pongs through device memory (L2) and rhs streams, so
-//      an iteration moves 12 B per cell instead of K1's 20. A grid barrier
-//      (cooperative_groups' this_grid().sync(), ~1.1 us) separates the
-//      iterations; each thread issues the loads of kResidentUnroll cells
-//      before their arithmetic.
+//      23.9 MB of dpr, a region of at most 6 x 32 (y, z) columns through
+//      all 255 planes, 195,840 B, in each of 130 blocks of 1024 threads,
+//      one per SM): each block owns its region's columns for all nit
+//      iterations, loads their dpr once and writes it once; pr ping-pongs
+//      through device memory (L2) and rhs streams, so an iteration moves
+//      12 B per cell instead of K1's 20. Each thread streams one column's
+//      run of planes along x, its x neighbours in registers. A grid
+//      barrier (cooperative_groups' this_grid().sync(), ~1.1 us)
+//      separates the iterations.
 // Where neither fits (511x307x307) there is no K10, as the JAX package has
 // none above its VMEM budget. Per cell and iteration both forms compute
 // K1's arithmetic in K1's order, so a launch is bitwise nit K1 launches;
@@ -587,12 +588,14 @@ cudaError_t launch_sweeps(const float* pr, const float* dpr, const float* rhs,
 
 // ---- K10: nit folded iterations in one launch, resident on chip ----
 
-// threads of a block of the grid form (four of K1's tiles at once) and
-// of the cluster form
+// threads of a block of the grid form (at most one column each) and of
+// the cluster form
 constexpr int kResidentThreads = 1024;
 constexpr int kClusterThreads = 1024;
-// (b): the cells whose loads a thread issues before their arithmetic
-constexpr int kResidentUnroll = 2;
+// (b): the z cells of a region's row (one warp), and the planes whose
+// loads a thread issues before their arithmetic
+constexpr int kResidentLanes = 32;
+constexpr int kResidentUnroll = 3;
 
 // Part i of n cut into `parts` parts whose sizes differ by at most one
 // (kernels/poisson.py `balanced_part`), and the part holding index x.
@@ -805,27 +808,50 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   cluster.sync();
 }
 
-// (b): one block of 32 x 32 threads per SM, block b owning K1's (32 x
-// 8)-cell tiles balanced_part(tiles, gridDim.x, b) in K1's order (z
-// tiles fastest, then y tiles, then planes); its threads stand on four
-// tiles at once (threadIdx.y / 8), each thread on the tiles of its
-// quarter, so the cell a thread updates, and the dpr slot in shared
-// memory it owns, are the same in every iteration.
-struct TileCursor {
-  int x, yt, zt;
-  // advance by n tiles
-  __device__ void step(int n, int tiles_z, int tiles_y) {
-    zt += n;
-    while (zt >= tiles_z) {
-      zt -= tiles_z;
-      if (++yt == tiles_y) {
-        yt = 0;
-        ++x;
-      }
-    }
-  }
-};
-
+// (b): one block of kResidentThreads threads per SM, x-streamed columns.
+//
+// What it replaces (the earlier grid form): block b owned K1's 32 x 8
+// (z, y) tiles balanced_part(tiles, blocks, b) in K1's order, its threads
+// walking them four tiles at a time. Per cell and iteration that form
+// issued seven pr loads, one rhs load and four weight loads, stepped a
+// tile cursor, and ran 8.6% of its slots on padding (153 = 4 x 32 + 25
+// lanes, 19 x 8 + 1 rows). It ran 40-42 us an iteration at 255x153x153,
+// ~52% of the design's ceiling. Cut apart on the card (PERF.md), its
+// per-cell index work, weight loads and padding took ~7.7 us of that, and
+// the x neighbours, 100 tiles away in the walk and so read from L2 again,
+// only ~1.4 us.
+//
+// Bound: device-memory bytes, 12 B per cell and iteration (pr in, pr out,
+// rhs in; dpr stays on chip): 21.4 us at 255x153x153 and 3.35 TB/s, and
+// 21.7-22.1 us measured as a warm copy of the pr pair (PERF.md).
+//
+// Design. The (y, z) column plane is cut into gridDim.x = cut_y x cut_z
+// regions, one per block (kernels/poisson.py `grid_cut`): z into rows of
+// kResidentLanes = 32 cells, a warp's width (cut_z = ceil(nz / 32), the
+// last row the remainder), y into cut_y balanced parts; the block owns
+// its region's columns through all nx planes. Its column slots are
+// row-major, 32 a row, so each warp stands on one row segment of 32
+// consecutive z: a warp's loads touch two 128 B lines, where a warp on
+// the rows of a narrower region spreads them over two or three rows (the
+// lines a warp touches set the time: a balanced 13 x 14 region took 7.00 ms at nit
+// 152, 7 x 26 5.60, these rows 5.01, PERF.md). Each thread owns one column
+// and a fixed run of consecutive planes balanced_part(nx, runs, run),
+// runs = kResidentThreads / column slots (at most nx), the same in every
+// iteration. Along its run a thread carries x - 1, x and x + 1 in
+// registers, so each pr value is loaded once an iteration by its owner
+// (only a run's first and last planes read an x neighbour from memory);
+// its column's four weights, interior flag and index are registers for
+// the whole launch; the y and z neighbours are the neighbouring threads'
+// own cells (L1, L2 at the region's edges); the loads of kResidentUnroll
+// planes issue before their arithmetic (1, 2, 3 and 4 took 7.27, 5.01,
+// 4.74 and 4.93 ms; y and z neighbours from warp shuffles and a software
+// pipeline were slower). The region's dpr sits in shared memory at plane
+// x * slots + slot: a warp's slots are consecutive, conflict free, and
+// the block needs slots x nx x 4 B (192 x 255 x 4 = 195,840 B at
+// 255x153x153 on 132 SMs, cut 26 x 5: 130 blocks of 5-6 rows, 5 runs of
+// 51 planes a column; the rest of the SM's 256 KB, ~60 KB, is the L1
+// that the y and z neighbour reads hit).
+//
 // pr ping-pongs between pr_a (the caller's tensor, which holds the result
 // at the end) and pr_b (scratch). Neither is declared const or
 // __restrict__: each is written during the launch, so neither may be read
@@ -837,41 +863,39 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
                                  const float* __restrict__ rhs, Weights w,
                                  float inv_dx2, float dtau, float decay,
                                  int zero_grad_x, int nx, int ny, int nz,
-                                 int nit, unsigned int* __restrict__ err_bits) {
+                                 int nit, int cut_y, int cut_z,
+                                 unsigned int* __restrict__ err_bits) {
   namespace cg = cooperative_groups;
   const cg::grid_group grid = cg::this_grid();
-  // the block's dpr, tile k at k * 256 (its size sets the L1 that the
-  // neighbour reads hit: nothing else goes here)
+  // the region's dpr, plane x of column c at x * cols + c
   extern __shared__ float dsm[];
-  const int tiles_z = (nz + ns3d::kBlockX - 1) / ns3d::kBlockX;
-  const int tiles_y = (ny + ns3d::kBlockY - 1) / ns3d::kBlockY;
-  const int tiles = tiles_z * tiles_y * nx;
-  const Part own = balanced_part(tiles, gridDim.x, blockIdx.x);
-
-  const int lane = threadIdx.x, row = threadIdx.y % ns3d::kBlockY;
-  const int quarter = threadIdx.y / ns3d::kBlockY;
-  constexpr int kQuarters = kResidentThreads / ns3d::kBlockThreads;
-  const int nyz = ny * nz;
-  // the thread's first tile
-  TileCursor first{0, 0, 0};
-  first.step(own.start + quarter, tiles_z, tiles_y);
+  // the region: rows ry of y, lanes [z0, z0 + kResidentLanes) of z; its
+  // column slots row-major, a warp's slots one row
+  const Part ry = balanced_part(ny, cut_y, blockIdx.x / cut_z);
+  const int z0 = blockIdx.x % cut_z * kResidentLanes;
+  const int cols = ry.size * kResidentLanes;
+  const int runs = min(nx, kResidentThreads / cols);
+  const int c = threadIdx.x % cols, run = threadIdx.x / cols;
+  const int y = ry.start + c / kResidentLanes, z = z0 + c % kResidentLanes;
+  // the thread's planes [x0, x1): none past the runs or past nz
+  const Part xr = run < runs && z < nz ? balanced_part(nx, runs, run)
+                                       : Part{0, 0};
+  const int x0 = xr.start, x1 = xr.start + xr.size;
+  const int nyz = ny * nz, col = y * nz + z;
+  const bool yz_in = y >= 1 && y <= ny - 2 && z >= 1 && z <= nz - 2;
+  const float wyp = yz_in ? w.yp[y] : 0.0f, wym = yz_in ? w.ym[y] : 0.0f;
+  const float wzp = yz_in ? w.zp[z] : 0.0f, wzm = yz_in ? w.zm[z] : 0.0f;
+  float* const dcol = dsm + c;
   // an even iteration j reads `even` and writes `odd`, an odd one the
   // reverse; for an odd nit the input is first copied into pr_b, so that
   // the last iteration (j = nit - 1) writes pr_a either way
   float* const even = nit % 2 == 0 ? pr_a : pr_b;
   float* const odd = nit % 2 == 0 ? pr_b : pr_a;
-  {
-    TileCursor t = first;
-    for (int k = quarter; k < own.size; k += kQuarters) {
-      const int y = t.yt * ns3d::kBlockY + row;
-      const int z = t.zt * ns3d::kBlockX + lane;
-      if (y < ny && z < nz) {
-        const int i = t.x * nyz + y * nz + z;
-        dsm[k * ns3d::kBlockThreads + row * ns3d::kBlockX + lane] = dpr[i];
-        if (nit % 2 != 0) pr_b[i] = pr_a[i];
-      }
-      t.step(kQuarters, tiles_z, tiles_y);
-    }
+#pragma unroll 4
+  for (int x = x0; x < x1; ++x) {
+    const int i = x * nyz + col;
+    dcol[x * cols] = dpr[i];
+    if (nit % 2 != 0) pr_b[i] = pr_a[i];
   }
   grid.sync();
   unsigned int bits = 0u;
@@ -879,78 +903,58 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
     const float* const p = j % 2 == 0 ? even : odd;
     float* const q = j % 2 == 0 ? odd : even;
     const bool last = j == nit - 1;
-    TileCursor t = first;
-    for (int k0 = quarter; k0 < own.size;
-         k0 += kQuarters * kResidentUnroll) {
-      // the loads of kResidentUnroll cells, then their arithmetic
-      int idx[kResidentUnroll], yy[kResidentUnroll], zz[kResidentUnroll];
-      bool on[kResidentUnroll], in[kResidentUnroll], drop[kResidentUnroll];
-      float pc[kResidentUnroll], nb[kResidentUnroll][6], r[kResidentUnroll];
+    // the cell's x - 1 and x values, carried along the run
+    float pm = x0 > 0 && x0 < x1 ? p[(x0 - 1) * nyz + col] : 0.0f;
+    float pc = x0 < x1 ? p[x0 * nyz + col] : 0.0f;
+    for (int xb = x0; xb < x1; xb += kResidentUnroll) {
+      // the loads of kResidentUnroll planes, then their arithmetic
+      float pn[kResidentUnroll], yp[kResidentUnroll], ym[kResidentUnroll];
+      float zp[kResidentUnroll], zm[kResidentUnroll], r[kResidentUnroll];
 #pragma unroll
       for (int u = 0; u < kResidentUnroll; ++u) {
-        const int k = k0 + u * kQuarters;
-        const int y = t.yt * ns3d::kBlockY + row;
-        const int z = t.zt * ns3d::kBlockX + lane;
-        on[u] = k < own.size && y < ny && z < nz;
-        in[u] = on[u] && interior(t.x, y, z, nx, ny, nz);
-        drop[u] = zero_grad_x && t.x == 1;
-        const int i = on[u] ? t.x * nyz + y * nz + z : 0;
-        idx[u] = i;
-        yy[u] = y;
-        zz[u] = z;
-        pc[u] = on[u] ? p[i] : 0.0f;
-        if (in[u]) {
-          nb[u][0] = p[i + nyz];
-          nb[u][1] = p[i - nyz];
-          nb[u][2] = p[i + nz];
-          nb[u][3] = p[i - nz];
-          nb[u][4] = p[i + 1];
-          nb[u][5] = p[i - 1];
+        const int x = xb + u;
+        const int i = x * nyz + col;
+        pn[u] = x < x1 && x + 1 < nx ? p[i + nyz] : 0.0f;
+        if (x < x1 && yz_in && x >= 1 && x <= nx - 2) {
+          yp[u] = p[i + nz];
+          ym[u] = p[i - nz];
+          zp[u] = p[i + 1];
+          zm[u] = p[i - 1];
           // rhs streams (evict first), so that the pr buffers stay in L2
           r[u] = __ldcs(rhs + i);
         }
-        t.step(kQuarters, tiles_z, tiles_y);
       }
 #pragma unroll
       for (int u = 0; u < kResidentUnroll; ++u) {
-        if (!on[u]) continue;
-        const int k = k0 + u * kQuarters;
-        float* const dp = dsm + k * ns3d::kBlockThreads +
-                          row * ns3d::kBlockX + lane;
-        const int i = idx[u];
+        const int x = xb + u;
+        if (x >= x1) continue;
+        const int i = x * nyz + col;
+        float* const dp = dcol + x * cols;
         // K1's expressions in K1's order (poisson_iter_kernel)
-        if (in[u]) {
-          const float lap = lap_folded(
-              nb[u][0], nb[u][1], nb[u][2], nb[u][3], nb[u][4], nb[u][5],
-              pc[u], drop[u], inv_dx2, w.yp[yy[u]], w.ym[yy[u]], w.zp[zz[u]],
-              w.zm[zz[u]]);
+        if (yz_in && x >= 1 && x <= nx - 2) {
+          const float lap =
+              lap_folded(pn[u], pm, yp[u], ym[u], zp[u], zm[u], pc,
+                         zero_grad_x && x == 1, inv_dx2, wyp, wym, wzp, wzm);
           const float resid = lap - r[u];
           const float d = *dp * decay + dtau * resid;
           *dp = d;
-          q[i] = pc[u] + dtau * d;
+          q[i] = pc + dtau * d;
           if (last) {
             const unsigned int b = __float_as_uint(fabsf(resid));
             bits = b > bits ? b : bits;
           }
         } else {
           *dp = 0.0f;
-          q[i] = pc[u] + dtau * 0.0f;
+          q[i] = pc + dtau * 0.0f;
         }
+        pm = pc;
+        pc = pn[u];
       }
     }
     if (!last) grid.sync();
   }
-  {
-    TileCursor t = first;
-    for (int k = quarter; k < own.size; k += kQuarters) {
-      const int y = t.yt * ns3d::kBlockY + row;
-      const int z = t.zt * ns3d::kBlockX + lane;
-      if (y < ny && z < nz)
-        dpr[t.x * nyz + y * nz + z] =
-            dsm[k * ns3d::kBlockThreads + row * ns3d::kBlockX + lane];
-      t.step(kQuarters, tiles_z, tiles_y);
-    }
-  }
+#pragma unroll 4
+  for (int x = x0; x < x1; ++x) dpr[x * nyz + col] = dcol[x * cols];
   bits = ns3d::block_max<kResidentThreads>(bits);
   if (ns3d::thread_rank() == 0 && bits != 0u) atomicMax(err_bits, bits);
 }
@@ -1281,10 +1285,12 @@ extern "C" int ns3d_poisson_iter_ext_bc_dist(
 // K10: nit iterations in one launch, the result in pr (the caller's
 // tensor) and dpr, the check value of the state entering the last
 // iteration in err_bits (zeroed by the caller). form 1: (a), one cluster of
-// `blocks` blocks (8, or 16 where the card admits it); form 2: (b), a
-// cooperative grid of `blocks` blocks (one per SM), scratch the second pr
-// buffer. smem: the dynamic shared memory per block the plan asked for,
-// which must hold the form's state. A refused launch returns its error
+// `blocks` blocks (8, or 16 where the card admits it; cut_y and cut_z
+// unused); form 2: (b), a cooperative grid of blocks = cut_y x cut_z
+// blocks (at most one per SM), block b owning the (y, z) columns of y part
+// b / cut_z and z part b % cut_z, scratch the second pr buffer. smem: the
+// dynamic shared memory per block the plan asked for, which must hold the
+// form's state. A refused launch returns its error
 // (cudaErrorNotSupported where the device has no cooperative launch,
 // cudaErrorCooperativeLaunchTooLarge where the blocks cannot all be
 // resident); nothing falls back to the other form or to K1 launches.
@@ -1292,8 +1298,8 @@ extern "C" int ns3d_poisson_iter_resident(
     float* pr, float* scratch, float* dpr, const float* rhs,
     const float* wyp, const float* wym, const float* wzp, const float* wzm,
     float inv_dx2, float dtau, float decay, int zero_grad_x, int nx, int ny,
-    int nz, int nit, int form, int blocks, int smem, unsigned int* err_bits,
-    cudaStream_t stream) {
+    int nz, int nit, int form, int blocks, int cut_y, int cut_z, int smem,
+    unsigned int* err_bits, cudaStream_t stream) {
   if (nit < 1 || blocks < 1 || nx < 1 || ny < 1 || nz < 1 ||
       static_cast<long>(nx) * ny * nz >= (1L << 31))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1331,10 +1337,15 @@ extern "C" int ns3d_poisson_iter_resident(
                            rhs, w, inv_dx2, dtau, decay, zero_grad_x, nx, ny,
                            nz, nit, slab, err_bits);
   } else if (form == 2) {
-    const long tiles = static_cast<long>((nz + ns3d::kBlockX - 1) /
-                                         ns3d::kBlockX) *
-                       ((ny + ns3d::kBlockY - 1) / ns3d::kBlockY) * nx;
-    if (4L * ns3d::kBlockThreads * ((tiles + blocks - 1) / blocks) > smem)
+    // z cut into rows of kResidentLanes, y into cut_y parts; the largest
+    // region's column slots, at most one a thread, their dpr in smem
+    if (cut_y < 1 || cut_y > ny ||
+        cut_z != (nz + kResidentLanes - 1) / kResidentLanes ||
+        static_cast<long>(cut_y) * cut_z != blocks)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const long cols =
+        static_cast<long>((ny + cut_y - 1) / cut_y) * kResidentLanes;
+    if (cols > kResidentThreads || 4L * cols * nx > smem)
       return static_cast<int>(cudaErrorInvalidValue);
     int dev = 0, coop = 0, sms = 0, per_sm = 0;
     e = cudaGetDevice(&dev);
@@ -1358,11 +1369,10 @@ extern "C" int ns3d_poisson_iter_resident(
       return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
     void* args[] = {&pr, &scratch, &dpr, &rhs, const_cast<Weights*>(&w),
                     &inv_dx2, &dtau, &decay, &zero_grad_x, &nx, &ny, &nz,
-                    &nit, &err_bits};
+                    &nit, &cut_y, &cut_z, &err_bits};
     e = cudaLaunchCooperativeKernel(
         reinterpret_cast<const void*>(poisson_resident_grid_kernel),
-        dim3(blocks), dim3(ns3d::kBlockX, kResidentThreads / ns3d::kBlockX),
-        args, smem, stream);
+        dim3(blocks), dim3(kResidentThreads), args, smem, stream);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -56,8 +56,9 @@ SIGNATURES = {
                                  _P),
     # pr, scratch, dpr, rhs, wyp, wym, wzp, wzm, inv_dx2, dtau, decay,
     # zero_grad_x, nx, ny, nz, nit, then the plan: form (1 cluster, 2
-    # grid), blocks, smem bytes; err_bits, stream
-    "ns3d_poisson_iter_resident": (*(_P,) * 8, _F, _F, _F, *(_I,) * 8, _P,
+    # grid), blocks, the grid form's cut (y parts, z parts), smem bytes;
+    # err_bits, stream
+    "ns3d_poisson_iter_resident": (*(_P,) * 8, _F, _F, _F, *(_I,) * 10, _P,
                                    _P),
     # dynamic shared memory per block, out: the largest cluster of K10's
     # cluster form the card admits

@@ -454,16 +454,19 @@ poisson_iter_resident_plain.calls = 0
 poisson_iter_resident_plain.iterations = 0
 
 
-# K10's launch geometry (csrc/poisson.cu, the K10 section): blocks of 1024
-# threads; form (a) holds pr twice (with a ghost plane at each end of a
-# block's slab), dpr, rhs and the column weights in one cluster of
-# RESIDENT_CLUSTERS[i] blocks (`cluster_smem`), form (b) the dpr of each
-# of K1's tiles (RESIDENT_TILE cells) a block owns, one block per SM. A
-# block's dynamic shared memory stays within SMEM_LIMIT less
-# RESIDENT_STATIC_SMEM (its static reduction words) and is at least
-# RESIDENT_SOLO_SMEM, more than half of an SM's 228 KB, so that no SM
-# holds two blocks. The H100's numbers decide for the CPU's plain version.
-RESIDENT_TILE = 256
+# K10's launch geometry (csrc/poisson.cu, the K10 section): blocks of
+# RESIDENT_THREADS threads; form (a) holds pr twice (with a ghost plane at
+# each end of a block's slab), dpr, rhs and the column weights in one
+# cluster of RESIDENT_CLUSTERS[i] blocks (`cluster_smem`), form (b) the dpr
+# of a region of (y, z) columns through all planes, rows of RESIDENT_LANES
+# z cells (a warp's width), at most one column a thread, one block per SM
+# (`grid_smem`). A block's dynamic shared memory
+# stays within SMEM_LIMIT less RESIDENT_STATIC_SMEM (its static reduction
+# words) and is at least RESIDENT_SOLO_SMEM, more than half of an SM's 228
+# KB, so that no SM holds two blocks. The H100's numbers decide for the
+# CPU's plain version.
+RESIDENT_THREADS = 1024
+RESIDENT_LANES = 32
 RESIDENT_CLUSTERS = (16, 8)
 RESIDENT_STATIC_SMEM = 256
 RESIDENT_SOLO_SMEM = 118784
@@ -476,13 +479,17 @@ class ResidentPlan:
     """One K10 launch: `form` "cluster" (the whole state in one cluster of
     `blocks` blocks, block b owning the x planes balanced_part(nx, blocks,
     b), at most `per_block` of them) or "grid" (dpr in the shared memory
-    of `blocks` blocks, one per SM, block b owning K1's tiles
-    balanced_part(tiles, blocks, b), at most `per_block` of them);
-    `smem_bytes` of dynamic shared memory per block."""
+    of `blocks` = cut[0] x cut[1] blocks, at most one per SM, block b
+    owning the (y, z) columns of y part balanced_part(ny, cut[0], b //
+    cut[1]) and z row b % cut[1] (RESIDENT_LANES cells from
+    RESIDENT_LANES * (b % cut[1])) through all planes, at most `per_block`
+    column slots, RESIDENT_LANES a y row; `grid_cut`); `smem_bytes` of
+    dynamic shared memory per block."""
     form: str
     blocks: int
     per_block: int
     smem_bytes: int
+    cut: Tuple[int, int] = (1, 1)
 
 
 def cluster_smem(planes: int, ny: int, nz: int) -> int:
@@ -492,10 +499,25 @@ def cluster_smem(planes: int, ny: int, nz: int) -> int:
     return 16 * (planes + 2) * ny * nz
 
 
-def grid_smem(tiles: int) -> int:
-    """Bytes of shared memory a block of K10's grid form needs for `tiles`
-    of K1's tiles: their dpr, 4 B a cell."""
-    return 4 * RESIDENT_TILE * tiles
+def grid_smem(columns: int, nx: int) -> int:
+    """Bytes of shared memory a block of K10's grid form needs for a region
+    of `columns` (y, z) column slots through `nx` planes: their dpr, 4 B a
+    cell."""
+    return 4 * columns * nx
+
+
+def grid_cut(ny: int, nz: int, sms: int) -> Tuple[int, int]:
+    """K10's grid-form cut of the (y, z) column plane, one region a block:
+    z into cut_z = ceil(nz / RESIDENT_LANES) rows of RESIDENT_LANES cells
+    (a warp's width; the last the remainder), y into cut_y balanced parts,
+    as many as leave a block per SM (cut_y = sms // cut_z, at most ny; 0
+    where the z rows alone outnumber the SMs). At 153x153 on 132 SMs: 26 x
+    5, regions of 5-6 y by 32 z (25 in the last z row), at most 192
+    column slots."""
+    if min(ny, nz, sms) < 1:
+        raise ValueError(f"grid_cut: ny {ny}, nz {nz}, sms {sms}")
+    gz = -(-nz // RESIDENT_LANES)
+    return min(ny, sms // gz), gz
 
 
 @functools.lru_cache(maxsize=64)
@@ -505,12 +527,13 @@ def resident_plan(shape: Tuple[int, int, int], sms: int,
     clusters of up to `max_cluster` blocks (16, 8 or 0): the cluster form
     where the state of the largest slab, ceil(nx / blocks) planes, fits a
     block (`cluster_smem`; the larger cluster that the card admits, so
-    that more SMs share the work); else the grid form where the dpr of
-    ceil(tiles / sms) of K1's 32 x 8 tiles fits a block (`grid_smem`);
-    else None. At 63x38x38 on 132 SMs with clusters of 16: 16 blocks of at
-    most 4 planes (139 KB of state); at 255x153x153: 132 blocks of at most
-    194 tiles (194 KB of dpr); at 511x307x307 neither (1510 tiles a
-    block)."""
+    that more SMs share the work); else the grid form where the largest
+    region of `grid_cut` holds at most RESIDENT_THREADS column slots and
+    their dpr through nx planes fits a block (`grid_smem`); else None. At
+    63x38x38 on 132 SMs with clusters of 16: 16 blocks of at most 4 planes
+    (139 KB of state); at 255x153x153: 26 x 5 = 130 blocks of at most 6 x
+    32 = 192 slots (195,840 B of dpr); at 511x307x307 neither (13 x 10,
+    24 x 32 slots through 511 planes, 1.57 MB a block)."""
     nx, ny, nz = shape
     if min(shape) < 1 or sms < 1 or nx * ny * nz >= 2 ** 31:
         raise ValueError(f"resident_plan: shape {shape}, sms {sms}")
@@ -521,11 +544,13 @@ def resident_plan(shape: Tuple[int, int, int], sms: int,
         if blocks <= max_cluster and need <= room:
             return ResidentPlan("cluster", blocks, planes,
                                 max(need, RESIDENT_SOLO_SMEM))
-    tiles = -(-nz // 32) * -(-ny // 8) * nx
-    per = -(-tiles // sms)
-    need = grid_smem(per)
-    if need <= room:
-        return ResidentPlan("grid", sms, per, max(need, RESIDENT_SOLO_SMEM))
+    gy, gz = grid_cut(ny, nz, sms)
+    if gy >= 1:
+        columns = -(-ny // gy) * RESIDENT_LANES
+        need = grid_smem(columns, nx)
+        if columns <= RESIDENT_THREADS and need <= room:
+            return ResidentPlan("grid", gy * gz, columns,
+                                max(need, RESIDENT_SOLO_SMEM), (gy, gz))
     return None
 
 
@@ -596,8 +621,8 @@ def launch_resident(pr, dpr, rhs, op: PoissonOperator, nit: int,
         op.wzm.data_ptr(), ctypes.c_float(op.inv_dx2),
         ctypes.c_float(op.dtau), ctypes.c_float(op.decay),
         int(op.zero_grad_x), nx, ny, nz, int(nit),
-        {"cluster": 1, "grid": 2}[plan.form], plan.blocks, plan.smem_bytes,
-        err.data_ptr(), _build.stream_of(pr))
+        {"cluster": 1, "grid": 2}[plan.form], plan.blocks, *plan.cut,
+        plan.smem_bytes, err.data_ptr(), _build.stream_of(pr))
     _build.check(rc, f"poisson_iter_resident ({plan.form} form)")
     poisson_iter_resident.launches += 1
     poisson_iter_resident.iterations += int(nit)

@@ -27,11 +27,25 @@ resident_inputs, at 63x38x38 with nit 37 and at 255x153x153 with nit 152:
      writes dpr (timed only): what holding dpr on chip can buy;
   7. where the checkout's K10 has the two resident forms: at 63 its
      cluster form forced onto clusters of 8 and of 16 blocks and its grid
-     form forced (the plan of a card without clusters), and at 255
-     copies of csrc/poisson.cu whose grid form issues the loads of 1 and
-     of 3 cells per thread before their arithmetic (the checkout's: 2),
-     each held bitwise against the checkout's K10 first.
---only runs the named parts (K6: 1-3, sync: 5, K10: 4, 6, 7). With
+     form forced (the plan of a card without clusters); at 255, where the
+     grid form streams columns along x, that form under other cuts of y
+     (GRID_FORCED_Y), and copies of csrc/poisson.cu whose grid form
+     issues the loads of fewer and of more cells (the tile-walking form)
+     or planes (the x-streamed form) per thread before their arithmetic
+     than the checkout's kResidentUnroll; each held bitwise against the
+     checkout's K10 first;
+  8. at 255, where the checkout's grid form walks K1's tiles (the
+     earlier form), copies of csrc/poisson.cu whose grid form (timed
+     only: the results are wrong by design) takes a cell's x neighbours
+     from its own value (no x-neighbour loads), or takes constant weights
+     and a linear cell index in place of the tile cursor (no weight
+     loads, no cursor, no padded slots), or both: how much of an
+     iteration each explains.
+At both grids the JSON holds a digest of K10's pr, dpr and check value
+from the seeded inputs (`digest`): two checkouts' digests are equal when
+their launches are bitwise equal.
+--only runs the named parts (K6: 1-3, sync: 5, K10: 4, 6-8); --no-aside
+builds no patched copy (K10's 4 and the forced plans of 7 alone). With
 --sass, the SASS counts of the checkout's kernels through
 chip_smoke.py's SYMBOLS (cuobjdump). Times are device times from
 torch.profiler (the sum of the kernel's launches per call, a spin kernel
@@ -48,7 +62,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
+import hashlib
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -63,6 +79,9 @@ ap.add_argument("--rounds", type=int, default=2)
 ap.add_argument("--sass", action="store_true")
 ap.add_argument("--only", choices=("k6", "sync", "k10"), nargs="+",
                 default=("k6", "sync", "k10"))
+ap.add_argument("--no-aside", action="store_true",
+                help="build no patched copy (K10's steps 6-8, the cluster "
+                     "cuts and the load batches of step 7)")
 ARGS = ap.parse_args()
 REPO = Path(ARGS.repo).resolve()
 sys.path.insert(0, str(REPO))
@@ -91,8 +110,12 @@ SYNC_CASES = (("grid, 1 x 1024 threads per SM", "grid", 1, 1024, 0),
               ("cluster of 16 x 1024 threads", "cluster", 16, 1024,
                93 * 1024))
 SYNC_N = 1000
-# the grid form's cells per thread whose loads are issued together
-UNROLL = "constexpr int kResidentUnroll = 2;"
+# the grid form's cells (tile-walking) or planes (x-streamed) per thread
+# whose loads are issued together
+UNROLL = r"constexpr int kResidentUnroll = (\d+);"
+# other cuts of y for the x-streamed grid form (its z rows are a warp's
+# 32 lanes): regions of more rows on fewer blocks
+GRID_FORCED_Y = (13, 20, 22)
 # the cluster form with parts of an iteration taken out or changed (timed
 # only: the results may be wrong by design): its stores into the
 # neighbours' ghost planes; the release of the barrier's arrival; half the
@@ -110,6 +133,35 @@ CLUSTER_CUTS = (
     ("no inner planes", "poisson.cu",
      (("    for (int c = inner0; nb > 2 && c < nyz; c += T) {",
        "    for (int c = inner0; nb > 2 && c < 0; c += T) {"),)))
+# the tile-walking grid form (the earlier design) with parts of an
+# iteration cut out (timed only): the x neighbours' loads (each replaced
+# by the cell's own value); the weight loads and the tile cursor (constant
+# weights, and cell k * 256 + the thread's slot of the flat field for tile
+# k: no cursor steps, no padded slots, loads aligned to the tile)
+X_CUT = (("          nb[u][0] = p[i + nyz];\n"
+          "          nb[u][1] = p[i - nyz];\n",
+          "          nb[u][0] = pc[u];\n          nb[u][1] = pc[u];\n"),)
+CURSOR_CUT = (
+    ("        const int y = t.yt * ns3d::kBlockY + row;\n"
+     "        const int z = t.zt * ns3d::kBlockX + lane;\n"
+     "        on[u] = k < own.size && y < ny && z < nz;\n"
+     "        in[u] = on[u] && interior(t.x, y, z, nx, ny, nz);\n"
+     "        drop[u] = zero_grad_x && t.x == 1;\n"
+     "        const int i = on[u] ? t.x * nyz + y * nz + z : 0;\n",
+     "        const int y = 1, z = 1;\n"
+     "        const int lin = (own.start + k) * ns3d::kBlockThreads +\n"
+     "                        row * ns3d::kBlockX + lane;\n"
+     "        on[u] = k < own.size && lin < nx * nyz;\n"
+     "        in[u] = on[u] && lin >= nyz && lin < (nx - 1) * nyz;\n"
+     "        drop[u] = false;\n"
+     "        const int i = on[u] ? lin : 0;\n"),
+    ("        t.step(kQuarters, tiles_z, tiles_y);\n      }\n#pragma unroll",
+     "      }\n#pragma unroll"),
+    ("w.yp[yy[u]], w.ym[yy[u]], w.zp[zz[u]],\n              w.zm[zz[u]])",
+     "0.25f, 0.25f, 0.25f, 0.25f)"))
+GRID_CUTS = (("x neighbours from pc", X_CUT),
+             ("weights and cursor constant", CURSOR_CUT),
+             ("both cuts", X_CUT + CURSOR_CUT))
 RESIDENT = ((63, 37), (255, 152))
 
 
@@ -312,6 +364,9 @@ def probe_k10(out: dict) -> None:
         if not (cs.bitwise(p, q) and cs.bitwise(d, dq)
                 and float(e) == float(e1)):
             raise RuntimeError(f"K10 at {nx} differs from {nit} K1 launches")
+        digest = hashlib.sha256(p.cpu().numpy().tobytes()
+                                + d.cpu().numpy().tobytes()
+                                + np.float32(float(e)).tobytes()).hexdigest()
         del q, dq
         # the K1 chain's own state (sharing dpr with K10's would mix two
         # iterations and blow up)
@@ -329,15 +384,17 @@ def probe_k10(out: dict) -> None:
         ms, runs = best(k10, "poisson_resident", reps=reps)
         ms1, _ = best(lambda: k10(1), "poisson_resident", reps=reps)
         k1_ms, _ = best(k1_chain, "poisson_iter_kernel", nit, reps=reps)
-        r = dict(nit=nit, ms=ms, runs=runs, ms_nit1=ms1,
+        r = dict(nit=nit, digest=digest, ms=ms, runs=runs, ms_nit1=ms1,
                  us_per_iteration=(ms - ms1) / (nit - 1) * 1e3,
                  k1_launches_ms=k1_ms)
-        if dpr_lib is not None and nx > 100:
+        if dpr_lib is not None and nx > 100 and not ARGS.no_aside:
             with library(_build, dpr_lib):
                 r["dpr_const_ms"], _ = best(k10, "poisson_resident",
                                             reps=reps)
         if hasattr(kp, "launch_resident"):
             variants(r, nx, nit, op, pr0, dpr0, p, d, rhs, scratch, reps)
+        if nx > 100 and not ARGS.no_aside:
+            grid_cuts(r, nx, nit, op, p, d, rhs, scratch, reps)
         rows[f"{nx}, nit {nit}"] = r
         if nx > 100:
             # the pr pair's traffic through L2: a copy of pr into a buffer
@@ -409,10 +466,10 @@ def variants(r, nx, nit, op, p0, d0, p, d, rhs, scratch, reps) -> None:
         # the plan on a card that admits no cluster: the grid form
         grid = kp.resident_plan(tuple(p.shape),
                                 kp.resident_caps(p.device)[0], 0)
-        held(f"grid form ({grid.blocks} blocks of at most {grid.per_block} "
-             "tiles)", lambda q, dq: kp.launch_resident(q, dq, rhs, op, nit,
-                                                       grid, scratch))
-        for label, name, patch in CLUSTER_CUTS:
+        print(f"[K10] {nx}, the grid form forced: {grid}", flush=True)
+        held("grid form forced", lambda q, dq: kp.launch_resident(
+            q, dq, rhs, op, nit, grid, scratch))
+        for label, name, patch in () if ARGS.no_aside else CLUSTER_CUTS:
             src = (_build.SRC_DIR / name).read_text()
             if not all(src.count(old) == 1 for old, _ in patch):
                 continue
@@ -423,15 +480,45 @@ def variants(r, nx, nit, op, p0, d0, p, d, rhs, scratch, reps) -> None:
                     reps=reps)
             print(f"[K10] {nx}, nit {nit}, cluster form, {label} (timed "
                   f"only): {r[label]:.4f} ms", flush=True)
-    src = (_build.SRC_DIR / "poisson.cu").read_text()
-    if plan.form == "grid" and src.count(UNROLL) == 1:
-        for u in (1, 3):
+    if plan.form == "grid" and getattr(plan, "cut", (1, 1)) != (1, 1):
+        # the x-streamed grid form under other cuts of y
+        gz = plan.cut[1]
+        for gy in GRID_FORCED_Y:
+            cols = -(-p.shape[1] // gy) * kp.RESIDENT_LANES
+            smem = max(kp.grid_smem(cols, nx), kp.RESIDENT_SOLO_SMEM)
+            if (gy == plan.cut[0] or gy * gz > plan.blocks
+                    or smem > kp.SMEM_LIMIT - kp.RESIDENT_STATIC_SMEM):
+                continue
+            forced = kp.ResidentPlan("grid", gy * gz, cols, smem, (gy, gz))
+            held(f"grid form, cut {gy} x {gz} ({cols} columns)",
+                 lambda q, dq, f=forced: kp.launch_resident(
+                     q, dq, rhs, op, nit, f, scratch))
+    if not ARGS.no_aside and plan.form == "grid":
+        src = (_build.SRC_DIR / "poisson.cu").read_text()
+        m = re.search(UNROLL, src)
+        cur = int(m.group(1)) if m else 0
+        for u in sorted({cur - 1, cur + 1} - {0} if m else ()):
             lib = aside(_build.SRC_DIR, "poisson.cu", {"poisson.cu": (
-                (UNROLL, UNROLL.replace("2", str(u))),)})
+                (m.group(0), m.group(0).replace(str(cur), str(u))),)})
             with library(_build, lib):
-                held(f"grid form, loads of {u} cells together",
+                held(f"grid form, loads of {u} cells or planes together",
                      lambda q, dq: kp.poisson_iter_resident(
                          q, dq, rhs, op, nit, scratch))
+
+
+def grid_cuts(r, nx, nit, op, p, d, rhs, scratch, reps) -> None:
+    """Step 8: the tile-walking grid form with GRID_CUTS' parts cut out,
+    timed only, where the checkout's source has them."""
+    src = (_build.SRC_DIR / "poisson.cu").read_text()
+    for label, patch in GRID_CUTS:
+        if not all(src.count(old) == 1 for old, _ in patch):
+            continue
+        lib = aside(_build.SRC_DIR, "poisson.cu", {"poisson.cu": patch})
+        with library(_build, lib):
+            r[label], _ = best(lambda: kp.poisson_iter_resident(
+                p, d, rhs, op, nit, scratch), "poisson_resident", reps=reps)
+        print(f"[K10] {nx}, nit {nit}, grid form, {label} (timed only): "
+              f"{r[label]:.4f} ms", flush=True)
 
 
 def main() -> int:

@@ -823,23 +823,39 @@ def test_k10_cluster_form_is_deterministic():
             assert e == want[2]
 
 
+def _grid_plan(shape, cut_y):
+    """The grid form's plan for a forced number of y parts (z in rows of
+    RESIDENT_LANES, as always)."""
+    nx, ny, nz = shape
+    cut = (cut_y, -(-nz // kp.RESIDENT_LANES))
+    columns = -(-ny // cut_y) * kp.RESIDENT_LANES
+    return kp.ResidentPlan("grid", cut[0] * cut[1], columns,
+                           max(kp.grid_smem(columns, nx),
+                               kp.RESIDENT_SOLO_SMEM), cut)
+
+
 @pytest.mark.parametrize("nit", [1, 2, 7])
-@pytest.mark.parametrize("shape,blocks", [((40, 25, 70), None),
-                                          ((33, 17, 65), 7),
-                                          ((12, 9, 33), 5)])
-def test_k10_grid_form(nit, shape, blocks):
-    """K10's grid form (dpr in shared memory) on grids of several tiles on
-    every axis, ragged in y and z, one block per SM or a forced few
-    blocks: bitwise equal to nit K1 launches and the plain version."""
+@pytest.mark.parametrize("shape,cut_y", [((40, 25, 70), None),
+                                         ((33, 17, 65), None),
+                                         ((12, 9, 33), None),
+                                         ((40, 25, 70), 1),
+                                         ((33, 17, 65), 2),
+                                         ((12, 20, 31), 5),
+                                         ((12, 9, 33), 3),
+                                         ((7, 3, 3), 3)])
+def test_k10_grid_form(nit, shape, cut_y):
+    """K10's grid form (dpr in shared memory, x-streamed columns) on grids
+    ragged in y and z (z one past a row of 32 lanes, or short of one),
+    under the plan of a card without clusters (one row a block: runs of
+    one to a few planes) and forced cuts of 1 x k (all 25 rows a block,
+    one run of all 40 planes), k x 1 (z within one row) and a few blocks:
+    bitwise equal to nit K1 launches and the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card)")
     sms = _build.sm_count(torch.device("cuda"))
-    blocks = blocks or sms
-    tiles = -(-shape[2] // 32) * -(-shape[1] // 8) * shape[0]
-    per = -(-tiles // blocks)
-    plan = kp.ResidentPlan("grid", blocks, per,
-                           max(kp.grid_smem(per),
-                               kp.RESIDENT_SOLO_SMEM))
+    plan = (kp.resident_plan(shape, sms, 0) if cut_y is None
+            else _grid_plan(shape, cut_y))
+    assert plan.form == "grid"
     for zero_grad_x in (False, True):
         _k10_against_k1(shape, _k10_operator(shape, zero_grad_x), nit, plan)
 
@@ -855,9 +871,21 @@ def test_k10_refused_launches_raise():
     pr, dpr, rhs = _k10_inputs(shape)
     sms = _build.sm_count(torch.device("cuda"))
     kernels.reset_counts()
+    # more blocks than the card holds co-resident (y parts of one or two
+    # rows on a plane of many rows)
+    tall = (4, 2 * sms + 4, 33)
+    with pytest.raises(RuntimeError, match="poisson_iter_resident"):
+        kp.launch_resident(*_k10_inputs(tall), _k10_operator(tall), 3,
+                           kp.ResidentPlan("grid", 4 * sms, 64,
+                                           kp.SMEM_LIMIT, (2 * sms, 2)))
     refused = (
-        # more blocks than the card holds co-resident
-        kp.ResidentPlan("grid", 4 * sms, 1, kp.SMEM_LIMIT),
+        # a cut whose blocks are not the plan's, one with more y parts
+        # than the plane has rows, one whose z rows are not 32 lanes
+        kp.ResidentPlan("grid", 5, 160, kp.RESIDENT_SOLO_SMEM, (2, 2)),
+        kp.ResidentPlan("grid", 20, 32, kp.RESIDENT_SOLO_SMEM, (10, 2)),
+        kp.ResidentPlan("grid", 3, 96, kp.RESIDENT_SOLO_SMEM, (3, 1)),
+        # less shared memory than the region's dpr
+        kp.ResidentPlan("grid", 4, 160, 4 * 160 * 12 - 4, (2, 2)),
         # more shared memory than a block has
         kp.ResidentPlan("cluster", 8, 2, kp.SMEM_LIMIT + 4096),
         # a cluster larger than any the card forms
@@ -865,11 +893,11 @@ def test_k10_refused_launches_raise():
     for plan in refused:
         with pytest.raises(RuntimeError, match="poisson_iter_resident"):
             kp.launch_resident(pr.clone(), dpr.clone(), rhs, op, 3, plan)
-    # one plane more than the grid form holds at 153x153 (100 tiles a plane)
+    # one plane more than the grid form holds at 153x153 (the dpr of the
+    # largest region's columns through every plane)
     room = kp.SMEM_LIMIT - kp.RESIDENT_STATIC_SMEM
-    per = max(n for n in range(1, 300)
-              if kp.grid_smem(n) <= room)
-    big = (per * sms // 100 + 1, 153, 153)
+    columns = kp.resident_plan((255, 153, 153), sms, 0).per_block
+    big = (room // (4 * columns) + 1, 153, 153)
     assert kp.resident_plan(big, sms, 16) is None
     p = torch.zeros(big, device="cuda")
     with pytest.raises(ValueError, match="no resident form"):

@@ -3,6 +3,12 @@ and where it gets none.
 
   * the cluster form (the whole state in one cluster's shared memory)
     cuts x into balanced slabs that cover every plane once;
+  * the grid form (dpr in shared memory, x-streamed columns) cuts the
+    (y, z) column plane into one rectangle a block (`grid_cut`): z into
+    rows of a warp's 32 lanes (the last the remainder), y into balanced
+    parts, as many as the SMs leave; every column in exactly one region,
+    the y parts within one row of each other, no more blocks than SMs and
+    no fewer y parts than fit;
   * 63x38x38 picks the cluster form, 255x153x153 the grid form (dpr in
     shared memory), 511x307x307 neither, on an H100's 132 SMs with
     clusters of 16 (and of 8);
@@ -60,8 +66,11 @@ def test_presets_pick_their_forms(shape, form):
         # a card without clusters takes the grid form
         assert _form(shape, SMS, 0) == "grid"
     if shape == (255, 153, 153):
-        # 5 x 20 tiles a plane, 25500 tiles over 132 blocks: at most 194
-        assert plan == kp.ResidentPlan("grid", 132, 194, 194 * 1024)
+        # 153 x 153 columns cut 26 x 5: regions of 5-6 y by 32 z (25 in
+        # the last z row), at most 6 x 32 = 192 slots, their dpr through
+        # 255 planes 195,840 B
+        assert plan == kp.ResidentPlan("grid", 130, 192, 195840, (26, 5))
+        assert kp.grid_smem(192, 255) == 195840
 
 
 @pytest.mark.parametrize("shape", [(63, 38, 38), (255, 153, 153),
@@ -78,10 +87,53 @@ def test_plans_fit_a_block_and_cover_the_grid(shape):
             assert plan.per_block * plan.blocks >= nx
             assert kp.cluster_smem(plan.per_block, ny, nz) <= plan.smem_bytes
         else:
-            tiles = -(-nz // 32) * -(-ny // 8) * nx
-            assert plan.blocks == SMS
-            assert plan.per_block * plan.blocks >= tiles
-            assert kp.grid_smem(plan.per_block) <= plan.smem_bytes
+            gy, gz = plan.cut
+            assert plan.blocks == gy * gz <= SMS
+            assert gz == -(-nz // kp.RESIDENT_LANES)
+            assert plan.per_block == -(-ny // gy) * kp.RESIDENT_LANES
+            assert plan.per_block <= kp.RESIDENT_THREADS
+            assert plan.per_block * plan.blocks >= ny * nz
+            assert kp.grid_smem(plan.per_block, nx) <= plan.smem_bytes
+
+
+CUTS = [(153, 153, 132), (38, 38, 132), (9, 33, 132), (307, 307, 132),
+        (17, 65, 7), (25, 70, 4), (3, 3, 1), (5, 200, 16), (200, 5, 16),
+        (153, 153, 114), (1, 1, 132), (40, 3, 9), (7, 300, 4), (4, 64, 2)]
+
+
+@pytest.mark.parametrize("ny,nz,sms", CUTS)
+def test_grid_cut_covers_every_column_once(ny, nz, sms):
+    gy, gz = kp.grid_cut(ny, nz, sms)
+    lanes = kp.RESIDENT_LANES
+    assert gz == -(-nz // lanes)
+    if gz > sms:
+        # more z rows than SMs: no cut
+        assert gy == 0
+        return
+    assert 1 <= gy <= ny and gy * gz <= sms
+    # the most y parts the SMs leave, at most one a row
+    assert gy == ny or (gy + 1) * gz > sms
+    owner = np.full((ny, nz), -1)
+    for b in range(gy * gz):
+        y0, uy = kp.balanced_part(ny, gy, b // gz)
+        z0 = b % gz * lanes
+        uz = min(lanes, nz - z0)
+        assert uy >= 1 and uz >= 1
+        assert (owner[y0:y0 + uy, z0:z0 + uz] == -1).all()
+        owner[y0:y0 + uy, z0:z0 + uz] = b
+    assert (owner >= 0).all()
+    # y parts within one row of each other; z rows of 32 lanes but the
+    # last
+    rows = [kp.balanced_part(ny, gy, i)[1] for i in range(gy)]
+    assert max(rows) - min(rows) <= 1
+    assert all(min(lanes, nz - z0) == lanes for z0 in range(0, nz - lanes,
+                                                             lanes))
+
+
+def test_grid_cut_refuses_empty_planes():
+    for args in ((0, 5, 132), (5, 0, 132), (5, 5, 0)):
+        with pytest.raises(ValueError, match="grid_cut"):
+            kp.grid_cut(*args)
 
 
 def _last(shape, axis, form, max_cluster=CLUSTER):
@@ -117,8 +169,12 @@ def test_one_cell_past_the_grid_limit(axis):
     past = tuple(n + (i == axis) for i, n in enumerate(at))
     assert _form(at) == "grid" and _form(past) is None
     if axis == 0:
-        # 226 tiles of dpr a block, 100 tiles a plane
-        assert at[0] == ROOM // 1024 * SMS // 100
+        # 192 column slots of dpr a block through every plane: 302 planes
+        assert at[0] == ROOM // (4 * 192) == 302
+    # the largest region through every plane fits the room, one more
+    # cell's plane does not
+    plan = kp.resident_plan(at, SMS, CLUSTER)
+    assert kp.grid_smem(plan.per_block, at[0]) <= ROOM
 
 
 def test_plan_refuses_empty_or_huge_grids():
@@ -129,12 +185,12 @@ def test_plan_refuses_empty_or_huge_grids():
         kp.resident_plan((63, 38, 38), 0, CLUSTER)
 
 
-@pytest.mark.parametrize("shape", list(PRESETS) + [(299, 153, 153),
+@pytest.mark.parametrize("shape", list(PRESETS) + [(303, 153, 153),
                                                    (20, 6, 6)])
 def test_make_resident_none_where_the_plan_has_no_form(shape):
     res = kp.make_resident(3, shape)
     assert (res is None) == (kp.resident_plan(shape, SMS, CLUSTER) is None)
-    assert (res is None) == (shape in ((511, 307, 307), (299, 153, 153)))
+    assert (res is None) == (shape in ((511, 307, 307), (303, 153, 153)))
     # without a shape it decides at the call (the CPU runs the plain
     # version of any grid)
     assert callable(kp.make_resident(3))
