@@ -107,21 +107,18 @@ Phases (any failure exits non-zero; nothing is caught):
      K7 under the split gpu spec against its plain version (the function
      of the dma-mode kernel K11); one more step traced
  16. resident: K10 (poisson_iter_resident, one launch of nit iterations
-     resident on chip) at 63x38x38 with nit = 37 in its cluster form and
-     at 255x153x153 with nit = 152 in its grid form (dpr in shared
-     memory, x-streamed columns), each form required and printed, the
-     grid form's plan checked against its rule and printed (the cut of the
+     resident on chip: dpr in shared memory, x-streamed columns) at
+     63x38x38 with nit = 37 and at 255x153x153 with nit = 152, its plan
+     required, checked against its rule and printed (the cut of the
      column plane, the column slots a block, the runs of planes a column,
-     the shared memory a block: 26 x 5, 192, 5, 195840 B at 255 on 132
-     SMs),
-     on resident_probe.py's
+     the shared memory a block: 38 x 2, 32, 32, 118784 B at 63 and 26 x
+     5, 192, 5, 195840 B at 255 on 132 SMs), on resident_probe.py's
      seeded inputs (gpu operator): pr, dpr and the check value bitwise
      equal to nit K1 launches and to the plain version; K10's time and
      that of the nit K1 launches (device time from torch.profiler, and
-     CUDA events); at 63 the grid form too, bitwise against the cluster
-     form and timed beside it; at 255 the grid form's ceiling as designed
-     (rhs from HBM, 12 B a cell and iteration at the rate of a warm copy
-     of pr into a buffer as large) beside the JSON line's one-pass bound;
+     CUDA events); the design's ceiling (rhs from HBM, 12 B a cell and
+     iteration at the rate of a warm copy of pr into a buffer as large)
+     beside the JSON line's one-pass bound;
      at 63 one Poisson solve (the gpu
      preset's first, K1 over its budget) whose first chunk runs on K10 and
      the rest in pt_loop_fused(seed0=True) on K1, with the launch counts
@@ -267,20 +264,15 @@ K7D_NAME = "K7-dist poisson_iter_bc_dist"
 K2D_NAME = "K2-dist poisson_iter_ext_bc_dist"
 K6_NAME = "K6 advect_pre"
 K10_NAME = "K10 poisson_iter_resident"
-# K10's cluster form, a kernel of its own beside the grid form (for its
-# SASS counts)
-K10C_NAME = "K10 poisson_iter_resident (cluster form)"
 # the dma-mode kernel, whose function K7's kernel computes: its row in the
 # JSON line carries K7's numbers under the split gpu spec and K7's
 # launches on the dma path
 K11_ROW = {"name": "K11 poisson_iter_bc (dma mode)",
            "source": "navierstokes3d_tpu_torch/csrc/poisson.cu",
            "replaces": "navierstokes3d_tpu/kernels/poisson.py:1451"}
-# K10's phase: the 63x38x38 grid with nit = nchk in the cluster form, and
-# 255 with nit = 152 in the grid form
+# K10's phase: the 63x38x38 grid with nit = nchk, and 255 with nit = 152
 RESIDENT_NX = (63, 255)
 RESIDENT_NIT = {63: 37, 255: 152}
-RESIDENT_FORM = {63: "cluster", 255: "grid"}
 UNCHAINED_STEPS = 4
 DMA_STEPS = 4
 # the dist kernels' device symbols as the profiler names them (one kernel
@@ -486,8 +478,7 @@ SYMBOLS = {K1_NAME: r"19poisson_iter_kernelE", K2_NAME:
            r"13advect_kernelE", K6_NAME: r"17advect_pre_kernelE",
            K7_NAME: r"19poisson_dist_kernelILi1E", K8_NAME:
            r"21poisson_sweeps_kernelILi3E", K10_NAME:
-           r"28poisson_resident_grid_kernelE", K10C_NAME:
-           r"31poisson_resident_cluster_kernelE", K7D_NAME:
+           r"28poisson_resident_grid_kernelE", K7D_NAME:
            r"19poisson_dist_kernelILi1E", K2D_NAME:
            r"19poisson_dist_kernelILi2E"}
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
@@ -1961,14 +1952,14 @@ def resident_inputs(g):
     return tuple(torch.tensor(a, device="cuda") for a in (pr, dpr, rhs))
 
 
-def check_grid_plan(plan, shape, label) -> None:
-    """K10's grid-form plan against its rule: the cut of the (y, z) column
+def check_plan(plan, shape, label) -> None:
+    """K10's plan against its rule: the cut of the (y, z) column
     plane that `grid_cut` picks for the card's SMs (z rows of a warp's 32
     lanes, balanced y parts), one block a region, the largest region's
     column slots a block (at most one a thread), and the shared memory of
     their dpr through every plane."""
     nx, ny, nz = shape
-    sms = k_poisson.resident_caps("cuda")[0]
+    sms = k_poisson.resident_sms("cuda")
     gy, gz = k_poisson.grid_cut(ny, nz, sms)
     cols = -(-ny // gy) * k_poisson.RESIDENT_LANES
     need = k_poisson.grid_smem(cols, nx)
@@ -1984,21 +1975,15 @@ def check_grid_plan(plan, shape, label) -> None:
           f"a column), {plan.smem_bytes} B of shared memory a block")
 
 
-def check_k10(solver, nit, smi, form=None) -> dict:
-    """K10 in its plan's form (required to be `form` where given) against
-    nit K1 launches and its plain version (bitwise), then the times of
-    K10 and of the nit K1 launches: device time from torch.profiler and
-    CUDA events. Where the plan is the cluster form, the grid form on the
-    same grid too (bitwise against it, device time): what the choice of
-    form buys."""
+def check_k10(solver, nit, smi) -> dict:
+    """K10 under its plan against nit K1 launches and its plain version
+    (bitwise), then the times of K10 and of the nit K1 launches: device
+    time from torch.profiler and CUDA events."""
     g, op = solver.grid, solver._op
-    plan = k_poisson.resident_plan(g.shape_c,
-                                   *k_poisson.resident_caps("cuda"))
-    require(plan is not None and (form is None or plan.form == form),
-            f"K10 at {g.shape_c}: plan {plan}, expected the {form} form")
-    label = f"{g.nx}x{g.ny}x{g.nz}, nit {nit}, {plan.form} form"
-    if plan.form == "grid":
-        check_grid_plan(plan, g.shape_c, label)
+    plan = k_poisson.resident_plan(g.shape_c, k_poisson.resident_sms("cuda"))
+    require(plan is not None, f"K10 at {g.shape_c}: no plan")
+    label = f"{g.nx}x{g.ny}x{g.nz}, nit {nit}"
+    check_plan(plan, g.shape_c, label)
     pr0, dpr0, rhs = resident_inputs(g)
     p, d = pr0.clone(), dpr0.clone()
     scratch = torch.full_like(p, float("nan"))
@@ -2020,19 +2005,6 @@ def check_k10(solver, nit, smi, form=None) -> dict:
           f"{float(e):.9e} bitwise equal to {nit} K1 launches and to the "
           "plain version")
     del q, dq, pp, dp
-    other = None
-    if plan.form == "cluster":
-        # the plan of a card that admits no cluster, beside the cluster
-        # form: the grid form, held against it and timed
-        other = k_poisson.resident_plan(
-            g.shape_c, k_poisson.resident_caps("cuda")[0], 0)
-        check_grid_plan(other, g.shape_c, f"{label}, the grid form forced")
-        qg, dg = pr0.clone(), dpr0.clone()
-        eg = k_poisson.launch_resident(qg, dg, rhs, op, nit, other,
-                                       torch.empty_like(qg))
-        require(bitwise(qg, p) and bitwise(dg, d) and float(eg) == float(e),
-                f"K10 ({label}): the grid form differs from the cluster form")
-        del qg, dg
     # the K1 chain's own state (sharing dpr with K10's would mix two
     # iterations)
     bufs = [pr0.clone(), torch.empty_like(pr0)]
@@ -2050,31 +2022,26 @@ def check_k10(solver, nit, smi, form=None) -> dict:
     ms1 = device_ms(lambda: k10(1), reps, "poisson_resident")
     events_ms = cuda_ms(k10, reps)
     k1_ms = nit * device_ms(k1_chain, reps, "poisson_iter_kernel")
-    other_ms = None if other is None else device_ms(
-        lambda: k_poisson.launch_resident(p, d, rhs, op, nit, other,
-                                          scratch), reps, "poisson_resident")
     k1_events_ms = cuda_ms(k1_chain, reps)
     plain_ms = cuda_ms(lambda: k_poisson.poisson_iter_resident_plain(
         p, d, rhs, op, nit, scratch), 3, warmup=1)
     b = bound(K10_NAME, (pr0, dpr0, rhs), (p, d), p.numel(), iters=nit)
     # what the fields move where they do not stay in L2: K1's bytes (5 x 4
-    # B per cell) every iteration. The grid form keeps dpr on chip, reads
-    # rhs from HBM (4 B) and moves pr in, rhs in and pr out through L2 (12
-    # B) at the rate of a warm copy of pr into a buffer as large (the pair
-    # fits the 50 MB L2 at 255); its ceiling is nit times the larger. The
-    # cluster form moves its fields once.
+    # B per cell) every iteration. K10 keeps dpr on chip, reads rhs from
+    # HBM (4 B) and moves pr in, rhs in and pr out through L2 (12 B) at the
+    # rate of a warm copy of pr into a buffer as large (the pair fits the
+    # 50 MB L2 at 255); its ceiling is nit times the larger (at 63 the copy
+    # of at least 1 MB is bound by its launch, and the ceiling loose).
     cells = p.numel()
     stream_ms = nit * 5 * 4 * cells / HBM_BYTES_PER_S * 1e3
-    form_ms, form_by = b["bound_ms"], b["bound_by"]
-    if plan.form == "grid":
-        pair_mb = round(2 * 4 * cells / 1e6)
-        pair_ms, pair_timing = copy_ms(pair_mb)
-        l2_rate = pair_mb * 1e6 / (pair_ms / 1e3)
-        hbm_s, l2_s = 4 * cells / HBM_BYTES_PER_S, 12 * cells / l2_rate
-        form_ms = nit * max(hbm_s, l2_s) * 1e3
-        form_by = (f"{'HBM (rhs)' if hbm_s >= l2_s else 'L2 (pr, rhs)'}; a "
-                   f"copy of {pair_mb} MB {pair_ms:.4f} ms, "
-                   f"{l2_rate / 1e12:.3f} TB/s, {pair_timing}")
+    pair_mb = max(1, round(2 * 4 * cells / 1e6))
+    pair_ms, pair_timing = copy_ms(pair_mb)
+    l2_rate = pair_mb * 1e6 / (pair_ms / 1e3)
+    hbm_s, l2_s = 4 * cells / HBM_BYTES_PER_S, 12 * cells / l2_rate
+    form_ms = nit * max(hbm_s, l2_s) * 1e3
+    form_by = (f"{'HBM (rhs)' if hbm_s >= l2_s else 'L2 (pr, rhs)'}; a "
+               f"copy of {pair_mb} MB {pair_ms:.4f} ms, "
+               f"{l2_rate / 1e12:.3f} TB/s, {pair_timing}")
     per_iter = (ms - ms1) / (nit - 1)
     print(f"[resident] K10 ({label}): {ms:.4f} ms of device time "
           f"({events_ms:.4f} ms by CUDA events), {per_iter * 1e3:.2f} us per "
@@ -2084,22 +2051,16 @@ def check_k10(solver, nit, smi, form=None) -> dict:
           f"{b['bound_ms']:.4f} ms ({b['bound_by']}: one pass "
           f"{b['bytes'] / 1e6:.2f} MB, {nit} iterations of operations), "
           f"kernel at {100 * b['bound_ms'] / ms:.1f}% of it; {nit} passes "
-          f"through HBM {stream_ms:.4f} ms; the {plan.form} form's ceiling "
+          f"through HBM {stream_ms:.4f} ms; the design's ceiling "
           f"{form_ms:.4f} ms ({form_by}), kernel at {100 * form_ms / ms:.1f}"
           f"% of it; "
           f"K10 {'beats' if ms < k1_ms else 'does not beat'} the {nit} K1 "
           f"launches in device time ({plan}; {smi})")
-    if other is not None:
-        print(f"[resident] K10 ({g.nx}x{g.ny}x{g.nz}, nit {nit}) in the grid "
-              f"form ({other}): bitwise equal to the cluster form, "
-              f"{other_ms:.4f} ms of device time against its {ms:.4f} ms "
-              f"({smi})")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 events_ms=events_ms, k1_launches_ms=k1_ms,
                 k1_launches_events_ms=k1_events_ms, ms_nit1=ms1,
                 per_iteration_ms=per_iter, hbm_passes_ms=stream_ms,
-                form=plan.form, form_bound_ms=form_ms,
-                **({} if other is None else {"grid_form_ms": other_ms}), **b)
+                form_bound_ms=form_ms, **b)
 
 
 def resident_solve(smi) -> dict:
@@ -2160,14 +2121,13 @@ def resident_solve(smi) -> dict:
 
 
 def phase_resident(smi):
-    """K10 at 63 (nit = nchk = 37, the cluster form) and 255 (nit = 152,
-    the grid form), and the seeded solve at 63. Returns (results, counts
-    of the seeded solve)."""
+    """K10 at 63 (nit = nchk = 37) and 255 (nit = 152), and the seeded
+    solve at 63. Returns (results, counts of the seeded solve)."""
     rows = {}
     for nx in RESIDENT_NX:
         s = nt.ChorinSolver(nt.preset_gpu(nx=nx, compat=False,
                                           dtype="float32"), device="cuda")
-        rows[nx] = check_k10(s, RESIDENT_NIT[nx], smi, RESIDENT_FORM[nx])
+        rows[nx] = check_k10(s, RESIDENT_NIT[nx], smi)
         del s
     counts = resident_solve(smi)
     r = dict(rows[RESIDENT_NX[1]])
@@ -2515,9 +2475,6 @@ def main() -> int:
                "paths": [p for p, c in runs.items() if c[kk.name][0] > 0],
                **{key: r[key] for key in keys}, "library_ms": None,
                "sass": sass.get(kk.name)}
-        if kk.name == K10_NAME:
-            row["sass"] = {"grid form": sass.get(K10_NAME),
-                           "cluster form": sass.get(K10C_NAME)}
         # the wide grid's numbers (K8's main ones are s=3 at 511; its s=2
         # numbers at 255 go beside them)
         if "wide" in r:
@@ -2530,8 +2487,8 @@ def main() -> int:
         for extra in ("per_iteration_over_k1", "plan", "at_511_s2",
                       "shards", "whole_grid", "at_63", "events_ms",
                       "k1_launches_ms", "k1_launches_events_ms",
-                      "per_iteration_ms", "four_branches_ms", "form",
-                      "form_bound_ms", "grid_form_ms",
+                      "per_iteration_ms", "four_branches_ms",
+                      "form_bound_ms",
                       "k5_four_branches_ms", "four_launches_ms",
                       "four_branch_bounds_ms"):
             if extra in r:

@@ -7,10 +7,9 @@
 // path (the Poisson kernel reduces only on check iterations, one in nchk).
 //
 // Below them: the asynchronous copy K8 streams its planes with (a 4-byte
-// cp.async, commit and wait) and the two halves of the cluster barrier
-// K10's cluster form splits, each behind a small function so that a host
-// rehearsal of the kernels can map the copy onto a memcpy, the group
-// operations onto no-ops and the barrier onto a host barrier.
+// cp.async, commit and wait), each behind a small function so that a host
+// rehearsal of the kernels can map the copy onto a memcpy and the group
+// operations onto no-ops.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -113,22 +112,6 @@ __device__ inline void cp_async_commit() {
 // Wait until every group of this thread's copies has landed.
 __device__ inline void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
-// ---- the cluster barrier in two halves (Hopper) ----
-
-// This thread's arrival at the cluster barrier, releasing its writes to
-// shared memory (its own block's and the other blocks' of the cluster).
-// Not the .aligned form: the threads of a warp may arrive apart (after
-// loops of different trip counts), and each arrival counts on its own.
-__device__ inline void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
-}
-
-// Wait until every thread of the cluster has arrived, acquiring their
-// writes. Arrivals and waits alternate in each thread.
-__device__ inline void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
 }
 
 }  // namespace ns3d

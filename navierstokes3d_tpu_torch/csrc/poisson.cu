@@ -74,36 +74,23 @@
 // chunk emits). The TPU kernel's idea is residency: pr, dpr and rhs are
 // copied into VMEM once, nit sweeps run there with no per-iteration HBM
 // traffic, and two copies go out. On this card the fast memory is each
-// SM's shared memory (227 KB a block), which blocks of one thread block
-// cluster can read across SMs (distributed shared memory), so K10 has two
-// forms, chosen by size (kernels/poisson.py `resident_plan`):
-//  (a) cluster-resident, where the whole state fits one cluster's shared
-//      memory (pr twice, dpr and rhs: 16 B per cell; 63x38x38 is 1.46 MB
-//      against 16 x 227 KB): one cluster of 8 or 16 blocks of 1024
-//      threads, each owning an x-slab of planes. Device memory is read
-//      once and written once; a block stores its end planes' updates into
-//      its neighbours' ghost planes (distributed shared memory) and reads
-//      only its own shared memory, and a cluster barrier (a hardware
-//      barrier, ~0.7-0.8 us on the H100), split into its arrival and its
-//      wait around the slab's inner planes, separates the iterations. The
-//      check value reduces within the cluster and is written once.
-//  (b) grid-persistent with dpr in shared memory, where (a) does not fit
-//      but dpr fits the co-resident blocks' shared memory (255x153x153:
-//      23.9 MB of dpr, a region of at most 6 x 32 (y, z) columns through
-//      all 255 planes, 195,840 B, in each of 130 blocks of 1024 threads,
-//      one per SM): each block owns its region's columns for all nit
-//      iterations, loads their dpr once and writes it once; pr ping-pongs
-//      through device memory (L2) and rhs streams, so an iteration moves
-//      12 B per cell instead of K1's 20. Each thread streams one column's
-//      run of planes along x, its x neighbours in registers. A grid
-//      barrier (cooperative_groups' this_grid().sync(), ~1.1 us)
-//      separates the iterations.
-// Where neither fits (511x307x307) there is no K10, as the JAX package has
-// none above its VMEM budget. Per cell and iteration both forms compute
-// K1's arithmetic in K1's order, so a launch is bitwise nit K1 launches;
-// the check value is K1's (float bits as unsigned, block max). Bound: (a)
-// the operations and its nit cluster barriers; (b) device-memory bytes,
-// 12 B per cell and iteration.
+// SM's shared memory (227 KB a block), too small for the whole state, so
+// K10 keeps dpr there: a cooperative grid of one block of 1024 threads
+// per SM (kernels/poisson.py `resident_plan`; 255x153x153: 23.9 MB of
+// dpr, a region of at most 6 x 32 (y, z) columns through all 255 planes,
+// 195,840 B, in each of 130 blocks). Each block owns its region's columns
+// for all nit iterations, loads their dpr once and writes it once; pr
+// ping-pongs through device memory (L2) and rhs streams, so an iteration
+// moves 12 B per cell instead of K1's 20. Each thread streams one
+// column's run of planes along x, its x neighbours in registers. A grid
+// barrier (cooperative_groups' this_grid().sync(), ~1.1 us) separates the
+// iterations. Where the largest region's dpr through every plane does not
+// fit a block (511x307x307: 24 x 32 columns through 511 planes, 1.57 MB)
+// there is no K10, as the JAX package has none above its VMEM budget. Per
+// cell and iteration K10 computes K1's arithmetic in K1's order, so a
+// launch is bitwise nit K1 launches; the check value is K1's (float bits
+// as unsigned, block max). Bound: device-memory bytes, 12 B per cell and
+// iteration.
 //
 // K7 replaces the Pallas kernel of navierstokes3d_tpu/kernels/poisson.py:914
 // built with folded=False (`kernel` :872, `compute_slab` :334,
@@ -588,17 +575,15 @@ cudaError_t launch_sweeps(const float* pr, const float* dpr, const float* rhs,
 
 // ---- K10: nit folded iterations in one launch, resident on chip ----
 
-// threads of a block of the grid form (at most one column each) and of
-// the cluster form
+// threads of a block (at most one column each), the z cells of a
+// region's row (one warp), and the planes whose loads a thread issues
+// before their arithmetic
 constexpr int kResidentThreads = 1024;
-constexpr int kClusterThreads = 1024;
-// (b): the z cells of a region's row (one warp), and the planes whose
-// loads a thread issues before their arithmetic
 constexpr int kResidentLanes = 32;
 constexpr int kResidentUnroll = 3;
 
 // Part i of n cut into `parts` parts whose sizes differ by at most one
-// (kernels/poisson.py `balanced_part`), and the part holding index x.
+// (kernels/poisson.py `balanced_part`).
 struct Part {
   int start, size;
 };
@@ -608,218 +593,14 @@ __host__ __device__ inline Part balanced_part(int n, int parts, int i) {
   return {i * q + (i < r ? i : r), q + (i < r ? 1 : 0)};
 }
 
-__device__ inline int part_of(int n, int parts, int x) {
-  const int q = n / parts, r = n % parts;
-  const int big = r * (q + 1);
-  return x < big ? x / (q + 1) : r + (x - big) / q;
-}
-
-// The update of one cell on plane x of the grid: p points at it in the pr
-// buffer read, q in the one written, d at its dpr (updated in place), r at
-// its rhs; pc is *p, xm and xp its x neighbours, cw its column's weights;
-// K1's expressions in K1's order (poisson_iter_kernel). Branch-free: a
-// cell off the interior computes a residual from whatever its neighbours
-// hold (all within the buffer) and discards it, d = 0, and pc + dtau * d
-// is K1's pc + dtau * 0.0f there. Returns the new value.
-__device__ inline float cluster_cell(const float* p, float* q, float* d,
-                                     const float* r, int nz, int x, int nx,
-                                     float pc, float xm, float xp, float4 cw,
-                                     float inv_dx2, float dtau, float decay,
-                                     int zero_grad_x, bool last,
-                                     unsigned int* bits) {
-  const bool in = cw.x == cw.x && x >= 1 && x <= nx - 2;
-  const float lap =
-      lap_folded(xp, xm, p[nz], p[-nz], p[1], p[-1], pc,
-                 zero_grad_x && x == 1, inv_dx2, cw.x, cw.y, cw.z, cw.w);
-  const float resid = lap - *r;
-  const float dv = in ? *d * decay + dtau * resid : 0.0f;
-  *d = dv;
-  if (last && in) {
-    const unsigned int b = __float_as_uint(fabsf(resid));
-    *bits = b > *bits ? b : *bits;
-  }
-  const float qv = pc + dtau * dv;
-  *q = qv;
-  return qv;
-}
-
-// (a): one cluster. Block `rank` owns the nb planes balanced_part(nx,
-// blocks, rank) from x0 on and holds in its dynamic shared memory, in this
-// order: pr twice (the Jacobi ping-pong), each as slab + 2 planes (its own
-// planes between two ghost planes, copies of the neighbouring blocks'
-// boundary planes), dpr and rhs (slab planes each, slab the largest part)
-// and, per (y, z) column, its four weights (NaN in the first where the
-// column is not interior). A block stores the updates of its first and last
-// planes into its neighbours' ghost planes as well as its own (distributed
-// shared memory), so it reads only its own shared memory. An iteration
-// waits at the cluster barrier for the previous iteration's ghost planes,
-// updates the slab's two end planes, arrives, and updates the planes
-// between them while the other blocks arrive: the inner planes hide the
-// barrier's latency.
-__global__ void __launch_bounds__(kClusterThreads, 1)
-    poisson_resident_cluster_kernel(float* __restrict__ pr,
-                                    float* __restrict__ dpr,
-                                    const float* __restrict__ rhs, Weights w,
-                                    float inv_dx2, float dtau, float decay,
-                                    int zero_grad_x, int nx, int ny, int nz,
-                                    int nit, int slab,
-                                    unsigned int* __restrict__ err_bits) {
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
-  extern __shared__ float4 sm4[];
-  float* const sm = reinterpret_cast<float*>(sm4);
-  __shared__ unsigned int block_bits;
-  const int blocks = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int nyz = ny * nz, T = blockDim.x;
-  const Part own = balanced_part(nx, blocks, rank);
-  const int x0 = own.start, nb = own.size, n = nb * nyz;
-  // the two pr buffers at offsets 0 and room
-  const int room = (slab + 2) * nyz;
-  float* const dl = sm + 2 * room;
-  float* const rl = dl + slab * nyz;
-  const float4* const colw = reinterpret_cast<const float4*>(rl + slab * nyz);
-  // the neighbours: the owners of planes x0 - 1 and x0 + nb (none at a
-  // global face); this block's first plane goes to the lo neighbour's
-  // ghost after its own planes, its last to the hi neighbour's first ghost
-  const int lo_rank = nb > 0 && x0 > 0 ? part_of(nx, blocks, x0 - 1) : -1;
-  const int hi_rank = nb > 0 && x0 + nb < nx ? part_of(nx, blocks, x0 + nb)
-                                             : -1;
-  float* const lo_sm = lo_rank >= 0 ? cluster.map_shared_rank(sm, lo_rank)
-                                    : nullptr;
-  float* const hi_sm = hi_rank >= 0 ? cluster.map_shared_rank(sm, hi_rank)
-                                    : nullptr;
-  const int lo_ghost =
-      lo_rank >= 0 ? (balanced_part(nx, blocks, lo_rank).size + 1) * nyz : 0;
-  // every block of the cluster runs before any touches another's memory
-  cluster.sync();
-  const int g0 = x0 * nyz;
-  // the slab in, kLoadBatch cells' loads at a time before their stores
-  constexpr int kLoadBatch = 4;
-  for (int l0 = threadIdx.x; l0 < n; l0 += kLoadBatch * T) {
-    float v[kLoadBatch], d[kLoadBatch], r[kLoadBatch];
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int l = l0 + u * T;
-      if (l < n) {
-        v[u] = pr[g0 + l];
-        d[u] = dpr[g0 + l];
-        r[u] = rhs[g0 + l];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int l = l0 + u * T;
-      if (l >= n) continue;
-      sm[nyz + l] = v[u];
-      dl[l] = d[u];
-      rl[l] = r[u];
-      if (l < nyz && lo_sm != nullptr) lo_sm[lo_ghost + l] = v[u];
-      if (l >= n - nyz && hi_sm != nullptr) hi_sm[l - (n - nyz)] = v[u];
-    }
-  }
-  for (int c = threadIdx.x; c < nyz; c += T) {
-    const int y = c / nz, z = c - y * nz;
-    const bool yz = y >= 1 && y <= ny - 2 && z >= 1 && z <= nz - 2;
-    float4* const cw = reinterpret_cast<float4*>(rl + slab * nyz) + c;
-    *cw = yz ? make_float4(w.yp[y], w.ym[y], w.zp[z], w.zm[z])
-             : make_float4(__int_as_float(0x7fc00000), 0.0f, 0.0f, 0.0f);
-  }
-  ns3d::cluster_arrive();
-  // the inner planes' columns start where the end planes' left off, so
-  // that a thread's share of the two evens out
-  const int inner0 = (threadIdx.x + T - nyz % T) % T;
-  unsigned int bits = 0u;
-  for (int j = 0; j < nit; ++j) {
-    const float* const src = sm + j % 2 * room;
-    float* const dst = sm + (j + 1) % 2 * room;
-    const bool last = j == nit - 1;
-    float* const to_lo =
-        lo_sm != nullptr ? lo_sm + (j + 1) % 2 * room + lo_ghost : nullptr;
-    float* const to_hi =
-        hi_sm != nullptr ? hi_sm + (j + 1) % 2 * room : nullptr;
-    // this block's updates of the previous iteration, then every block's
-    // end planes (the ghosts) and their reads of the ghosts written here
-    __syncthreads();
-    ns3d::cluster_wait();
-    for (int c = threadIdx.x; nb > 0 && c < nyz; c += T) {
-      const float4 cw = colw[c];
-      // plane 0 (buffer plane 1) and plane nb - 1 (buffer plane nb)
-      const int o = nyz + c, oe = nb * nyz + c;
-      const float pc0 = src[o], xm0 = src[o - nyz], xp0 = src[o + nyz];
-      const float pce = src[oe], xme = src[oe - nyz], xpe = src[oe + nyz];
-      const float q0 = cluster_cell(src + o, dst + o, dl + c, rl + c, nz, x0,
-                                    nx, pc0, xm0, xp0, cw, inv_dx2, dtau,
-                                    decay, zero_grad_x, last, &bits);
-      if (to_lo != nullptr) to_lo[c] = q0;
-      if (nb > 1) {
-        const float qe = cluster_cell(
-            src + oe, dst + oe, dl + oe - nyz, rl + oe - nyz, nz,
-            x0 + nb - 1, nx, pce, xme, xpe, cw, inv_dx2, dtau, decay,
-            zero_grad_x, last, &bits);
-        if (to_hi != nullptr) to_hi[c] = qe;
-      } else if (to_hi != nullptr) {
-        to_hi[c] = q0;
-      }
-    }
-    ns3d::cluster_arrive();
-    for (int c = inner0; nb > 2 && c < nyz; c += T) {
-      const float4 cw = colw[c];
-      // plane 1 (buffer plane 2) on, one plane a step
-      const float* p = src + 2 * nyz + c;
-      float* q = dst + 2 * nyz + c;
-      float* d = dl + nyz + c;
-      const float* r = rl + nyz + c;
-      float pm = p[-nyz], pc = p[0];
-      for (int x = x0 + 1; x < x0 + nb - 1; ++x) {
-        const float pp = p[nyz];
-        cluster_cell(p, q, d, r, nz, x, nx, pc, pm, pp, cw, inv_dx2, dtau,
-                     decay, zero_grad_x, last, &bits);
-        pm = pc;
-        pc = pp;
-        p += nyz;
-        q += nyz;
-        d += nyz;
-        r += nyz;
-      }
-    }
-  }
-  // this block's last updates, and every block's last stores (into this
-  // block's ghosts too) done
-  __syncthreads();
-  ns3d::cluster_wait();
-  const int res = nit % 2 * room + nyz;
-  for (int l = threadIdx.x; l < n; l += T) {
-    pr[g0 + l] = sm[res + l];
-    dpr[g0 + l] = dl[l];
-  }
-  bits = ns3d::block_max<kClusterThreads>(bits);
-  if (threadIdx.x == 0) block_bits = bits;
-  cluster.sync();
-  // the first warp of rank 0 reads every block's word at once
-  if (rank == 0 && threadIdx.x < 32) {
-    unsigned int b = threadIdx.x < blocks
-                         ? *cluster.map_shared_rank(&block_bits, threadIdx.x)
-                         : 0u;
-    b = ns3d::warp_max(b);
-    if (threadIdx.x == 0) *err_bits = b;
-  }
-  // no block leaves while rank 0 reads its word
-  cluster.sync();
-}
-
-// (b): one block of kResidentThreads threads per SM, x-streamed columns.
+// One block of kResidentThreads threads per SM, x-streamed columns.
 //
-// What it replaces (the earlier grid form): block b owned K1's 32 x 8
-// (z, y) tiles balanced_part(tiles, blocks, b) in K1's order, its threads
-// walking them four tiles at a time. Per cell and iteration that form
-// issued seven pr loads, one rhs load and four weight loads, stepped a
-// tile cursor, and ran 8.6% of its slots on padding (153 = 4 x 32 + 25
-// lanes, 19 x 8 + 1 rows). It ran 40-42 us an iteration at 255x153x153,
-// ~52% of the design's ceiling. Cut apart on the card (PERF.md), its
-// per-cell index work, weight loads and padding took ~7.7 us of that, and
-// the x neighbours, 100 tiles away in the walk and so read from L2 again,
-// only ~1.4 us.
+// Why columns and not K1's 32 x 8 (z, y) tiles: a block walking tiles
+// issues seven pr loads, one rhs load and four weight loads per cell and
+// iteration, steps a tile cursor and runs 8.6% of its slots on padding at
+// 153 = 4 x 32 + 25 lanes; cut apart on the card (PERF.md), the index
+// work, weight loads and padding took ~7.7 us of its ~40 us an iteration
+// at 255x153x153, the x neighbours' L2 re-reads only ~1.4 us.
 //
 // Bound: device-memory bytes, 12 B per cell and iteration (pr in, pr out,
 // rhs in; dpr stays on chip): 21.4 us at 255x153x153 and 3.35 TB/s, and
@@ -1284,98 +1065,60 @@ extern "C" int ns3d_poisson_iter_ext_bc_dist(
 
 // K10: nit iterations in one launch, the result in pr (the caller's
 // tensor) and dpr, the check value of the state entering the last
-// iteration in err_bits (zeroed by the caller). form 1: (a), one cluster of
-// `blocks` blocks (8, or 16 where the card admits it; cut_y and cut_z
-// unused); form 2: (b), a cooperative grid of blocks = cut_y x cut_z
-// blocks (at most one per SM), block b owning the (y, z) columns of y part
-// b / cut_z and z part b % cut_z, scratch the second pr buffer. smem: the
-// dynamic shared memory per block the plan asked for, which must hold the
-// form's state. A refused launch returns its error
-// (cudaErrorNotSupported where the device has no cooperative launch,
-// cudaErrorCooperativeLaunchTooLarge where the blocks cannot all be
-// resident); nothing falls back to the other form or to K1 launches.
+// iteration in err_bits (zeroed by the caller): a cooperative grid of
+// blocks = cut_y x cut_z blocks (at most one per SM), block b owning the
+// (y, z) columns of y part b / cut_z and z part b % cut_z, scratch the
+// second pr buffer. smem: the dynamic shared memory per block the plan
+// asked for, which must hold the largest region's dpr. A refused launch
+// returns its error (cudaErrorNotSupported where the device has no
+// cooperative launch, cudaErrorCooperativeLaunchTooLarge where the blocks
+// cannot all be resident); nothing falls back to K1 launches.
 extern "C" int ns3d_poisson_iter_resident(
     float* pr, float* scratch, float* dpr, const float* rhs,
     const float* wyp, const float* wym, const float* wzp, const float* wzm,
     float inv_dx2, float dtau, float decay, int zero_grad_x, int nx, int ny,
-    int nz, int nit, int form, int blocks, int cut_y, int cut_z, int smem,
+    int nz, int nit, int blocks, int cut_y, int cut_z, int smem,
     unsigned int* err_bits, cudaStream_t stream) {
   if (nit < 1 || blocks < 1 || nx < 1 || ny < 1 || nz < 1 ||
       static_cast<long>(nx) * ny * nz >= (1L << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Weights w{wyp, wym, wzp, wzm};
-  const long nyz = static_cast<long>(ny) * nz;
-  cudaError_t e = cudaSuccess;
-  if (form == 1) {
-    const int slab = (nx + blocks - 1) / blocks;
-    if (blocks > 16 || 16L * (slab + 2) * nyz > smem)
-      return static_cast<int>(cudaErrorInvalidValue);
-    e = cudaFuncSetAttribute(poisson_resident_cluster_kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(poisson_resident_cluster_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (e != cudaSuccess) {
-      cudaGetLastError();
-      return static_cast<int>(e);
-    }
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = blocks;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(blocks);
-    cfg.blockDim = dim3(kClusterThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(&cfg, poisson_resident_cluster_kernel, pr, dpr,
-                           rhs, w, inv_dx2, dtau, decay, zero_grad_x, nx, ny,
-                           nz, nit, slab, err_bits);
-  } else if (form == 2) {
-    // z cut into rows of kResidentLanes, y into cut_y parts; the largest
-    // region's column slots, at most one a thread, their dpr in smem
-    if (cut_y < 1 || cut_y > ny ||
-        cut_z != (nz + kResidentLanes - 1) / kResidentLanes ||
-        static_cast<long>(cut_y) * cut_z != blocks)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const long cols =
-        static_cast<long>((ny + cut_y - 1) / cut_y) * kResidentLanes;
-    if (cols > kResidentThreads || 4L * cols * nx > smem)
-      return static_cast<int>(cudaErrorInvalidValue);
-    int dev = 0, coop = 0, sms = 0, per_sm = 0;
-    e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(poisson_resident_grid_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, poisson_resident_grid_kernel, kResidentThreads, smem);
-    if (e != cudaSuccess) {
-      cudaGetLastError();
-      return static_cast<int>(e);
-    }
-    if (!coop) return static_cast<int>(cudaErrorNotSupported);
-    if (static_cast<long>(per_sm) * sms < blocks)
-      return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-    void* args[] = {&pr, &scratch, &dpr, &rhs, const_cast<Weights*>(&w),
-                    &inv_dx2, &dtau, &decay, &zero_grad_x, &nx, &ny, &nz,
-                    &nit, &cut_y, &cut_z, &err_bits};
-    e = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(poisson_resident_grid_kernel),
-        dim3(blocks), dim3(kResidentThreads), args, smem, stream);
-  } else {
+  // z cut into rows of kResidentLanes, y into cut_y parts; the largest
+  // region's column slots, at most one a thread, their dpr in smem
+  if (cut_y < 1 || cut_y > ny ||
+      cut_z != (nz + kResidentLanes - 1) / kResidentLanes ||
+      static_cast<long>(cut_y) * cut_z != blocks)
     return static_cast<int>(cudaErrorInvalidValue);
+  const long cols =
+      static_cast<long>((ny + cut_y - 1) / cut_y) * kResidentLanes;
+  if (cols > kResidentThreads || 4L * cols * nx > smem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Weights w{wyp, wym, wzp, wzm};
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(poisson_resident_grid_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, poisson_resident_grid_kernel, kResidentThreads, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(e);
   }
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  if (static_cast<long>(per_sm) * sms < blocks)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  void* args[] = {&pr, &scratch, &dpr, &rhs, const_cast<Weights*>(&w),
+                  &inv_dx2, &dtau, &decay, &zero_grad_x, &nx, &ny, &nz,
+                  &nit, &cut_y, &cut_z, &err_bits};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(poisson_resident_grid_kernel),
+      dim3(blocks), dim3(kResidentThreads), args, smem, stream);
   // a refused call also leaves its error as the runtime's last one, which
   // the next launch of any kernel would report: take it back
   if (e != cudaSuccess) {
@@ -1383,48 +1126,4 @@ extern "C" int ns3d_poisson_iter_resident(
     return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// The largest cluster of K10's form (a), 16 or 8 blocks, that the card
-// admits (cudaOccupancyMaxActiveClusters at least 1) with `smem` bytes of
-// dynamic shared memory per block, into *out (0 where neither is).
-extern "C" int ns3d_poisson_resident_max_cluster(int smem, int* out) {
-  *out = 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      poisson_resident_cluster_kernel,
-      cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(poisson_resident_cluster_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return static_cast<int>(e);
-  }
-  const int sizes[] = {16, 8};
-  for (int size : sizes) {
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = size;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(size);
-    cfg.blockDim = dim3(kClusterThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters,
-                                       poisson_resident_cluster_kernel, &cfg);
-    if (e != cudaSuccess) {
-      cudaGetLastError();
-      return static_cast<int>(e);
-    }
-    if (clusters >= 1) {
-      *out = size;
-      break;
-    }
-  }
-  return static_cast<int>(cudaSuccess);
 }

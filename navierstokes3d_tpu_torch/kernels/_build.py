@@ -55,14 +55,10 @@ SIGNATURES = {
     "ns3d_poisson_iter_sweeps": (*(_P,) * 9, _F, _F, _F, *(_I,) * 10, _P,
                                  _P),
     # pr, scratch, dpr, rhs, wyp, wym, wzp, wzm, inv_dx2, dtau, decay,
-    # zero_grad_x, nx, ny, nz, nit, then the plan: form (1 cluster, 2
-    # grid), blocks, the grid form's cut (y parts, z parts), smem bytes;
-    # err_bits, stream
-    "ns3d_poisson_iter_resident": (*(_P,) * 8, _F, _F, _F, *(_I,) * 10, _P,
+    # zero_grad_x, nx, ny, nz, nit, then the plan: blocks, the cut (y
+    # parts, z parts), smem bytes; err_bits, stream
+    "ns3d_poisson_iter_resident": (*(_P,) * 8, _F, _F, _F, *(_I,) * 9, _P,
                                    _P),
-    # dynamic shared memory per block, out: the largest cluster of K10's
-    # cluster form the card admits
-    "ns3d_poisson_resident_max_cluster": (_I, _P),
     # pr, dpr, rhs, pr_out, dpr_out, xlo (nullable), xhi (nullable),
     # inv_dx2, inv_dy2, inv_dz2, dtau, decay, z_lo_add, z_hi_add,
     # zero_grad_x, nx, ny, nz, then the plan: tiles_y, tiles_z; stream

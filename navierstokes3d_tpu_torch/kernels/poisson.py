@@ -40,16 +40,15 @@ emit, so the convergence loop takes the same decisions.
 K10 (:1151, `kernelR` :1116, `make_resident` :1066) advances nit folded
 iterations in one launch with pr and dpr updated in place, bitwise equal
 to nit K1 launches, and emits the check value entering the last one. It
-keeps its state on chip in one of two forms that `resident_plan` picks by
-size: the whole state in one thread block cluster's shared memory, or dpr
-in the shared memory of a grid of one block per SM; a grid that fits
-neither has no K10 (`make_resident` returns None, as the JAX package's
-does above its VMEM budget). The solver's folded loops run one K10 launch
-per check interval wherever it has a form and the sweep plan is off
-(models/chorin.py `_folded_loop`); `make_resident` and
-ptloop.pt_loop_fused's `seed0` compose it with a K1 loop as the JAX
-package does. Both versions count the iterations they advanced
-(`.iterations`) beside their launches or calls.
+keeps dpr on chip, in the shared memory of a grid of one block per SM
+(`resident_plan`), and moves 12 B a cell and iteration where K1 moves
+20; a grid whose dpr does not fit has no K10 (`make_resident` returns
+None, as the JAX package's does above its VMEM budget). The solver's
+folded loops run one K10 launch per check interval wherever it has a
+plan and the sweep plan is off (models/chorin.py `_folded_loop`);
+`make_resident` and ptloop.pt_loop_fused's `seed0` compose it with a K1
+loop as the JAX package does. Both versions count the iterations they
+advanced (`.iterations`) beside their launches or calls.
 
 K7 (:914 with folded=False, `compute_slab` :334, `apply_bc_rows` :257) is
 the reference's own loop body: the unfolded iteration on every interior
@@ -437,7 +436,7 @@ def poisson_iter_resident_plain(pr, dpr, rhs, op: PoissonOperator, nit: int,
     poisson_iter_resident_plain.calls += 1
     poisson_iter_resident_plain.iterations += int(nit)
     spare = torch.empty_like(pr) if scratch is None else scratch
-    # as the grid form: iteration j reads src and writes dst, then they
+    # as the kernel: iteration j reads src and writes dst, then they
     # swap; for an odd nit the input is first copied into the scratch, so
     # that the last iteration writes the caller's pr
     src, dst = pr, spare
@@ -455,62 +454,46 @@ poisson_iter_resident_plain.iterations = 0
 
 
 # K10's launch geometry (csrc/poisson.cu, the K10 section): blocks of
-# RESIDENT_THREADS threads; form (a) holds pr twice (with a ghost plane at
-# each end of a block's slab), dpr, rhs and the column weights in one
-# cluster of RESIDENT_CLUSTERS[i] blocks (`cluster_smem`), form (b) the dpr
-# of a region of (y, z) columns through all planes, rows of RESIDENT_LANES
-# z cells (a warp's width), at most one column a thread, one block per SM
-# (`grid_smem`). A block's dynamic shared memory
-# stays within SMEM_LIMIT less RESIDENT_STATIC_SMEM (its static reduction
-# words) and is at least RESIDENT_SOLO_SMEM, more than half of an SM's 228
-# KB, so that no SM holds two blocks. The H100's numbers decide for the
-# CPU's plain version.
+# RESIDENT_THREADS threads, one per SM, each holding the dpr of a region
+# of (y, z) columns through all planes, rows of RESIDENT_LANES z cells (a
+# warp's width), at most one column a thread (`grid_smem`). A block's
+# dynamic shared memory stays within SMEM_LIMIT less RESIDENT_STATIC_SMEM
+# (its static reduction words) and is at least RESIDENT_SOLO_SMEM, more
+# than half of an SM's 228 KB, so that no SM holds two blocks. The H100's
+# numbers decide for the CPU's plain version.
 RESIDENT_THREADS = 1024
 RESIDENT_LANES = 32
-RESIDENT_CLUSTERS = (16, 8)
 RESIDENT_STATIC_SMEM = 256
 RESIDENT_SOLO_SMEM = 118784
 H100_SMS = 132
-H100_MAX_CLUSTER = 16
 
 
 @dataclasses.dataclass(frozen=True)
 class ResidentPlan:
-    """One K10 launch: `form` "cluster" (the whole state in one cluster of
-    `blocks` blocks, block b owning the x planes balanced_part(nx, blocks,
-    b), at most `per_block` of them) or "grid" (dpr in the shared memory
-    of `blocks` = cut[0] x cut[1] blocks, at most one per SM, block b
-    owning the (y, z) columns of y part balanced_part(ny, cut[0], b //
-    cut[1]) and z row b % cut[1] (RESIDENT_LANES cells from
-    RESIDENT_LANES * (b % cut[1])) through all planes, at most `per_block`
-    column slots, RESIDENT_LANES a y row; `grid_cut`); `smem_bytes` of
-    dynamic shared memory per block."""
-    form: str
+    """One K10 launch: dpr in the shared memory of `blocks` = cut[0] x
+    cut[1] blocks, at most one per SM, block b owning the (y, z) columns
+    of y part balanced_part(ny, cut[0], b // cut[1]) and z row b % cut[1]
+    (RESIDENT_LANES cells from RESIDENT_LANES * (b % cut[1])) through all
+    planes, at most `per_block` column slots, RESIDENT_LANES a y row
+    (`grid_cut`); `smem_bytes` of dynamic shared memory per block."""
     blocks: int
     per_block: int
     smem_bytes: int
-    cut: Tuple[int, int] = (1, 1)
-
-
-def cluster_smem(planes: int, ny: int, nz: int) -> int:
-    """Bytes of shared memory a block of K10's cluster form needs for a
-    slab of `planes` planes: pr twice with two ghost planes each, dpr and
-    rhs, 4 B a cell, and four weights per (y, z) column."""
-    return 16 * (planes + 2) * ny * nz
+    cut: Tuple[int, int]
 
 
 def grid_smem(columns: int, nx: int) -> int:
-    """Bytes of shared memory a block of K10's grid form needs for a region
-    of `columns` (y, z) column slots through `nx` planes: their dpr, 4 B a
+    """Bytes of shared memory a block of K10 needs for a region of
+    `columns` (y, z) column slots through `nx` planes: their dpr, 4 B a
     cell."""
     return 4 * columns * nx
 
 
 def grid_cut(ny: int, nz: int, sms: int) -> Tuple[int, int]:
-    """K10's grid-form cut of the (y, z) column plane, one region a block:
-    z into cut_z = ceil(nz / RESIDENT_LANES) rows of RESIDENT_LANES cells
-    (a warp's width; the last the remainder), y into cut_y balanced parts,
-    as many as leave a block per SM (cut_y = sms // cut_z, at most ny; 0
+    """K10's cut of the (y, z) column plane, one region a block: z into
+    cut_z = ceil(nz / RESIDENT_LANES) rows of RESIDENT_LANES cells (a
+    warp's width; the last the remainder), y into cut_y balanced parts, as
+    many as leave a block per SM (cut_y = sms // cut_z, at most ny; 0
     where the z rows alone outnumber the SMs). At 153x153 on 132 SMs: 26 x
     5, regions of 5-6 y by 32 z (25 in the last z row), at most 192
     column slots."""
@@ -521,58 +504,35 @@ def grid_cut(ny: int, nz: int, sms: int) -> Tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=64)
-def resident_plan(shape: Tuple[int, int, int], sms: int,
-                  max_cluster: int) -> Optional[ResidentPlan]:
-    """K10's form for a grid of `shape` on a card of `sms` SMs that admits
-    clusters of up to `max_cluster` blocks (16, 8 or 0): the cluster form
-    where the state of the largest slab, ceil(nx / blocks) planes, fits a
-    block (`cluster_smem`; the larger cluster that the card admits, so
-    that more SMs share the work); else the grid form where the largest
-    region of `grid_cut` holds at most RESIDENT_THREADS column slots and
-    their dpr through nx planes fits a block (`grid_smem`); else None. At
-    63x38x38 on 132 SMs with clusters of 16: 16 blocks of at most 4 planes
-    (139 KB of state); at 255x153x153: 26 x 5 = 130 blocks of at most 6 x
-    32 = 192 slots (195,840 B of dpr); at 511x307x307 neither (13 x 10,
-    24 x 32 slots through 511 planes, 1.57 MB a block)."""
+def resident_plan(shape: Tuple[int, int, int],
+                  sms: int) -> Optional[ResidentPlan]:
+    """K10's plan for a grid of `shape` on a card of `sms` SMs: the cut of
+    `grid_cut`, where its largest region holds at most RESIDENT_THREADS
+    column slots and their dpr through nx planes fits a block
+    (`grid_smem`); else None. At 63x38x38 on 132 SMs: 38 x 2 = 76 blocks
+    of 32 slots; at 255x153x153: 26 x 5 = 130 blocks of at most 6 x 32 =
+    192 slots (195,840 B of dpr); at 511x307x307 none (13 x 10, 24 x 32
+    slots through 511 planes, 1.57 MB a block)."""
     nx, ny, nz = shape
     if min(shape) < 1 or sms < 1 or nx * ny * nz >= 2 ** 31:
         raise ValueError(f"resident_plan: shape {shape}, sms {sms}")
-    room = SMEM_LIMIT - RESIDENT_STATIC_SMEM
-    for blocks in RESIDENT_CLUSTERS:
-        planes = -(-nx // blocks)
-        need = cluster_smem(planes, ny, nz)
-        if blocks <= max_cluster and need <= room:
-            return ResidentPlan("cluster", blocks, planes,
-                                max(need, RESIDENT_SOLO_SMEM))
     gy, gz = grid_cut(ny, nz, sms)
     if gy >= 1:
         columns = -(-ny // gy) * RESIDENT_LANES
         need = grid_smem(columns, nx)
-        if columns <= RESIDENT_THREADS and need <= room:
-            return ResidentPlan("grid", gy * gz, columns,
+        if (columns <= RESIDENT_THREADS
+                and need <= SMEM_LIMIT - RESIDENT_STATIC_SMEM):
+            return ResidentPlan(gy * gz, columns,
                                 max(need, RESIDENT_SOLO_SMEM), (gy, gz))
     return None
 
 
-def resident_caps(device) -> Tuple[int, int]:
-    """(SMs, the largest cluster of K10's cluster form the card admits) of
-    a CUDA device; the H100's for the CPU."""
+def resident_sms(device) -> int:
+    """The SMs of a CUDA device, which K10's plan cuts the grid for; the
+    H100's for the CPU (whose plain version answers as an H100 would)."""
     device = torch.device(device)
-    if device.type != "cuda":
-        return H100_SMS, H100_MAX_CLUSTER
-    return _build.sm_count(device), _max_cluster(
-        device.index if device.index is not None
-        else torch.cuda.current_device())
-
-
-@functools.lru_cache(maxsize=None)
-def _max_cluster(index: int) -> int:
-    out = ctypes.c_int(0)
-    with torch.cuda.device(index):
-        rc = _build.load().ns3d_poisson_resident_max_cluster(
-            RESIDENT_SOLO_SMEM, ctypes.byref(out))
-    _build.check(rc, "poisson_resident_max_cluster")
-    return out.value
+    return (_build.sm_count(device) if device.type == "cuda"
+            else H100_SMS)
 
 
 def poisson_iter_resident(pr, dpr, rhs, op: PoissonOperator, nit: int,
@@ -580,19 +540,19 @@ def poisson_iter_resident(pr, dpr, rhs, op: PoissonOperator, nit: int,
     """nit folded PT iterations in one launch resident on chip, bitwise
     equal to nit poisson_iter calls: pr and dpr are updated in place (the
     result lands in the caller's pr; `scratch`, a tensor of pr's shape
-    that aliases no operand, takes the other half of the grid form's
+    that aliases no operand, takes the other half of the kernel's
     ping-pong and is allocated when None). Returns the max |resid| over
     interior cells of the state entering the LAST iteration (a 0-dim
     tensor on the device): the check value the flagged K1 launch closing
-    a chunk emits. CUDA tensors launch the kernel in `resident_plan`'s
-    form, and raise where the grid has none or the card refuses the
+    a chunk emits. CUDA tensors launch the kernel under `resident_plan`'s
+    plan, and raise where the grid has none or the card refuses the
     launch; CPU tensors run the plain version."""
     _check_nit(nit, "poisson_iter_resident")
     if not _build.on_cuda(pr, "poisson_iter_resident"):
         return poisson_iter_resident_plain(pr, dpr, rhs, op, nit, scratch)
-    plan = resident_plan(tuple(pr.shape), *resident_caps(pr.device))
+    plan = resident_plan(tuple(pr.shape), resident_sms(pr.device))
     if plan is None:
-        raise ValueError(f"poisson_iter_resident: no resident form for a "
+        raise ValueError(f"poisson_iter_resident: no resident plan for a "
                          f"grid of {tuple(pr.shape)}")
     return launch_resident(pr, dpr, rhs, op, nit, plan, scratch)
 
@@ -621,9 +581,9 @@ def launch_resident(pr, dpr, rhs, op: PoissonOperator, nit: int,
         op.wzm.data_ptr(), ctypes.c_float(op.inv_dx2),
         ctypes.c_float(op.dtau), ctypes.c_float(op.decay),
         int(op.zero_grad_x), nx, ny, nz, int(nit),
-        {"cluster": 1, "grid": 2}[plan.form], plan.blocks, *plan.cut,
-        plan.smem_bytes, err.data_ptr(), _build.stream_of(pr))
-    _build.check(rc, f"poisson_iter_resident ({plan.form} form)")
+        plan.blocks, *plan.cut, plan.smem_bytes, err.data_ptr(),
+        _build.stream_of(pr))
+    _build.check(rc, "poisson_iter_resident")
     poisson_iter_resident.launches += 1
     poisson_iter_resident.iterations += int(nit)
     return err.view(torch.float32)[0]
@@ -641,13 +601,13 @@ def make_resident(nit: int, shape: Optional[Tuple[int, int, int]] = None,
     the result in the caller's pr and dpr (K10's aliasing) and err the
     check value of the state entering the last iteration; the scratch
     half of the ping-pong is kept between calls of one shape. Given the
-    grid's `shape`, it returns None where K10 has no form for that grid
+    grid's `shape`, it returns None where K10 has no plan for that grid
     on `device` (`resident_plan`; the CPU's plain version answers as an
     H100 would), as the JAX package's returns None above its VMEM
     budget."""
     _check_nit(nit, "make_resident")
     if shape is not None and resident_plan(
-            tuple(shape), *resident_caps(device)) is None:
+            tuple(shape), resident_sms(device)) is None:
         return None
     scratch = {}
 

@@ -22,7 +22,7 @@ and NavierStokes3D_multi_gpu.jl:383-444):
      build lane-tiles the iteration: 511x307x307) the folded loops run
      bodies of two K8 launches of s = 3 (or 2) iterations each instead
      of one K1, with the same iterations and check values
-     (`sweep_depths`, `_sweep_plan`); elsewhere, where K10 has a form
+     (`sweep_depths`, `_sweep_plan`); elsewhere, where K10 has a plan
      for the grid (`_resident_plan`: 255x153x153, 63x38x38), one K10
      launch per check interval, again with the same iterations and
      check values
@@ -248,13 +248,13 @@ class ChorinSolver:
         # the sweep depths the folded loops may run K8 at; () keeps them on
         # 1-iteration K1 bodies (the JAX default, see sweep_depths)
         self._sweep_depths = sweep_depths(grid.ny, grid.nz)
-        # K10's form for this grid on this device (kernels/poisson.py
+        # K10's plan for this grid on this device (kernels/poisson.py
         # resident_plan): where the sweep plan is off, the folded loops run
         # one K10 launch per check interval; None keeps the K1 bodies. The
         # plain solver (float64) keeps its K1 bodies
         self._resident_plan = (
             None if self.plain else
-            kp.resident_plan(grid.shape_c, *kp.resident_caps(self.device)))
+            kp.resident_plan(grid.shape_c, kp.resident_sms(self.device)))
         if cfg.compat:
             # the unfused chain of the JAX package's _step_impl, torch ops
             self._predict = k_step.predict_ops
@@ -719,58 +719,58 @@ class ChorinSolver:
                      rem: int, eps, stall, err0=None):
         """pt_loop_fused over the folded iteration from global iteration
         it0 (1 after the exact first iteration, 0 for a correction phase)
-        with a budget of n_checked + rem iterations, on the carry (p_in,
-        p_out, d_in, d_out). Where the sweep plan is on (the JAX package's
-        :1199-1233 and :1321-1345) the loop runs bodies of two K8(s)
-        launches with the check flag on the second; from it0 = 1 it first
-        runs to global iteration 2s (one K1, then s-1 K8(2) launches), and
-        the trailing `rem` iterations run on K1 after the loop. Otherwise
-        it runs 1-iteration K1 bodies over the whole budget. Both run the
-        same iterations with the same check values.
-
-        Where the sweep plan is off and K10 has a form for the grid
-        (`_resident_plan`), each body is one K10 launch from global
-        iteration it to the next check, nit = nchk - it % nchk iterations,
-        with pr and dpr updated in place (carry[1] is its scratch) and its
-        check value the one the flagged K1 launch would emit; the trailing
-        `rem` iterations run on K1 after the loop, as under the sweep
-        plan."""
+        with a budget of n_checked iterations, on the carry (p_in, p_out,
+        d_in, d_out); the trailing `rem` iterations run on K1 after the
+        loop where it ends on its budget unconverged and not stalled. The
+        body is chosen once; every body runs the same iterations with the
+        same check values:
+          * where the sweep plan is on (the JAX package's :1199-1233 and
+            :1321-1345), two K8(s) launches with the check flag on the
+            second; from it0 = 1 the loop first runs to global iteration
+            2s (one K1, then s-1 K8(2) launches);
+          * else, where K10 has a plan for the grid (`_resident_plan`),
+            one K10 launch from global iteration it to the next check,
+            nit = nchk - it % nchk iterations, with pr and dpr updated in
+            place (carry[1] is its scratch) and its check value the one
+            the flagged K1 launch would emit;
+          * else one K1 iteration."""
         nchk = self.grid.nchk
         nchunks = n_checked // nchk
+        if rem and it0 > n_checked:
+            # the tail starts where the budget ends, so the budget must
+            # reach it0: make_grid's niter is at least max(ny, nz) > nchk
+            # = ny - 1 for niter_scale >= 1 (and 0, with no tail, for 0)
+            raise ValueError(f"_folded_loop: a budget of {n_checked} "
+                             f"iterations from it0 {it0} with a tail of "
+                             f"{rem}")
         chain = self._kernel_chain(rhs, err_scale)
         s = self._sweep_plan(n_checked)
+        if s is not None:
+            if carry[3] is None:
+                carry = (*carry[:3], torch.empty_like(carry[2]))
+            if it0 == 1:
+                carry = chain(carry, 0)[0]   # global iteration 2, unchecked
+                for _ in range(s - 1):
+                    carry = self._sweep(carry, rhs, 2, False)[0]
+                it0 = 2 * s
+
+            def body(c, it):
+                c = self._sweep(c, rhs, s, False)[0]
+                c, ec = self._sweep(c, rhs, s, (it + 2 * s) % nchk == 0)
+                return c, None if ec is None else ec * err_scale, 2 * s
+        elif self._resident_plan is not None:
+            def body(c, it):
+                nit = nchk - it % nchk
+                ec = self._poisson_iter_resident(c[0], c[2], rhs, self._op,
+                                                 nit, c[1])
+                return c, ec * err_scale, nit
+        else:
+            body = chain
 
         def tail(c):
             for _ in range(rem):
                 c = chain(c, 0)[0]       # it=0: no check flag
             return c
-
-        if s is None and self._resident_plan is not None and nchunks > 0:
-            def chunk(c, it):
-                nit = nchk - it % nchk
-                ec = self._poisson_iter_resident(c[0], c[2], rhs, self._op,
-                                                 nit, c[1])
-                return c, ec * err_scale, nit
-
-            return pt_loop_fused(chunk, carry, it0, n_checked, nchk, nchunks,
-                                 eps, self.dtype, stall=stall, err0=err0,
-                                 rem=rem, tail_fn=tail)
-        if s is None:
-            return pt_loop_fused(chain, carry, it0, n_checked + rem, nchk,
-                                 nchunks, eps, self.dtype, stall=stall,
-                                 err0=err0)
-        if carry[3] is None:
-            carry = (*carry[:3], torch.empty_like(carry[2]))
-        if it0 == 1:
-            carry = chain(carry, 0)[0]   # global iteration 2, unchecked
-            for _ in range(s - 1):
-                carry = self._sweep(carry, rhs, 2, False)[0]
-            it0 = 2 * s
-
-        def body(c, it):
-            c = self._sweep(c, rhs, s, False)[0]
-            c, ec = self._sweep(c, rhs, s, (it + 2 * s) % nchk == 0)
-            return c, None if ec is None else ec * err_scale, 2 * s
 
         return pt_loop_fused(body, carry, it0, n_checked, nchk, nchunks, eps,
                              self.dtype, stall=stall, err0=err0, rem=rem,
@@ -778,8 +778,9 @@ class ChorinSolver:
 
     def _poisson_solve_defect(self, pr, dprdtau, divv):
         """The folded + defect branch of the JAX package's
-        `_poisson_solve_pallas` (chorin.py:1127-1462), on K1 bodies or,
-        where the sweep plan is on, K8 bodies."""
+        `_poisson_solve_pallas` (chorin.py:1127-1462), both phases on
+        `_folded_loop`'s bodies (K10 where it has a plan for the grid, K8
+        where the sweep plan is on, else K1)."""
         grid, phys, num = self.grid, self.cfg.physics, self.cfg.numerics
         nchunks, rem = self._budget()
         nchk, eps_it = grid.nchk, num.eps_it
@@ -849,8 +850,8 @@ class ChorinSolver:
 
     def _poisson_solve_extended(self, pr, dprdtau, divv):
         """The folded + extended hybrid branch of the JAX package's
-        `_poisson_solve_pallas` (chorin.py:1127-1298 phase 1, on K1 or,
-        where the sweep plan is on, K8 bodies; :1464-1607 phase 2, K2)."""
+        `_poisson_solve_pallas` (chorin.py:1127-1298 phase 1, on
+        `_folded_loop`'s K10, K8 or K1 bodies; :1464-1607 phase 2, K2)."""
         num, nchk = self.cfg.numerics, self.grid.nchk
         eps_it = num.eps_it
         nchunks, rem = self._budget()

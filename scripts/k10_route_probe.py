@@ -79,7 +79,7 @@ def run_case(preset: str, nx: int, steps: int, pairs: int) -> dict:
           f"K10 plan {on._resident_plan}, sweep depths {on._sweep_depths}",
           flush=True)
     if on._resident_plan is None:
-        raise SystemExit(f"[{label}] K10 has no form here: nothing to time")
+        raise SystemExit(f"[{label}] K10 has no plan here: nothing to time")
     for s in (on, off):
         s.step(s.init_state())
     times = {"on": [], "off": []}

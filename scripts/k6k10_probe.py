@@ -25,15 +25,12 @@ resident_inputs, at 63x38x38 with nit 37 and at 255x153x153 with nit 152:
   6. at 255, where the checkout's K10 moves dpr through device memory
      every iteration, a copy of csrc/poisson.cu whose K10 neither reads nor
      writes dpr (timed only): what holding dpr on chip can buy;
-  7. where the checkout's K10 has the two resident forms: at 63 its
-     cluster form forced onto clusters of 8 and of 16 blocks and its grid
-     form forced (the plan of a card without clusters); at 255, where the
-     grid form streams columns along x, that form under other cuts of y
-     (GRID_FORCED_Y), and copies of csrc/poisson.cu whose grid form
-     issues the loads of fewer and of more cells (the tile-walking form)
-     or planes (the x-streamed form) per thread before their arithmetic
-     than the checkout's kResidentUnroll; each held bitwise against the
-     checkout's K10 first;
+  7. at 255, where the checkout's grid form streams columns along x,
+     that form under other cuts of y (GRID_FORCED_Y), and copies of
+     csrc/poisson.cu whose grid form issues the loads of fewer and of more
+     cells (the tile-walking form) or planes (the x-streamed form) per
+     thread before their arithmetic than the checkout's kResidentUnroll;
+     each held bitwise against the checkout's K10 first;
   8. at 255, where the checkout's grid form walks K1's tiles (the
      earlier form), copies of csrc/poisson.cu whose grid form (timed
      only: the results are wrong by design) takes a cell's x neighbours
@@ -61,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import json
@@ -80,8 +78,8 @@ ap.add_argument("--sass", action="store_true")
 ap.add_argument("--only", choices=("k6", "sync", "k10"), nargs="+",
                 default=("k6", "sync", "k10"))
 ap.add_argument("--no-aside", action="store_true",
-                help="build no patched copy (K10's steps 6-8, the cluster "
-                     "cuts and the load batches of step 7)")
+                help="build no patched copy (K10's steps 6 and 8 and the "
+                     "load batches of step 7)")
 ARGS = ap.parse_args()
 REPO = Path(ARGS.repo).resolve()
 sys.path.insert(0, str(REPO))
@@ -116,23 +114,6 @@ UNROLL = r"constexpr int kResidentUnroll = (\d+);"
 # other cuts of y for the x-streamed grid form (its z rows are a warp's
 # 32 lanes): regions of more rows on fewer blocks
 GRID_FORCED_Y = (13, 20, 22)
-# the cluster form with parts of an iteration taken out or changed (timed
-# only: the results may be wrong by design): its stores into the
-# neighbours' ghost planes; the release of the barrier's arrival; half the
-# threads a block; the inner planes
-CLUSTER_CUTS = (
-    ("no ghost stores", "poisson.cu",
-     (("      if (to_lo != nullptr) to_lo[c] = q0;\n", ""),
-      ("        if (to_hi != nullptr) to_hi[c] = qe;\n", ""))),
-    ("relaxed arrival", "common.cuh",
-     (("barrier.cluster.arrive.release;",
-       "barrier.cluster.arrive.relaxed;"),)),
-    ("512 threads a block", "poisson.cu",
-     (("constexpr int kClusterThreads = 1024;",
-       "constexpr int kClusterThreads = 512;"),)),
-    ("no inner planes", "poisson.cu",
-     (("    for (int c = inner0; nb > 2 && c < nyz; c += T) {",
-       "    for (int c = inner0; nb > 2 && c < 0; c += T) {"),)))
 # the tile-walking grid form (the earlier design) with parts of an
 # iteration cut out (timed only): the x neighbours' loads (each replaced
 # by the cell's own value); the weight loads and the tile cursor (constant
@@ -384,7 +365,8 @@ def probe_k10(out: dict) -> None:
         ms, runs = best(k10, "poisson_resident", reps=reps)
         ms1, _ = best(lambda: k10(1), "poisson_resident", reps=reps)
         k1_ms, _ = best(k1_chain, "poisson_iter_kernel", nit, reps=reps)
-        r = dict(nit=nit, digest=digest, ms=ms, runs=runs, ms_nit1=ms1,
+        r = dict(nit=nit, plan=str(s._resident_plan), digest=digest, ms=ms,
+                 runs=runs, ms_nit1=ms1,
                  us_per_iteration=(ms - ms1) / (nit - 1) * 1e3,
                  k1_launches_ms=k1_ms)
         if dpr_lib is not None and nx > 100 and not ARGS.no_aside:
@@ -392,7 +374,8 @@ def probe_k10(out: dict) -> None:
                 r["dpr_const_ms"], _ = best(k10, "poisson_resident",
                                             reps=reps)
         if hasattr(kp, "launch_resident"):
-            variants(r, nx, nit, op, pr0, dpr0, p, d, rhs, scratch, reps)
+            variants(r, nx, nit, s._resident_plan, op, pr0, dpr0, p, d, rhs,
+                     scratch, reps)
         if nx > 100 and not ARGS.no_aside:
             grid_cuts(r, nx, nit, op, p, d, rhs, scratch, reps)
         rows[f"{nx}, nit {nit}"] = r
@@ -413,7 +396,7 @@ def probe_k10(out: dict) -> None:
               f"(runs {', '.join(f'{v:.4f}' for v in runs)}), nit 1 "
               f"{ms1:.4f} ms, {r['us_per_iteration']:.2f} us per added "
               f"iteration; {nit} K1 launches {k1_ms:.4f} ms{extra} "
-              f"({out['device']})", flush=True)
+              f"({s._resident_plan}; {out['device']})", flush=True)
         del s, p, d, scratch, bufs
         torch.cuda.empty_cache()
     out["K10"] = rows
@@ -432,12 +415,15 @@ def design_bound(r: dict, cells: int, nit: int) -> None:
     r["design_bound_by"] = "HBM (rhs)" if hbm >= l2 else "L2 (pr, rhs)"
 
 
-def variants(r, nx, nit, op, p0, d0, p, d, rhs, scratch, reps) -> None:
-    """Step 7: the cluster form on 8 and 16 blocks and the grid form
-    forced (63), the grid form with 1 and 3 cells' loads per thread
-    (255); each first bitwise against the checkout's K10 from the seeded
-    inputs (p0, d0), then timed on (p, d)."""
-    plan = kp.resident_plan(tuple(p.shape), *kp.resident_caps(p.device))
+def variants(r, nx, nit, plan, op, p0, d0, p, d, rhs, scratch,
+             reps) -> None:
+    """Step 7 under the checkout's plan (its solver's `_resident_plan`):
+    at 255 the grid form under other cuts of y and with the loads of
+    fewer and more cells or planes per thread; each first bitwise against
+    the checkout's K10 from the seeded inputs (p0, d0), then timed on (p,
+    d)."""
+    if nx < 100:
+        return
     want_p, want_d = p0.clone(), d0.clone()
     want_e = float(kp.poisson_iter_resident(want_p, want_d, rhs, op, nit,
                                             scratch))
@@ -454,33 +440,7 @@ def variants(r, nx, nit, op, p0, d0, p, d, rhs, scratch, reps) -> None:
         ms, _ = best(lambda: run(p, d), "poisson_resident", reps=reps)
         r[label] = ms
         print(f"[K10] {nx}, nit {nit}, {label}: {ms:.4f} ms", flush=True)
-    if plan.form == "cluster":
-        for blocks in kp.RESIDENT_CLUSTERS:
-            if blocks > kp.resident_caps(p.device)[1]:
-                continue
-            per = -(-nx // blocks)
-            forced = kp.ResidentPlan("cluster", blocks, per, max(
-                kp.cluster_smem(per, *p.shape[1:]), kp.RESIDENT_SOLO_SMEM))
-            held(f"cluster of {blocks}", lambda q, dq, f=forced:
-                 kp.launch_resident(q, dq, rhs, op, nit, f, scratch))
-        # the plan on a card that admits no cluster: the grid form
-        grid = kp.resident_plan(tuple(p.shape),
-                                kp.resident_caps(p.device)[0], 0)
-        print(f"[K10] {nx}, the grid form forced: {grid}", flush=True)
-        held("grid form forced", lambda q, dq: kp.launch_resident(
-            q, dq, rhs, op, nit, grid, scratch))
-        for label, name, patch in () if ARGS.no_aside else CLUSTER_CUTS:
-            src = (_build.SRC_DIR / name).read_text()
-            if not all(src.count(old) == 1 for old, _ in patch):
-                continue
-            lib = aside(_build.SRC_DIR, "poisson.cu", {name: patch})
-            with library(_build, lib):
-                r[label], _ = best(lambda: kp.poisson_iter_resident(
-                    p, d, rhs, op, nit, scratch), "poisson_resident",
-                    reps=reps)
-            print(f"[K10] {nx}, nit {nit}, cluster form, {label} (timed "
-                  f"only): {r[label]:.4f} ms", flush=True)
-    if plan.form == "grid" and getattr(plan, "cut", (1, 1)) != (1, 1):
+    if getattr(plan, "cut", (1, 1)) != (1, 1):
         # the x-streamed grid form under other cuts of y
         gz = plan.cut[1]
         for gy in GRID_FORCED_Y:
@@ -489,11 +449,13 @@ def variants(r, nx, nit, op, p0, d0, p, d, rhs, scratch, reps) -> None:
             if (gy == plan.cut[0] or gy * gz > plan.blocks
                     or smem > kp.SMEM_LIMIT - kp.RESIDENT_STATIC_SMEM):
                 continue
-            forced = kp.ResidentPlan("grid", gy * gz, cols, smem, (gy, gz))
+            forced = dataclasses.replace(plan, blocks=gy * gz,
+                                         per_block=cols, smem_bytes=smem,
+                                         cut=(gy, gz))
             held(f"grid form, cut {gy} x {gz} ({cols} columns)",
                  lambda q, dq, f=forced: kp.launch_resident(
                      q, dq, rhs, op, nit, f, scratch))
-    if not ARGS.no_aside and plan.form == "grid":
+    if not ARGS.no_aside:
         src = (_build.SRC_DIR / "poisson.cu").read_text()
         m = re.search(UNROLL, src)
         cur = int(m.group(1)) if m else 0

@@ -196,5 +196,4 @@ def test_build_sources_and_key():
         "ns3d_poisson_iter", "ns3d_poisson_iter_ext", "ns3d_poisson_iter_bc",
         "ns3d_poisson_iter_sweeps", "ns3d_predict", "ns3d_correct",
         "ns3d_advect", "ns3d_poisson_iter_bc_dist",
-        "ns3d_poisson_iter_ext_bc_dist", "ns3d_poisson_iter_resident",
-        "ns3d_poisson_resident_max_cluster"}
+        "ns3d_poisson_iter_ext_bc_dist", "ns3d_poisson_iter_resident"}

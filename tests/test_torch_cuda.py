@@ -760,44 +760,43 @@ def _k10_against_k1(shape, op, nit, plan=None):
 
 @pytest.mark.parametrize("nit", [1, 2, 5, 38])
 def test_k10_matches_k1_launches_and_plain(nit):
-    """K10 at 64x39x39 in resident_plan's form (the cluster form where
-    the card admits a cluster): one launch bitwise equal to nit K1
-    launches and to its plain version, the check value that of the last
-    K1 launch, the result in the caller's pr and dpr."""
+    """K10 at 64x39x39 under resident_plan's plan (38 x 2 blocks of one y
+    row of 32 z): one launch bitwise equal to nit K1 launches and to its
+    plain version, the check value that of the last K1 launch, the result
+    in the caller's pr and dpr."""
     solver = _solver(64)
     plan = kp.resident_plan(solver.grid.shape_c,
-                            *kp.resident_caps(torch.device("cuda")))
-    assert plan.form == "cluster"
+                            kp.resident_sms(torch.device("cuda")))
+    assert plan is not None and plan.per_block == kp.RESIDENT_LANES
     _k10_against_k1(solver.grid.shape_c, solver._op, nit)
 
 
 @pytest.mark.parametrize("nit", [1, 2, 3, 6])
-@pytest.mark.parametrize("blocks,below", [(16, 0), (16, 1), (8, 0), (8, 1)])
+@pytest.mark.parametrize("below", [0, 1])
 @pytest.mark.parametrize("zero_grad_x", [False, True])
-def test_k10_cluster_form_at_its_limit(nit, blocks, below, zero_grad_x):
-    """K10's cluster form on clusters of 8 and 16 blocks (where the card
-    admits them) at the largest grid of 38x38 planes a cluster holds and
-    one plane below it: bitwise equal to nit K1 launches and the plain
-    version."""
+def test_k10_grid_form_at_its_x_limit(nit, below, zero_grad_x):
+    """K10 on 38x38 planes at the most planes its plan holds (one y row of
+    32 z a block, their dpr through every plane filling a block's shared
+    memory) and one plane below it: bitwise equal to nit K1 launches and
+    the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card)")
-    if blocks > kp.resident_caps(torch.device("cuda"))[1]:
-        pytest.skip(f"the card admits no cluster of {blocks} blocks")
+    sms = kp.resident_sms(torch.device("cuda"))
     ny = nz = 38
-    room = kp.SMEM_LIMIT - kp.RESIDENT_STATIC_SMEM
-    per = max(n for n in range(1, 64) if kp.cluster_smem(n, ny, nz) <= room)
-    shape = (blocks * per - below, ny, nz)
-    plan = kp.ResidentPlan("cluster", blocks, per,
-                           max(kp.cluster_smem(per, ny, nz),
-                               kp.RESIDENT_SOLO_SMEM))
+    columns = kp.resident_plan((1, ny, nz), sms).per_block
+    limit = (kp.SMEM_LIMIT - kp.RESIDENT_STATIC_SMEM) // (4 * columns)
+    assert kp.resident_plan((limit + 1, ny, nz), sms) is None
+    shape = (limit - below, ny, nz)
+    plan = kp.resident_plan(shape, sms)
+    assert plan.per_block == columns
     _k10_against_k1(shape, _k10_operator(shape, zero_grad_x), nit, plan)
 
 
-def test_k10_cluster_form_is_deterministic():
-    """The cluster form at 63x38x38 (nit 37) from a state near its float32
-    noise floor (100 launches in place first) and from the seeded one:
-    forty launches from the same state all give the same pr, dpr and check
-    value, the K1 chain's. (A barrier that let a block read a ghost plane
+def test_k10_is_deterministic_at_63():
+    """K10 at 63x38x38 (nit 37) from a state near its float32 noise floor
+    (100 launches in place first) and from the seeded one: forty launches
+    from the same state all give the same pr, dpr and check value, the K1
+    chain's. (A grid barrier that let a block read its neighbours' pr
     early would show here now and then, not in every run.)"""
     solver = _solver(63)
     op, shape = solver._op, solver.grid.shape_c
@@ -829,7 +828,7 @@ def _grid_plan(shape, cut_y):
     nx, ny, nz = shape
     cut = (cut_y, -(-nz // kp.RESIDENT_LANES))
     columns = -(-ny // cut_y) * kp.RESIDENT_LANES
-    return kp.ResidentPlan("grid", cut[0] * cut[1], columns,
+    return kp.ResidentPlan(cut[0] * cut[1], columns,
                            max(kp.grid_smem(columns, nx),
                                kp.RESIDENT_SOLO_SMEM), cut)
 
@@ -846,16 +845,16 @@ def _grid_plan(shape, cut_y):
 def test_k10_grid_form(nit, shape, cut_y):
     """K10's grid form (dpr in shared memory, x-streamed columns) on grids
     ragged in y and z (z one past a row of 32 lanes, or short of one),
-    under the plan of a card without clusters (one row a block: runs of
-    one to a few planes) and forced cuts of 1 x k (all 25 rows a block,
+    under resident_plan's plan (one row a block: runs of one to a few
+    planes) and forced cuts of 1 x k (all 25 rows a block,
     one run of all 40 planes), k x 1 (z within one row) and a few blocks:
     bitwise equal to nit K1 launches and the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card)")
     sms = _build.sm_count(torch.device("cuda"))
-    plan = (kp.resident_plan(shape, sms, 0) if cut_y is None
+    plan = (kp.resident_plan(shape, sms) if cut_y is None
             else _grid_plan(shape, cut_y))
-    assert plan.form == "grid"
+    assert plan is not None
     for zero_grad_x in (False, True):
         _k10_against_k1(shape, _k10_operator(shape, zero_grad_x), nit, plan)
 
@@ -863,7 +862,7 @@ def test_k10_grid_form(nit, shape, cut_y):
 def test_k10_refused_launches_raise():
     """A launch the card refuses raises with its CUDA error and does not
     fall back: no count, no plain version, no K1 launch; a grid with no
-    resident form raises before launching."""
+    resident plan raises before launching."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card)")
     shape = (12, 9, 33)
@@ -876,31 +875,29 @@ def test_k10_refused_launches_raise():
     tall = (4, 2 * sms + 4, 33)
     with pytest.raises(RuntimeError, match="poisson_iter_resident"):
         kp.launch_resident(*_k10_inputs(tall), _k10_operator(tall), 3,
-                           kp.ResidentPlan("grid", 4 * sms, 64,
-                                           kp.SMEM_LIMIT, (2 * sms, 2)))
+                           kp.ResidentPlan(4 * sms, 64, kp.SMEM_LIMIT,
+                                           (2 * sms, 2)))
     refused = (
         # a cut whose blocks are not the plan's, one with more y parts
         # than the plane has rows, one whose z rows are not 32 lanes
-        kp.ResidentPlan("grid", 5, 160, kp.RESIDENT_SOLO_SMEM, (2, 2)),
-        kp.ResidentPlan("grid", 20, 32, kp.RESIDENT_SOLO_SMEM, (10, 2)),
-        kp.ResidentPlan("grid", 3, 96, kp.RESIDENT_SOLO_SMEM, (3, 1)),
+        kp.ResidentPlan(5, 160, kp.RESIDENT_SOLO_SMEM, (2, 2)),
+        kp.ResidentPlan(20, 32, kp.RESIDENT_SOLO_SMEM, (10, 2)),
+        kp.ResidentPlan(3, 96, kp.RESIDENT_SOLO_SMEM, (3, 1)),
         # less shared memory than the region's dpr
-        kp.ResidentPlan("grid", 4, 160, 4 * 160 * 12 - 4, (2, 2)),
+        kp.ResidentPlan(4, 160, 4 * 160 * 12 - 4, (2, 2)),
         # more shared memory than a block has
-        kp.ResidentPlan("cluster", 8, 2, kp.SMEM_LIMIT + 4096),
-        # a cluster larger than any the card forms
-        kp.ResidentPlan("cluster", 32, 1, kp.RESIDENT_SOLO_SMEM))
+        kp.ResidentPlan(4, 160, kp.SMEM_LIMIT + 4096, (2, 2)))
     for plan in refused:
         with pytest.raises(RuntimeError, match="poisson_iter_resident"):
             kp.launch_resident(pr.clone(), dpr.clone(), rhs, op, 3, plan)
     # one plane more than the grid form holds at 153x153 (the dpr of the
     # largest region's columns through every plane)
     room = kp.SMEM_LIMIT - kp.RESIDENT_STATIC_SMEM
-    columns = kp.resident_plan((255, 153, 153), sms, 0).per_block
+    columns = kp.resident_plan((255, 153, 153), sms).per_block
     big = (room // (4 * columns) + 1, 153, 153)
-    assert kp.resident_plan(big, sms, 16) is None
+    assert kp.resident_plan(big, sms) is None
     p = torch.zeros(big, device="cuda")
-    with pytest.raises(ValueError, match="no resident form"):
+    with pytest.raises(ValueError, match="no resident plan"):
         kp.poisson_iter_resident(p, p.clone(), p.clone(),
                                  _k10_operator(big), 2)
     assert kp.make_resident(2, big, "cuda") is None
@@ -910,15 +907,14 @@ def test_k10_refused_launches_raise():
 
 def test_k10_route_at_255_is_k1_route():
     """Step 1 of the multi preset at 255x153x153 from init_state with the
-    folded loops' K10 route on (one launch of the grid form per check
-    interval) and off (`_resident_plan = None`: K1 bodies): the same 3192
-    iterations, err and check history, every field bitwise equal; phase
-    1's 2887 iterations after the exact first one are 19 K10 launches
-    (151 iterations, then 152 each), and 2887 K1 launches with the route
+    folded loops' K10 route on (one K10 launch per check interval) and
+    off (`_resident_plan = None`: K1 bodies): the same 3192 iterations,
+    err and check history, every field bitwise equal; phase 1's 2887
+    iterations after the exact first one are 19 K10 launches (151
+    iterations, then 152 each), and 2887 K1 launches with the route
     off."""
     on = _solver(255, "multi")
     assert on._resident_plan is not None
-    assert on._resident_plan.form == "grid"
     off = nt.ChorinSolver(on.cfg, device="cuda")
     off._resident_plan = None
     kernels.reset_counts()

@@ -1,7 +1,7 @@
 """The folded loops' K10 route (models/chorin.py `_folded_loop`): where
-the sweep plan is off and K10 has a form for the grid (`_resident_plan`),
+the sweep plan is off and K10 has a plan for the grid (`_resident_plan`),
 each check interval runs as one K10 launch. On the CPU the plain versions
-run (K10's form is decided as on an H100), and the route must take every
+run (K10's plan is decided as on an H100), and the route must take every
 decision of the K1 loop:
 
   1. whole steps of the gpu (defect) and multi (extended) presets and of
@@ -10,9 +10,10 @@ decision of the K1 loop:
      K10 called once per check the K1 loops ran, for their iterations less
      the trailing partial chunk;
   2. `_folded_loop` alone, on a budget that runs out unconverged (so the
-     trailing `rem` iterations run on K1) and on one where the stall exit
-     fires, from global iteration 1 and 0: the K1 loop's carry, iterations,
-     err and history."""
+     trailing `rem` iterations run on K1, where rem > 0) and on one where
+     the stall exit fires, from global iteration 1 and 0, with K10 bodies
+     and with the sweep plan's K8 bodies forced on: the K1 loop's carry,
+     iterations, err and history."""
 
 import dataclasses
 
@@ -115,17 +116,23 @@ def _loop_inputs(s):
 
 @pytest.mark.parametrize("it0", [1, 0])
 @pytest.mark.parametrize("exit_by", ["budget", "stall"])
-def test_folded_loop_route_is_k1_loop(it0, exit_by):
-    """`_folded_loop` on a budget of 6 checks and rem = 5: with eps_it out
-    of reach it runs out of budget and the trailing 5 iterations run (on
-    K1); with a stall window of one check at ratio 0.5 it stalls on a
-    check before the last. The route's carry, iterations, err and history are the
-    K1 loop's; K10 ran once a check, for the iterations less the tail."""
+@pytest.mark.parametrize("body,rem", [("k10", 5), ("k10", 0), ("k8", 5)])
+def test_folded_loop_route_is_k1_loop(it0, exit_by, body, rem):
+    """`_folded_loop` on a budget of 6 checks and rem = 5 or 0: with eps_it
+    out of reach it runs out of budget and the trailing rem iterations run
+    (on K1); with a stall window of one check at ratio 0.5 it stalls on a
+    check before the last. The route's carry, iterations, err and history
+    are the K1 loop's. K10 bodies: K10 ran once a check, for the
+    iterations less the tail. K8 bodies (the sweep plan forced on at
+    depth 2, nchk 8): from global iteration 1, one K1 and one K8(2)
+    launch first, then two K8(2) launches a body."""
     cfg = _cfg(("multi", 15, None))
     on, off = _solver(cfg, True), _solver(cfg, False)
+    if body == "k8":
+        on._sweep_depths = (2,)
     rhs, pr, dpr = _loop_inputs(on)
     nchk = on.grid.nchk
-    n_checked, rem = 6 * nchk, 5
+    n_checked = 6 * nchk
     stall = (0.5, 1) if exit_by == "stall" else None
     out = []
     for s in (off, on):
@@ -143,9 +150,31 @@ def test_folded_loop_route_is_k1_loop(it0, exit_by):
     assert (it_on, e_on) == (it_off, e_off)
     np.testing.assert_array_equal(h_on, h_off)
     assert torch.equal(c_on[0], c_off[0]) and torch.equal(c_on[2], c_off[2])
-    assert kp.poisson_iter_resident_plain.calls == (it_on - tail) // nchk
-    assert kp.poisson_iter_resident_plain.iterations == it_on - tail - it0
-    assert kp.poisson_iter_plain.calls == tail
+    if body == "k10":
+        assert kp.poisson_iter_resident_plain.calls == (it_on - tail) // nchk
+        assert kp.poisson_iter_resident_plain.iterations == (
+            it_on - tail - it0)
+        assert kp.poisson_iter_plain.calls == tail
+    else:
+        assert on._sweep_plan(n_checked) == 2
+        start = 4 if it0 == 1 else 0
+        assert kp.poisson_iter_resident_plain.calls == 0
+        assert kp.poisson_iter_sweeps_plain.calls == (
+            (it0 == 1) + (it_on - tail - start) // 2)
+        assert kp.poisson_iter_plain.calls == tail + (it0 == 1)
+
+
+def test_folded_loop_refuses_a_tail_before_it0():
+    """A budget of no checked iterations from global iteration 1 with a
+    tail would run the tail from the budget's end, before it0: refused
+    (make_grid's niter is at least nchk, so no solve asks for it)."""
+    cfg = _cfg(("multi", 15, None))
+    s = _solver(cfg, True)
+    rhs, pr, dpr = _loop_inputs(s)
+    carry = (pr, torch.empty_like(pr), dpr, None)
+    with pytest.raises(ValueError, match="_folded_loop"):
+        s._folded_loop(rhs, s._err_scale(), carry, 1, 0, 5,
+                       np.float32(1e-30), None)
 
 
 def _bench_work():
@@ -163,7 +192,7 @@ def _bench_work():
 def test_k10_kernel_group_counts_the_route():
     """K10's kernel group (bench_torch/layers/k10_poisson_resident.json)
     puts the route's launches in the poisson layer: its counter is the
-    wrapper's launch count, its patterns match both resident kernels of
+    wrapper's launch count, its patterns match the resident kernel of
     csrc/poisson.cu, and one launch counts K1's 20 B a cell, 119.4 MB at
     255x153x153."""
     import re
@@ -177,9 +206,8 @@ def test_k10_kernel_group_counts_the_route():
     assert hasattr(getattr(kp, fn), "launches")
     src = (Path(kp.__file__).resolve().parents[1] / "csrc" / "poisson.cu"
            ).read_text()
-    for name in ("poisson_resident_grid_kernel",
-                 "poisson_resident_cluster_kernel"):
-        assert name in src
-        assert any(re.search(p, name) for p in group["patterns"])
+    name = "poisson_resident_grid_kernel"
+    assert name in src
+    assert any(re.search(p, name) for p in group["patterns"])
     assert round(work.bytes_per_launch(group, (255, 153, 153)) / 1e6,
                  1) == 119.4
