@@ -30,8 +30,10 @@ Phases (any failure exits non-zero; nothing is caught):
      are held against the JAX package's
   Each main path runs with the launch counts set to 0 just before it and
   read just after: every kernel of the path (K10, the folded loops'
-  bodies, one launch per check interval; K2 on both multi runs) must
-  have launched and no plain version may have run. Then one more step of
+  bodies, one launch per check interval; K12, the extended phase's
+  bodies, one launch per check interval, on both multi runs, its
+  launches and iterations printed) must have launched and no plain
+  version may have run. Then one more step of
   the gpu and the nx=255 multi path is traced with torch.profiler: device
   time per kernel and the device's idle share.
   6. compat paths: preset_gpu(nx=255, dtype='float32') and
@@ -50,7 +52,8 @@ Phases (any failure exits non-zero; nothing is caught):
      the Pr probes of tests/test_golden.py within rtol 3e-3
   8. reference: small grids on the card against the same solver's plain
      path on the CPU (the path the CPU tests hold against the JAX package):
-     gpu nx=15, and multi nx=15 at eps_it=1e-9, where K2 runs
+     gpu nx=15, and multi nx=15 at eps_it=1e-9, where the extended
+     phase runs (on K12)
   9. wide kernels: at the wide grid's 511x307x307 float32 shapes, K8 at
      s = 2 and 3 with the gpu operator against its plain version and
      against s K1 launches (bitwise, NaN-filled outputs, check value
@@ -106,8 +109,9 @@ Phases (any failure exits non-zero; nothing is caught):
      step 1 again with use_pallas=False: equal counts, pr within MAX_ULP;
      K7 under the split gpu spec against its plain version (the function
      of the dma-mode kernel K11); one more step traced
- 16. resident: K10 (poisson_iter_resident, one launch of nit iterations
-     resident on chip: dpr in shared memory, x-streamed columns) at
+ 16. resident (run after phase 3): K10 (poisson_iter_resident, one
+     launch of nit iterations resident on chip: dpr in shared memory,
+     x-streamed columns) at
      63x38x38 with nit = 37 and at 255x153x153 with nit = 152, its plan
      required, checked against its rule and printed (the cut of the
      column plane, the column slots a block, the runs of planes a column,
@@ -123,7 +127,19 @@ Phases (any failure exits non-zero; nothing is caught):
      preset's first, K1 over its budget) whose first chunk runs on K10 and
      the rest in pt_loop_fused(seed0=True) on K1, with the launch counts
      set to 0 just before and read just after: the unseeded K1 loop's
-     iterations, err and fields, bitwise
+     iterations, err and fields, bitwise; then K12
+     (poisson_iter_resident_ext, nit of K2's iterations in one launch
+     under K10's plan) at 63 (nit 37) and 255 (nit 152) on the same
+     inputs (lo randn x 2**-24) with the multi operator: hi, lo, dpr and
+     the check value bitwise equal to nit K2 launches and to the plain
+     version; K12's time (torch.profiler and CUDA events), the nit K2
+     launches' and the bound (20 B a cell and iteration). At 255, where
+     a launch takes milliseconds, K10's and K12's device time from
+     torch.profiler must agree within EVENTS_RTOL with CUDA events
+     recorded around each of the same traced launches. The
+     phase runs right after phase 3: later in the process the profiler
+     was seen to keep none or one of five K10 launches at 255 in a window
+     (the cause is not known)
  17. fdm solve: the fdm backend's direct solve alone at 255 (gpu
      variant, ops/fdm_poisson.py, refine=0) on a seeded RHS against the
      host's float64 solve (solve_host_f64), the relative error printed and
@@ -255,7 +271,12 @@ FLOPS_PER_CELL = {"K1 poisson_iter": 22, "K2 poisson_iter_ext": 45,
                   "K7 poisson_iter_bc": 20, "K8 poisson_iter_sweeps": 22,
                   "K7-dist poisson_iter_bc_dist": 20,
                   "K2-dist poisson_iter_ext_bc_dist": 45,
-                  "K6 advect_pre": 40, "K10 poisson_iter_resident": 22}
+                  "K6 advect_pre": 40, "K10 poisson_iter_resident": 22,
+                  "K12 poisson_iter_resident_ext": 45}
+# the largest share by which a resident kernel's device time from
+# torch.profiler may differ from CUDA events around the same launches
+# (agrees_with_events)
+EVENTS_RTOL = 0.03
 K1_NAME = "K1 poisson_iter"
 K2_NAME = "K2 poisson_iter_ext"
 K7_NAME = "K7 poisson_iter_bc"
@@ -264,6 +285,7 @@ K7D_NAME = "K7-dist poisson_iter_bc_dist"
 K2D_NAME = "K2-dist poisson_iter_ext_bc_dist"
 K6_NAME = "K6 advect_pre"
 K10_NAME = "K10 poisson_iter_resident"
+K12_NAME = "K12 poisson_iter_resident_ext"
 # the dma-mode kernel, whose function K7's kernel computes: its row in the
 # JSON line carries K7's numbers under the split gpu spec and K7's
 # launches on the dma path
@@ -393,12 +415,15 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int, kernel: str, warmup: int = 2) -> float:
+def device_ms(fn, reps: int, kernel: str, warmup: int = 2,
+              events: bool = False):
     """Mean device milliseconds of one launch of the kernel whose name
     contains `kernel`, over reps calls of fn traced with torch.profiler:
     the launches' own durations. (CUDA events around a run of launches
     that each take less device time than the host needs to issue the
-    next one time the host's issue rate instead.)"""
+    next one time the host's issue rate instead.) events=True returns
+    (ms, the mean of CUDA events recorded around each of the same calls
+    in the traced window), for a fn of one launch."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -406,22 +431,52 @@ def device_ms(fn, reps: int, kernel: str, warmup: int = 2) -> float:
             torch.profiler.ProfilerActivity.CUDA]
     # the tracer may drop a launch at the window's edge (the mean is over
     # those it kept; a spin kernel opens the window) and now and then a
-    # whole window: trace it again then, and raise after five
+    # whole window: trace it again then, and raise after five. Each window
+    # must keep half of reps on its own. With events the spin is ten times
+    # longer (~10 ms), so that the host has queued the first launch before
+    # its start event fires
+    spin = 20_000_000 if events else 2_000_000
     for _ in range(5):
+        marks = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+                 for _ in range(reps if events else 0)]
         with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda._sleep(2_000_000)
-            for _ in range(reps):
+            torch.cuda._sleep(spin)
+            for i in range(reps):
+                if events:
+                    marks[i][0].record()
                 fn()
+                if events:
+                    marks[i][1].record()
             torch.cuda.synchronize()
         durs = [e.time_range.end - e.time_range.start for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and kernel in e.name]
         if len(durs) >= reps // 2:
-            return sum(durs) / len(durs) / 1e3
+            ms = sum(durs) / len(durs) / 1e3
+            if not events:
+                return ms
+            return ms, sum(a.elapsed_time(b) for a, b in marks) / reps
         print(f"[trace] {len(durs)} launches of {kernel} traced, expected "
               f"{reps}: tracing again")
     raise RuntimeError(f"device_ms: five traced windows held too few "
                        f"launches of {kernel}")
+
+
+def agrees_with_events(label: str, ms: float, events_ms: float) -> None:
+    """Hold a kernel's device time from torch.profiler against CUDA events
+    recorded around each of the same launches (device_ms(events=True)):
+    where a launch takes a millisecond or more, the events' own cost is
+    well under 1% of it, and the two may differ by at most EVENTS_RTOL.
+    (Events around a run of launches differ more: at 255, launches issued
+    back to back read 0.3-3.5% above the profiler, and launches queued
+    behind a spin kernel 0.1% in one process and 3.9% in another; events
+    around each launch behind the short spin read up to 1.9% above.)"""
+    if events_ms >= 1.0:
+        require(abs(ms - events_ms) <= EVENTS_RTOL * events_ms,
+                f"{label}: {ms:.4f} ms by torch.profiler against "
+                f"{events_ms:.4f} ms by CUDA events around the same "
+                f"launches")
 
 
 def queued_ms(fn, reps: int) -> float:
@@ -478,7 +533,8 @@ SYMBOLS = {K1_NAME: r"19poisson_iter_kernelE", K2_NAME:
            r"13advect_kernelE", K6_NAME: r"17advect_pre_kernelE",
            K7_NAME: r"19poisson_dist_kernelILi1E", K8_NAME:
            r"21poisson_sweeps_kernelILi3E", K10_NAME:
-           r"28poisson_resident_grid_kernelE", K7D_NAME:
+           r"28poisson_resident_grid_kernelE", K12_NAME:
+           r"27poisson_resident_ext_kernelE", K7D_NAME:
            r"19poisson_dist_kernelILi1E", K2D_NAME:
            r"19poisson_dist_kernelILi2E"}
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
@@ -1000,9 +1056,19 @@ def phase_gpu_path(solver) -> dict:
     return counts
 
 
+def k12_count(label, counts, stats) -> None:
+    """Print K12's launches and iterations on a multi path beside its
+    steps' extended iterations."""
+    print(f"[{label}] K12: {counts[K12_NAME][0]} launches carrying "
+          f"{k_poisson.poisson_iter_resident_ext.iterations} iterations, K2 "
+          f"{counts[K2_NAME][0]} launches; iters_ext "
+          f"{[st.iters_ext for st in stats]}")
+
+
 def phase_multi_paths(multi) -> list:
-    counts, _, states, _ = run_steps(multi, NSTEPS, "multi")
-    for name in (K10_NAME, K2_NAME, "K3 predict", "K4 correct",
+    counts, _, states, stats = run_steps(multi, NSTEPS, "multi")
+    k12_count("multi", counts, stats)
+    for name in (K10_NAME, K12_NAME, "K3 predict", "K4 correct",
                  "K5 advect"):
         require(counts[name][0] > 0, f"multi: {name} never launched")
     stored_errs(multi, states, "multi", range(1, NSTEPS + 1))
@@ -1011,11 +1077,12 @@ def phase_multi_paths(multi) -> list:
     small = nt.ChorinSolver(nt.preset_multi(nx=MULTI_NX_SMALL,
                                             compat=False, dtype="float32"),
                             device="cuda")
-    counts63, iters, states, _ = run_steps(small, MULTI_STEPS_SMALL,
-                                           "multi63", REF_ITERS_MULTI63)
+    counts63, iters, states, stats = run_steps(small, MULTI_STEPS_SMALL,
+                                               "multi63", REF_ITERS_MULTI63)
+    k12_count("multi63", counts63, stats)
     stored_errs(small, states, "multi63", range(1, MULTI_STEPS_SMALL + 1),
                 required=False)
-    for name in (K10_NAME, K2_NAME, "K3 predict", "K4 correct",
+    for name in (K10_NAME, K12_NAME, "K3 predict", "K4 correct",
                  "K5 advect"):
         require(counts63[name][0] > 0, f"multi63: {name} never launched")
     for step, (got, ref) in enumerate(zip(iters, REF_ITERS_MULTI63)):
@@ -1151,9 +1218,9 @@ def phase_reference() -> None:
                                                        eps_it=1e-9))
     kernels.reset_counts()
     compare_with_cpu(multi, "multi nx=15 eps_it=1e-9")
-    k2 = next(kk for kk in kernels.KERNELS if kk.name == K2_NAME)
-    require(k2.wrapper.launches > 0,
-            "multi nx=15 eps_it=1e-9: K2 never launched")
+    k12 = next(kk for kk in kernels.KERNELS if kk.name == K12_NAME)
+    require(k12.wrapper.launches > 0,
+            "multi nx=15 eps_it=1e-9: K12 never launched")
 
 
 def phase_kernels_wide(wide, results) -> None:
@@ -2018,7 +2085,8 @@ def check_k10(solver, nit, smi) -> dict:
     def k10(n=nit):
         return k_poisson.poisson_iter_resident(p, d, rhs, op, n, scratch)
     reps = 20 if g.nx < 100 else 5
-    ms = device_ms(k10, reps, "poisson_resident")
+    ms, launch_events_ms = device_ms(k10, reps, "poisson_resident",
+                                     events=True)
     ms1 = device_ms(lambda: k10(1), reps, "poisson_resident")
     events_ms = cuda_ms(k10, reps)
     k1_ms = nit * device_ms(k1_chain, reps, "poisson_iter_kernel")
@@ -2043,8 +2111,11 @@ def check_k10(solver, nit, smi) -> dict:
                f"copy of {pair_mb} MB {pair_ms:.4f} ms, "
                f"{l2_rate / 1e12:.3f} TB/s, {pair_timing}")
     per_iter = (ms - ms1) / (nit - 1)
+    agrees_with_events(f"K10 ({label})", ms, launch_events_ms)
     print(f"[resident] K10 ({label}): {ms:.4f} ms of device time "
-          f"({events_ms:.4f} ms by CUDA events), {per_iter * 1e3:.2f} us per "
+          f"({launch_events_ms:.4f} ms by CUDA events around the traced "
+          f"launches, {events_ms:.4f} ms around launches issued back to "
+          f"back), {per_iter * 1e3:.2f} us per "
           f"added iteration (nit 1: {ms1:.4f} ms); {nit} K1 launches "
           f"{k1_ms:.4f} ms of device time ({k1_events_ms:.4f} ms by CUDA "
           f"events, issued back to back); plain {plain_ms:.4f} ms; bound "
@@ -2057,7 +2128,8 @@ def check_k10(solver, nit, smi) -> dict:
           f"K10 {'beats' if ms < k1_ms else 'does not beat'} the {nit} K1 "
           f"launches in device time ({plan}; {smi})")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                events_ms=events_ms, k1_launches_ms=k1_ms,
+                events_ms=events_ms, launch_events_ms=launch_events_ms,
+                k1_launches_ms=k1_ms,
                 k1_launches_events_ms=k1_events_ms, ms_nit1=ms1,
                 per_iteration_ms=per_iter, hbm_passes_ms=stream_ms,
                 form_bound_ms=form_ms, **b)
@@ -2120,20 +2192,99 @@ def resident_solve(smi) -> dict:
     return counts
 
 
+def check_k12(solver, nit, smi) -> dict:
+    """K12 under K10's plan against nit K2 launches and its plain version
+    (bitwise), then the times of K12 and of the nit K2 launches (device
+    time from torch.profiler) against K12's bound, 20 B a cell and
+    iteration."""
+    g, op = solver.grid, solver._op
+    label = f"{g.nx}x{g.ny}x{g.nz}, nit {nit}"
+    hi0, dpr0, rhs = resident_inputs(g)
+    lo0 = torch.tensor(np.random.RandomState(1).randn(*hi0.shape).astype(
+        np.float32) * 2.0 ** -24, device="cuda")
+    h, l, d = hi0.clone(), lo0.clone(), dpr0.clone()
+    scratch = tuple(torch.full_like(hi0, float("nan")) for _ in range(2))
+    e = k_poisson.poisson_iter_resident_ext(h, l, d, rhs, op, nit, *scratch)
+    q = (hi0.clone(), lo0.clone(), torch.empty_like(hi0),
+         torch.empty_like(lo0))
+    dq = dpr0.clone()
+    for j in range(nit):
+        e2 = k_poisson.poisson_iter_ext(*q, dq, rhs, op, j == nit - 1)
+        q = (q[2], q[3], q[0], q[1])
+    hp, lp, dp = hi0.clone(), lo0.clone(), dpr0.clone()
+    ep = k_poisson.poisson_iter_resident_ext_plain(hp, lp, dp, rhs, op, nit)
+    torch.cuda.synchronize()
+    worst = max_abs(((h, hp), (l, lp), (d, dp)))
+    require(bitwise(h, q[0]) and bitwise(l, q[1]) and bitwise(d, dq)
+            and float(e) == float(e2),
+            f"K12 ({label}) differs from {nit} K2 launches")
+    require(bitwise(h, hp) and bitwise(l, lp) and bitwise(d, dp)
+            and float(e) == float(ep),
+            f"K12 ({label}) differs from its plain version by {worst}")
+    print(f"[resident] K12 ({label}): hi, lo, dpr and the check value "
+          f"{float(e):.9e} bitwise equal to {nit} K2 launches and to the "
+          "plain version")
+    del q, dq, hp, lp, dp
+    # the K2 chain's own state (sharing dpr with K12's would mix two
+    # iterations)
+    bufs = [hi0.clone(), lo0.clone(), torch.empty_like(hi0),
+            torch.empty_like(lo0)]
+    dk = dpr0.clone()
+
+    def k2_chain():
+        for j in range(nit):
+            a, b = (0, 2) if j % 2 == 0 else (2, 0)
+            k_poisson.poisson_iter_ext(bufs[a], bufs[a + 1], bufs[b],
+                                       bufs[b + 1], dk, rhs, op,
+                                       j == nit - 1)
+
+    def k12():
+        return k_poisson.poisson_iter_resident_ext(h, l, d, rhs, op, nit,
+                                                   *scratch)
+    reps = 20 if g.nx < 100 else 5
+    ms, launch_events_ms = device_ms(k12, reps, "poisson_resident_ext",
+                                     events=True)
+    k2_ms = nit * device_ms(k2_chain, reps, "poisson_iter_ext_kernel")
+    plain_ms = cuda_ms(lambda: k_poisson.poisson_iter_resident_ext_plain(
+        h, l, d, rhs, op, nit, *scratch), 3, warmup=1)
+    cells = h.numel()
+    bound_ms = nit * 20 * cells / HBM_BYTES_PER_S * 1e3
+    agrees_with_events(f"K12 ({label})", ms, launch_events_ms)
+    print(f"[resident] K12 ({label}): {ms:.4f} ms of device time "
+          f"({launch_events_ms:.4f} ms by CUDA events around the traced "
+          f"launches), "
+          f"{ms / nit * 1e3:.2f} us an iteration; {nit} K2 launches "
+          f"{k2_ms:.4f} ms; plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"(20 B a cell and iteration), kernel at "
+          f"{100 * bound_ms / ms:.1f}% of it ({solver._resident_plan}; "
+          f"{smi})")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                launch_events_ms=launch_events_ms, k2_launches_ms=k2_ms,
+                bound_ms=bound_ms, bound_by="bytes")
+
+
 def phase_resident(smi):
-    """K10 at 63 (nit = nchk = 37) and 255 (nit = 152), and the seeded
-    solve at 63. Returns (results, counts of the seeded solve)."""
-    rows = {}
+    """K10 and K12 at 63 (nit = nchk = 37) and 255 (nit = 152), and the
+    seeded solve at 63. Returns (results, counts of the seeded solve)."""
+    rows, rows12 = {}, {}
     for nx in RESIDENT_NX:
         s = nt.ChorinSolver(nt.preset_gpu(nx=nx, compat=False,
                                           dtype="float32"), device="cuda")
         rows[nx] = check_k10(s, RESIDENT_NIT[nx], smi)
         del s
     counts = resident_solve(smi)
-    r = dict(rows[RESIDENT_NX[1]])
-    r["max_abs_err"] = max(v["max_abs_err"] for v in rows.values())
-    r["at_63"] = rows[RESIDENT_NX[0]]
-    return {K10_NAME: r}, counts
+    for nx in RESIDENT_NX:
+        s = nt.ChorinSolver(nt.preset_multi(nx=nx, compat=False,
+                                            dtype="float32"), device="cuda")
+        rows12[nx] = check_k12(s, RESIDENT_NIT[nx], smi)
+        del s
+    out = {}
+    for name, by_nx in ((K10_NAME, rows), (K12_NAME, rows12)):
+        r = dict(by_nx[RESIDENT_NX[1]])
+        r["max_abs_err"] = max(v["max_abs_err"] for v in by_nx.values())
+        r["at_63"] = by_nx[RESIDENT_NX[0]]
+        out[name] = r
+    return out, counts
 
 
 def fdm_solver(make, nx: int) -> "nt.ChorinSolver":
@@ -2426,6 +2577,10 @@ def main() -> int:
               f"{g.niter % g.nchk}, stall exit {s._stall}")
     results = phase_kernels(gpu, multi)
     results.update(phase_k7(compat))
+    # phase 16 early in the process: late in it the profiler was seen to
+    # keep none or one of five K10 launches at 255 in a window
+    resident_results, resident_counts = phase_resident(smi)
+    results.update(resident_results)
     # each path's launch counts by its label (the JSON line's "paths")
     runs = {"gpu": phase_gpu_path(gpu)}
     runs.update(zip(("multi", "multi63"), phase_multi_paths(multi)))
@@ -2452,8 +2607,7 @@ def main() -> int:
     runs["unchained"] = phase_unchained_path(unchained, smi)
     del unchained
     dma_counts, k11 = phase_dma_path(smi)
-    k10_results, runs["resident"] = phase_resident(smi)
-    results.update(k10_results)
+    runs["resident"] = resident_counts
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     wide = nt.ChorinSolver(nt.preset_gpu(nx=WIDE_NX, compat=False,
@@ -2486,7 +2640,9 @@ def main() -> int:
         # shard's and K2-dist's on the whole grid beside them
         for extra in ("per_iteration_over_k1", "plan", "at_511_s2",
                       "shards", "whole_grid", "at_63", "events_ms",
-                      "k1_launches_ms", "k1_launches_events_ms",
+                      "launch_events_ms", "k1_launches_ms",
+                      "k1_launches_events_ms",
+                      "k2_launches_ms",
                       "per_iteration_ms", "four_branches_ms",
                       "form_bound_ms",
                       "k5_four_branches_ms", "four_launches_ms",

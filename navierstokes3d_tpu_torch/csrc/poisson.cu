@@ -2,8 +2,8 @@
 // conditions folded into the stencil, K2: the same iteration on a
 // double-single (hi, lo) pressure pair, K7: the iteration followed by the
 // reference's boundary-condition sequence, as compat mode and the
-// dma-mode solve run it, K8: s folded iterations per launch, and K10: nit
-// of them in one cooperative launch.
+// dma-mode solve run it, K8: s folded iterations per launch, K10: nit
+// of them in one cooperative launch, and K12: nit of K2's in one.
 //
 // K1 replaces the Pallas kernel of navierstokes3d_tpu/kernels/poisson.py:914
 // (build_poisson_iter(mode='blocked', folded=True): `kernel` :872,
@@ -91,6 +91,22 @@
 // launch is bitwise nit K1 launches; the check value is K1's (float bits
 // as unsigned, block max). Bound: device-memory bytes, 12 B per cell and
 // iteration.
+//
+// K12 replaces no TPU kernel: it is K10's design carried over to K2's
+// (hi, lo) iteration, nit of K2's iterations in one cooperative launch
+// under K10's plan, hi, lo and dpr updated in place, emitting the check
+// value of the state entering the last iteration (what K2 emits when
+// launched with the check on that iteration). It exists because K2, one
+// launch an iteration, moves dpr through device memory every iteration
+// (8 of its 28 B a cell) and costs a launch and a dispatch gap each:
+// ~24 ms of the multi preset's step at 255x153x153 (PERF.md). K12 keeps
+// dpr in shared memory for the whole launch; hi and lo ping-pong through
+// device memory (L2) and rhs streams: 20 B per cell and iteration. Per
+// cell and iteration it computes K2's arithmetic in K2's order, so a
+// launch is bitwise nit K2 launches. K2 stays: the stored-state
+// guarantee, the trailing partial chunk, grids without a resident plan
+// and the distributed solve still run it. Bound: device-memory bytes,
+// 20 B per cell and iteration.
 //
 // K7 replaces the Pallas kernel of navierstokes3d_tpu/kernels/poisson.py:914
 // built with folded=False (`kernel` :872, `compute_slab` :334,
@@ -740,6 +756,205 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
   if (ns3d::thread_rank() == 0 && bits != 0u) atomicMax(err_bits, bits);
 }
 
+// ---- K12: nit of K2's iterations in one launch, resident on chip ----
+//
+// threads of a block (at most one column each, so K12 runs under K10's
+// plans of at most this many column slots a block) and the planes whose
+// loads a thread issues before their arithmetic: of 512, 768 and 1024
+// threads and 1-3 planes, this form took 8.26 ms at 255x153x153 and nit
+// 152, 1024 threads and 2 planes 8.74 (64 registers a thread, the cap),
+// 1024 and 3 12.57 (spilled), 768 and 3 8.64, 512 and 3 9.53 (PERF.md)
+constexpr int kResidentExtThreads = 768;
+constexpr int kResidentExtUnroll = 2;
+
+// K10's grid form with K2's iteration: the same cut, the same column
+// slots and runs of planes, dpr of the region in shared memory at plane
+// x * slots + slot for the whole launch. A thread carries x - 1, x and x
+// + 1 of both words along its run; per plane it loads hi and lo at x + 1
+// and at the four y and z neighbours, and rhs (evict first): 11 loads
+// where K10 takes 6. hi and lo each ping-pong between the caller's
+// tensor (_a, which holds the result at the end) and a scratch tensor
+// (_b); none of the four is const or __restrict__, as K10's pr_a and
+// pr_b: each is written during the launch, so none may be read through
+// the read-only (non-coherent) cache, whose lines a grid barrier does not
+// refresh.
+__global__ void __launch_bounds__(kResidentExtThreads, 1)
+    poisson_resident_ext_kernel(float* hi_a, float* lo_a, float* hi_b,
+                                float* lo_b, float* __restrict__ dpr,
+                                const float* __restrict__ rhs, Weights w,
+                                float inv_dx2, float dtau, float decay,
+                                int zero_grad_x, int nx, int ny, int nz,
+                                int nit, int cut_y, int cut_z,
+                                unsigned int* __restrict__ err_bits) {
+  constexpr int U = kResidentExtUnroll;
+  namespace cg = cooperative_groups;
+  const cg::grid_group grid = cg::this_grid();
+  extern __shared__ float dsm[];
+  const Part ry = balanced_part(ny, cut_y, blockIdx.x / cut_z);
+  const int z0 = blockIdx.x % cut_z * kResidentLanes;
+  const int cols = ry.size * kResidentLanes;
+  const int runs = min(nx, kResidentExtThreads / cols);
+  const int c = threadIdx.x % cols, run = threadIdx.x / cols;
+  const int y = ry.start + c / kResidentLanes, z = z0 + c % kResidentLanes;
+  const Part xr = run < runs && z < nz ? balanced_part(nx, runs, run)
+                                       : Part{0, 0};
+  const int x0 = xr.start, x1 = xr.start + xr.size;
+  const int nyz = ny * nz, col = y * nz + z;
+  const bool yz_in = y >= 1 && y <= ny - 2 && z >= 1 && z <= nz - 2;
+  const float wyp = yz_in ? w.yp[y] : 0.0f, wym = yz_in ? w.ym[y] : 0.0f;
+  const float wzp = yz_in ? w.zp[z] : 0.0f, wzm = yz_in ? w.zm[z] : 0.0f;
+  float* const dcol = dsm + c;
+  // as K10: for an odd nit both words are first copied into the scratch
+  // tensors, so that the last iteration writes the caller's
+  float* const even_h = nit % 2 == 0 ? hi_a : hi_b;
+  float* const odd_h = nit % 2 == 0 ? hi_b : hi_a;
+  float* const even_l = nit % 2 == 0 ? lo_a : lo_b;
+  float* const odd_l = nit % 2 == 0 ? lo_b : lo_a;
+#pragma unroll 4
+  for (int x = x0; x < x1; ++x) {
+    const int i = x * nyz + col;
+    dcol[x * cols] = dpr[i];
+    if (nit % 2 != 0) {
+      hi_b[i] = hi_a[i];
+      lo_b[i] = lo_a[i];
+    }
+  }
+  grid.sync();
+  unsigned int bits = 0u;
+  for (int j = 0; j < nit; ++j) {
+    const float* const ph = j % 2 == 0 ? even_h : odd_h;
+    const float* const pl = j % 2 == 0 ? even_l : odd_l;
+    float* const qh = j % 2 == 0 ? odd_h : even_h;
+    float* const ql = j % 2 == 0 ? odd_l : even_l;
+    const bool last = j == nit - 1;
+    // the cell's x - 1 and x values of both words, carried along the run
+    const bool has_xm = x0 > 0 && x0 < x1;
+    float hm = has_xm ? ph[(x0 - 1) * nyz + col] : 0.0f;
+    float lm = has_xm ? pl[(x0 - 1) * nyz + col] : 0.0f;
+    float hc = x0 < x1 ? ph[x0 * nyz + col] : 0.0f;
+    float lc = x0 < x1 ? pl[x0 * nyz + col] : 0.0f;
+    for (int xb = x0; xb < x1; xb += U) {
+      // the loads of U planes, then their arithmetic
+      float hn[U], ln[U], r[U];
+      float hyp[U], hym[U], hzp[U], hzm[U], lyp[U], lym[U], lzp[U], lzm[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int x = xb + u;
+        const int i = x * nyz + col;
+        const bool has_xp = x < x1 && x + 1 < nx;
+        hn[u] = has_xp ? ph[i + nyz] : 0.0f;
+        ln[u] = has_xp ? pl[i + nyz] : 0.0f;
+        if (x < x1 && yz_in && x >= 1 && x <= nx - 2) {
+          hyp[u] = ph[i + nz];
+          hym[u] = ph[i - nz];
+          hzp[u] = ph[i + 1];
+          hzm[u] = ph[i - 1];
+          lyp[u] = pl[i + nz];
+          lym[u] = pl[i - nz];
+          lzp[u] = pl[i + 1];
+          lzm[u] = pl[i - 1];
+          // rhs streams (evict first), so that hi and lo stay in L2
+          r[u] = __ldcs(rhs + i);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int x = xb + u;
+        if (x >= x1) continue;
+        const int i = x * nyz + col;
+        float* const dp = dcol + x * cols;
+        // K2's expressions in K2's order (poisson_iter_ext_kernel)
+        float d = 0.0f;
+        if (yz_in && x >= 1 && x <= nx - 2) {
+          const bool drop_xm = zero_grad_x && x == 1;
+          const float lap_h =
+              lap_folded(hn[u], hm, hyp[u], hym[u], hzp[u], hzm[u], hc,
+                         drop_xm, inv_dx2, wyp, wym, wzp, wzm);
+          const float lap_l =
+              lap_folded(ln[u], lm, lyp[u], lym[u], lzp[u], lzm[u], lc,
+                         drop_xm, inv_dx2, wyp, wym, wzp, wzm);
+          const float resid = (lap_h - r[u]) + lap_l;
+          d = *dp * decay + dtau * resid;
+          if (last) {
+            const unsigned int b = __float_as_uint(fabsf(resid));
+            bits = b > bits ? b : bits;
+          }
+        }
+        *dp = d;
+        const float uu = lc + dtau * d;
+        const float s = hc + uu;
+        const float ap = s - uu;
+        const float bp = s - ap;
+        qh[i] = s;
+        ql[i] = (hc - ap) + (uu - bp);
+        hm = hc;
+        hc = hn[u];
+        lm = lc;
+        lc = ln[u];
+      }
+    }
+    if (!last) grid.sync();
+  }
+#pragma unroll 4
+  for (int x = x0; x < x1; ++x) dpr[x * nyz + col] = dcol[x * cols];
+  bits = ns3d::block_max<kResidentExtThreads>(bits);
+  if (ns3d::thread_rank() == 0 && bits != 0u) atomicMax(err_bits, bits);
+}
+
+// The checks and the cooperative launch of K10 and K12 (kernel, blocks of
+// `threads` threads, its arguments `args`) under the wrapper's plan: z
+// cut into rows of kResidentLanes, y into cut_y parts, one block a region
+// (blocks = cut_y x cut_z, at most one per SM), the largest region's
+// column slots at most one a thread, their dpr through every plane
+// within smem. A refused launch returns its error
+// (cudaErrorNotSupported where the device has no cooperative launch,
+// cudaErrorCooperativeLaunchTooLarge where the blocks cannot all be
+// resident) and takes it back from the runtime; nothing falls back.
+cudaError_t launch_resident_grid(const void* kernel, int threads,
+                                 void** args, int nx, int ny, int nz,
+                                 int nit, int blocks, int cut_y, int cut_z,
+                                 int smem, cudaStream_t stream) {
+  if (nit < 1 || blocks < 1 || nx < 1 || ny < 1 || nz < 1 ||
+      static_cast<long>(nx) * ny * nz >= (1L << 31))
+    return cudaErrorInvalidValue;
+  if (cut_y < 1 || cut_y > ny ||
+      cut_z != (nz + kResidentLanes - 1) / kResidentLanes ||
+      static_cast<long>(cut_y) * cut_z != blocks)
+    return cudaErrorInvalidValue;
+  const long cols =
+      static_cast<long>((ny + cut_y - 1) / cut_y) * kResidentLanes;
+  if (cols > threads || 4L * cols * nx > smem) return cudaErrorInvalidValue;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return e;
+  }
+  if (!coop) return cudaErrorNotSupported;
+  if (static_cast<long>(per_sm) * sms < blocks)
+    return cudaErrorCooperativeLaunchTooLarge;
+  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(threads), args,
+                                  smem, stream);
+  // a refused call also leaves its error as the runtime's last one, which
+  // the next launch of any kernel would report: take it back
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return e;
+  }
+  return cudaGetLastError();
+}
+
 struct BCConsts {
   float inv_dx2, inv_dy2, inv_dz2, dtau, decay, z_lo_add, z_hi_add;
   int zero_grad_x;
@@ -1070,60 +1285,42 @@ extern "C" int ns3d_poisson_iter_ext_bc_dist(
 // (y, z) columns of y part b / cut_z and z part b % cut_z, scratch the
 // second pr buffer. smem: the dynamic shared memory per block the plan
 // asked for, which must hold the largest region's dpr. A refused launch
-// returns its error (cudaErrorNotSupported where the device has no
-// cooperative launch, cudaErrorCooperativeLaunchTooLarge where the blocks
-// cannot all be resident); nothing falls back to K1 launches.
+// returns its error (launch_resident_grid); nothing falls back to K1
+// launches.
 extern "C" int ns3d_poisson_iter_resident(
     float* pr, float* scratch, float* dpr, const float* rhs,
     const float* wyp, const float* wym, const float* wzp, const float* wzm,
     float inv_dx2, float dtau, float decay, int zero_grad_x, int nx, int ny,
     int nz, int nit, int blocks, int cut_y, int cut_z, int smem,
     unsigned int* err_bits, cudaStream_t stream) {
-  if (nit < 1 || blocks < 1 || nx < 1 || ny < 1 || nz < 1 ||
-      static_cast<long>(nx) * ny * nz >= (1L << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  // z cut into rows of kResidentLanes, y into cut_y parts; the largest
-  // region's column slots, at most one a thread, their dpr in smem
-  if (cut_y < 1 || cut_y > ny ||
-      cut_z != (nz + kResidentLanes - 1) / kResidentLanes ||
-      static_cast<long>(cut_y) * cut_z != blocks)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long cols =
-      static_cast<long>((ny + cut_y - 1) / cut_y) * kResidentLanes;
-  if (cols > kResidentThreads || 4L * cols * nx > smem)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Weights w{wyp, wym, wzp, wzm};
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(poisson_resident_grid_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, poisson_resident_grid_kernel, kResidentThreads, smem);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return static_cast<int>(e);
-  }
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  if (static_cast<long>(per_sm) * sms < blocks)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  void* args[] = {&pr, &scratch, &dpr, &rhs, const_cast<Weights*>(&w),
+  Weights w{wyp, wym, wzp, wzm};
+  void* args[] = {&pr, &scratch, &dpr, &rhs, &w, &inv_dx2, &dtau, &decay,
+                  &zero_grad_x, &nx, &ny, &nz, &nit, &cut_y, &cut_z,
+                  &err_bits};
+  return static_cast<int>(launch_resident_grid(
+      reinterpret_cast<const void*>(poisson_resident_grid_kernel),
+      kResidentThreads, args, nx, ny, nz, nit, blocks, cut_y, cut_z, smem,
+      stream));
+}
+
+// K12: nit of K2's iterations in one launch under K10's plan, the result
+// in hi and lo (the caller's tensors) and dpr, the check value of the
+// state entering the last iteration in err_bits (zeroed by the caller);
+// hi_scratch and lo_scratch the second buffers of the two words. A
+// refused launch returns its error; nothing falls back to K2 launches.
+extern "C" int ns3d_poisson_iter_resident_ext(
+    float* hi, float* lo, float* hi_scratch, float* lo_scratch, float* dpr,
+    const float* rhs, const float* wyp, const float* wym, const float* wzp,
+    const float* wzm, float inv_dx2, float dtau, float decay,
+    int zero_grad_x, int nx, int ny, int nz, int nit, int blocks,
+    int cut_y, int cut_z, int smem, unsigned int* err_bits,
+    cudaStream_t stream) {
+  Weights w{wyp, wym, wzp, wzm};
+  void* args[] = {&hi, &lo, &hi_scratch, &lo_scratch, &dpr, &rhs, &w,
                   &inv_dx2, &dtau, &decay, &zero_grad_x, &nx, &ny, &nz,
                   &nit, &cut_y, &cut_z, &err_bits};
-  e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(poisson_resident_grid_kernel),
-      dim3(blocks), dim3(kResidentThreads), args, smem, stream);
-  // a refused call also leaves its error as the runtime's last one, which
-  // the next launch of any kernel would report: take it back
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return static_cast<int>(e);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_resident_grid(
+      reinterpret_cast<const void*>(poisson_resident_ext_kernel),
+      kResidentExtThreads, args, nx, ny, nz, nit, blocks, cut_y, cut_z,
+      smem, stream));
 }

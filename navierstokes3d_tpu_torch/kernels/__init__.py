@@ -5,7 +5,8 @@ Every wrapper launches its kernel for CUDA tensors (building the library
 on first use, kernels/_build.py) and runs the plain version for CPU
 tensors. Each wrapper counts its launches (`wrapper.launches`) and each
 plain version its calls (`plain.calls`), so a run can show which path it
-took; K10's both count the iterations they advanced (`.iterations`).
+took; K10's and K12's both count the iterations they advanced
+(`.iterations`).
 """
 
 from __future__ import annotations
@@ -55,6 +56,11 @@ KERNELS = (
            "navierstokes3d_tpu_torch/csrc/poisson.cu",
            "navierstokes3d_tpu/kernels/poisson.py:1151",
            poisson.poisson_iter_resident, poisson.poisson_iter_resident_plain),
+    Kernel("K12 poisson_iter_resident_ext",
+           "navierstokes3d_tpu_torch/csrc/poisson.cu",
+           "none (K10's design carried over to K2)",
+           poisson.poisson_iter_resident_ext,
+           poisson.poisson_iter_resident_ext_plain),
     Kernel("K7-dist poisson_iter_bc_dist",
            "navierstokes3d_tpu_torch/csrc/poisson.cu",
            "navierstokes3d_tpu/kernels/poisson.py:914 (local_rows)",
@@ -72,11 +78,13 @@ def reset_counts() -> None:
     """Set every launch and plain-call count to 0 (also that of
     advect_branch, K5's kernel for one branch, off the main path, and of
     advect_branch_pre_plain, the per-branch part of K6's plain version),
-    and K10's iteration counts."""
+    and K10's and K12's iteration counts."""
     for k in KERNELS:
         k.wrapper.launches = 0
         k.plain.calls = 0
     poisson.poisson_iter_resident.iterations = 0
     poisson.poisson_iter_resident_plain.iterations = 0
+    poisson.poisson_iter_resident_ext.iterations = 0
+    poisson.poisson_iter_resident_ext_plain.iterations = 0
     advect.advect_branch.launches = 0
     advect.advect_branch_pre_plain.calls = 0

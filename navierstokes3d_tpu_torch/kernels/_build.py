@@ -59,6 +59,11 @@ SIGNATURES = {
     # parts, z parts), smem bytes; err_bits, stream
     "ns3d_poisson_iter_resident": (*(_P,) * 8, _F, _F, _F, *(_I,) * 9, _P,
                                    _P),
+    # hi, lo, hi_scratch, lo_scratch, dpr, rhs, wyp, wym, wzp, wzm,
+    # inv_dx2, dtau, decay, zero_grad_x, nx, ny, nz, nit, then the plan:
+    # blocks, the cut (y parts, z parts), smem bytes; err_bits, stream
+    "ns3d_poisson_iter_resident_ext": (*(_P,) * 10, _F, _F, _F,
+                                       *(_I,) * 9, _P, _P),
     # pr, dpr, rhs, pr_out, dpr_out, xlo (nullable), xhi (nullable),
     # inv_dx2, inv_dy2, inv_dz2, dtau, decay, z_lo_add, z_hi_add,
     # zero_grad_x, nx, ny, nz, then the plan: tiles_y, tiles_z; stream

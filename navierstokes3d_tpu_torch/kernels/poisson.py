@@ -1,15 +1,16 @@
 """K1, the folded-BC pseudo-transient Poisson iteration, K8, s of them per
 launch, K10, nit of them in one launch resident on chip, K2, its double-single
-(hi, lo) form, K7, the iteration with the boundary conditions applied
-in-kernel (compat mode and the dma-mode solve), and the residual
-evaluations of the Poisson solve.
+(hi, lo) form, K12, nit of K2's in one launch resident on chip, K7, the
+iteration with the boundary conditions applied in-kernel (compat mode and
+the dma-mode solve), and the residual evaluations of the Poisson solve.
 
 `poisson_iter`, `poisson_iter_sweeps`, `poisson_iter_resident`,
-`poisson_iter_ext` and `poisson_iter_bc` launch the CUDA kernels of
-csrc/poisson.cu for CUDA tensors and run `poisson_iter_plain`,
-`poisson_iter_sweeps_plain`, `poisson_iter_resident_plain`,
-`poisson_iter_ext_plain` and `poisson_iter_bc_plain`, their plain PyTorch
-versions, for CPU tensors.
+`poisson_iter_ext`, `poisson_iter_resident_ext` and `poisson_iter_bc`
+launch the CUDA kernels of csrc/poisson.cu for CUDA tensors and run
+`poisson_iter_plain`, `poisson_iter_sweeps_plain`,
+`poisson_iter_resident_plain`, `poisson_iter_ext_plain`,
+`poisson_iter_resident_ext_plain` and `poisson_iter_bc_plain`, their plain
+PyTorch versions, for CPU tensors.
 K1 computes the Pallas kernel's iteration (navierstokes3d_tpu/kernels/
 poisson.py:914, `compute_slab_folded` :305) on the canonical 3D layout:
 
@@ -49,6 +50,15 @@ plan and the sweep plan is off (models/chorin.py `_folded_loop`);
 `make_resident` and ptloop.pt_loop_fused's `seed0` compose it with a K1
 loop as the JAX package does. Both versions count the iterations they
 advanced (`.iterations`) beside their launches or calls.
+
+K12 replaces no TPU kernel: it is K10's design carried over to K2, nit of
+K2's iterations in one launch under K10's plan (`resident_plan`), hi, lo
+and dpr updated in place, bitwise equal to nit K2 launches, emitting the
+check value entering the last one. It keeps dpr in shared memory and
+moves 20 B a cell and iteration where K2 moves 28. The extended accuracy
+phase runs one K12 launch per check interval wherever the grid has a
+plan (models/chorin.py `_poisson_solve_extended`); K2 runs the rest.
+Both versions count their iterations (`.iterations`), as K10's do.
 
 K7 (:914 with folded=False, `compute_slab` :334, `apply_bc_rows` :257) is
 the reference's own loop body: the unfolded iteration on every interior
@@ -623,12 +633,10 @@ def make_resident(nit: int, shape: Optional[Tuple[int, int, int]] = None,
 
 # ---- K2: the double-single iteration ----
 
-def poisson_iter_ext_plain(hi, lo, hi_out, lo_out, dpr, rhs,
-                           op: PoissonOperator,
-                           check: bool) -> Optional[torch.Tensor]:
-    """Plain PyTorch version of K2 (same arguments and effects as
-    poisson_iter_ext)."""
-    poisson_iter_ext_plain.calls += 1
+def _ext_math(hi, lo, hi_out, lo_out, dpr, rhs, op: PoissonOperator,
+              check: bool) -> Optional[torch.Tensor]:
+    """K2's arithmetic, uncounted (poisson_iter_ext_plain and
+    poisson_iter_resident_ext_plain)."""
     lap_h, _ = _lap_folded(hi, op)
     lap_l, _ = _lap_folded(lo, op)
     resid = (lap_h - rhs[INNER]) + lap_l
@@ -642,6 +650,15 @@ def poisson_iter_ext_plain(hi, lo, hi_out, lo_out, dpr, rhs,
     hi_out.copy_(s)
     lo_out.copy_((hi - ap) + (u - bp))
     return torch.max(torch.abs(resid)) if check else None
+
+
+def poisson_iter_ext_plain(hi, lo, hi_out, lo_out, dpr, rhs,
+                           op: PoissonOperator,
+                           check: bool) -> Optional[torch.Tensor]:
+    """Plain PyTorch version of K2 (same arguments and effects as
+    poisson_iter_ext)."""
+    poisson_iter_ext_plain.calls += 1
+    return _ext_math(hi, lo, hi_out, lo_out, dpr, rhs, op, check)
 
 
 poisson_iter_ext_plain.calls = 0
@@ -683,6 +700,121 @@ def poisson_iter_ext(hi, lo, hi_out, lo_out, dpr, rhs, op: PoissonOperator,
 
 
 poisson_iter_ext.launches = 0
+
+
+# ---- K12: nit of K2's iterations in one launch, resident on chip ----
+
+# K12's blocks (csrc/poisson.cu kResidentExtThreads): at most one column
+# slot a thread, so K12 runs under those of K10's plans whose blocks hold
+# at most this many slots (all of them on the presets' grids)
+RESIDENT_EXT_THREADS = 768
+
+
+def resident_ext_fits(plan: Optional[ResidentPlan]) -> bool:
+    """Whether K12 runs under K10's plan `plan` (None: no plan): its
+    blocks of RESIDENT_EXT_THREADS threads hold the plan's column slots.
+    At 255x153x153 (192 slots) and 63x38x38 (32) they do; a plan of more
+    than RESIDENT_EXT_THREADS slots needs a grid of at most 72 planes
+    with more than 24 y rows in a block's region, such as 8x1650x33."""
+    return plan is not None and plan.per_block <= RESIDENT_EXT_THREADS
+
+
+def poisson_iter_resident_ext_plain(hi, lo, dpr, rhs, op: PoissonOperator,
+                                    nit: int, hi_scratch=None,
+                                    lo_scratch=None) -> torch.Tensor:
+    """Plain PyTorch version of K12 (same arguments and effects as
+    poisson_iter_resident_ext): K2's arithmetic nit times, only the last
+    iteration checked, hi and lo ping-ponging with their scratch."""
+    _check_nit(nit, "poisson_iter_resident_ext_plain")
+    poisson_iter_resident_ext_plain.calls += 1
+    poisson_iter_resident_ext_plain.iterations += int(nit)
+    sh = torch.empty_like(hi) if hi_scratch is None else hi_scratch
+    sl = torch.empty_like(lo) if lo_scratch is None else lo_scratch
+    # as the kernel (and K10's plain version): for an odd nit both words
+    # are first copied into the scratch, so that the last iteration
+    # writes the caller's hi and lo
+    src, dst = (hi, lo), (sh, sl)
+    if nit % 2:
+        sh.copy_(hi)
+        sl.copy_(lo)
+        src, dst = dst, src
+    for j in range(nit):
+        err = _ext_math(*src, *dst, dpr, rhs, op, j == nit - 1)
+        src, dst = dst, src
+    return err
+
+
+poisson_iter_resident_ext_plain.calls = 0
+poisson_iter_resident_ext_plain.iterations = 0
+
+
+def poisson_iter_resident_ext(hi, lo, dpr, rhs, op: PoissonOperator,
+                              nit: int, hi_scratch=None,
+                              lo_scratch=None) -> torch.Tensor:
+    """nit PT iterations of the (hi, lo) pressure pair in one launch
+    resident on chip, bitwise equal to nit poisson_iter_ext calls: hi, lo
+    and dpr are updated in place (the result lands in the caller's hi and
+    lo; hi_scratch and lo_scratch, tensors of hi's shape that alias no
+    operand, take the other half of each word's ping-pong and are
+    allocated when None). Returns the max |resid| over interior cells of
+    the state entering the LAST iteration (a 0-dim tensor on the device):
+    what poisson_iter_ext returns when called with check=True on that
+    iteration. CUDA tensors launch the kernel under K10's plan
+    (`resident_plan`), and raise where the grid has none that K12's
+    blocks hold (`resident_ext_fits`) or the card refuses the launch; CPU
+    tensors run the plain version."""
+    _check_nit(nit, "poisson_iter_resident_ext")
+    if not _build.on_cuda(hi, "poisson_iter_resident_ext"):
+        return poisson_iter_resident_ext_plain(hi, lo, dpr, rhs, op, nit,
+                                               hi_scratch, lo_scratch)
+    plan = resident_plan(tuple(hi.shape), resident_sms(hi.device))
+    if not resident_ext_fits(plan):
+        raise ValueError(f"poisson_iter_resident_ext: no resident plan for "
+                         f"a grid of {tuple(hi.shape)} that K12's blocks "
+                         f"hold ({plan})")
+    return launch_resident_ext(hi, lo, dpr, rhs, op, nit, plan, hi_scratch,
+                               lo_scratch)
+
+
+def launch_resident_ext(hi, lo, dpr, rhs, op: PoissonOperator, nit: int,
+                        plan: ResidentPlan, hi_scratch=None,
+                        lo_scratch=None) -> torch.Tensor:
+    """One K12 launch under a given plan (poisson_iter_resident_ext takes
+    `resident_plan`'s; the card tests force others): the operand checks,
+    the launch, the counts."""
+    _check_nit(nit, "launch_resident_ext")
+    dev = hi.device
+    if hi_scratch is None:
+        hi_scratch = torch.empty_like(hi)
+    if lo_scratch is None:
+        lo_scratch = torch.empty_like(lo)
+    _check_operands(op, hi.shape, dev, hi=hi, lo=lo, dpr=dpr, rhs=rhs,
+                    hi_scratch=hi_scratch, lo_scratch=lo_scratch)
+    ptrs = [t.data_ptr() for t in (hi, lo, dpr, rhs, hi_scratch,
+                                   lo_scratch)]
+    if len(set(ptrs)) != 6:
+        raise ValueError("poisson_iter_resident_ext: hi, lo, dpr, rhs and "
+                         "the two scratch tensors must be distinct")
+    err = torch.zeros((1,), dtype=torch.int32, device=dev)
+    nx, ny, nz = hi.shape
+    lib = _build.load()
+    rc = lib.ns3d_poisson_iter_resident_ext(
+        hi.data_ptr(), lo.data_ptr(), hi_scratch.data_ptr(),
+        lo_scratch.data_ptr(), dpr.data_ptr(), rhs.data_ptr(),
+        op.wyp.data_ptr(), op.wym.data_ptr(), op.wzp.data_ptr(),
+        op.wzm.data_ptr(), ctypes.c_float(op.inv_dx2),
+        ctypes.c_float(op.dtau), ctypes.c_float(op.decay),
+        int(op.zero_grad_x), nx, ny, nz, int(nit),
+        plan.blocks, *plan.cut, plan.smem_bytes, err.data_ptr(),
+        _build.stream_of(hi))
+    _build.check(rc, "poisson_iter_resident_ext")
+    poisson_iter_resident_ext.launches += 1
+    poisson_iter_resident_ext.iterations += int(nit)
+    return err.view(torch.float32)[0]
+
+
+poisson_iter_resident_ext.launches = 0
+poisson_iter_resident_ext.iterations = 0
 
 
 # ---- K7: the iteration with the BCs applied in-kernel ----

@@ -24,8 +24,9 @@ and NavierStokes3D_multi_gpu.jl:383-444):
      of one K1, with the same iterations and check values
      (`sweep_depths`, `_sweep_plan`); elsewhere, where K10 has a plan
      for the grid (`_resident_plan`: 255x153x153, 63x38x38), one K10
-     launch per check interval, again with the same iterations and
-     check values
+     launch per check interval, and the extended phase one K12 launch
+     per check interval instead of K2's, again with the same iterations
+     and check values
   3. fused corrector + cylinder mask + the variant's velocity BCs (K4)
   4. four semi-Lagrangian advection branches (K5)
 
@@ -237,21 +238,22 @@ class ChorinSolver:
         kp = k_poisson
         (self._poisson_iter, self._poisson_iter_sweeps,
          self._poisson_iter_resident, self._poisson_iter_ext,
-         self._poisson_iter_bc) = (
+         self._poisson_iter_resident_ext, self._poisson_iter_bc) = (
             (kp.poisson_iter_plain, kp.poisson_iter_sweeps_plain,
              kp.poisson_iter_resident_plain, kp.poisson_iter_ext_plain,
-             kp.poisson_iter_bc_plain)
+             kp.poisson_iter_resident_ext_plain, kp.poisson_iter_bc_plain)
             if self.plain else
             (kp.poisson_iter, kp.poisson_iter_sweeps,
              kp.poisson_iter_resident, kp.poisson_iter_ext,
-             kp.poisson_iter_bc))
+             kp.poisson_iter_resident_ext, kp.poisson_iter_bc))
         # the sweep depths the folded loops may run K8 at; () keeps them on
         # 1-iteration K1 bodies (the JAX default, see sweep_depths)
         self._sweep_depths = sweep_depths(grid.ny, grid.nz)
         # K10's plan for this grid on this device (kernels/poisson.py
         # resident_plan): where the sweep plan is off, the folded loops run
-        # one K10 launch per check interval; None keeps the K1 bodies. The
-        # plain solver (float64) keeps its K1 bodies
+        # one K10 launch per check interval, and the extended phase one K12
+        # launch; None keeps the K1 and K2 bodies. The plain solver
+        # (float64) keeps its K1 bodies
         self._resident_plan = (
             None if self.plain else
             kp.resident_plan(grid.shape_c, kp.resident_sms(self.device)))
@@ -735,7 +737,6 @@ class ChorinSolver:
             the flagged K1 launch would emit;
           * else one K1 iteration."""
         nchk = self.grid.nchk
-        nchunks = n_checked // nchk
         if rem and it0 > n_checked:
             # the tail starts where the budget ends, so the budget must
             # reach it0: make_grid's niter is at least max(ny, nz) > nchk
@@ -766,15 +767,24 @@ class ChorinSolver:
                 return c, ec * err_scale, nit
         else:
             body = chain
+        return self._fused(body, chain, carry, it0, n_checked, rem, eps,
+                           stall, err0)
+
+    def _fused(self, body, chain, carry, it0: int, n_checked: int, rem: int,
+               eps, stall, err0=None):
+        """pt_loop_fused of `body` from global iteration it0 over a budget
+        of n_checked iterations, then `rem` single iterations of `chain`
+        as its tail."""
+        nchk = self.grid.nchk
 
         def tail(c):
             for _ in range(rem):
                 c = chain(c, 0)[0]       # it=0: no check flag
             return c
 
-        return pt_loop_fused(body, carry, it0, n_checked, nchk, nchunks, eps,
-                             self.dtype, stall=stall, err0=err0, rem=rem,
-                             tail_fn=tail)
+        return pt_loop_fused(body, carry, it0, n_checked, nchk,
+                             n_checked // nchk, eps, self.dtype, stall=stall,
+                             err0=err0, rem=rem, tail_fn=tail)
 
     def _poisson_solve_defect(self, pr, dprdtau, divv):
         """The folded + defect branch of the JAX package's
@@ -848,10 +858,37 @@ class ChorinSolver:
                     None if ec is None else ec * err_scale, 1)
         return step
 
+    def _ext_loop(self, chain, rhs, err_scale, carry, nchunks: int,
+                  rem: int, eps):
+        """pt_loop_fused over the (hi, lo) iteration from global iteration
+        0 with a budget of nchunks checks, on the carry (hi, lo, hi_out,
+        lo_out, dpr) with the result in carry[0] and carry[1]; the
+        trailing `rem` iterations run as single iterations of `chain`
+        (`_ext_chain`, K2) after the loop where it ends on its budget
+        unconverged and not stalled. The body is chosen once: where K10
+        has a plan for the grid (`_resident_plan`) that K12's blocks hold
+        (kernels/poisson.py `resident_ext_fits`: every plan on the presets'
+        grids), one K12 launch from global iteration it to the next check
+        (nit = nchk - it % nchk, hi, lo and dpr in place, carry[2] and
+        carry[3] its scratch); else `chain`. Both take the same iterations
+        and check values."""
+        nchk = self.grid.nchk
+        if k_poisson.resident_ext_fits(self._resident_plan):
+            def body(c, it):
+                nit = nchk - it % nchk
+                ec = self._poisson_iter_resident_ext(
+                    c[0], c[1], c[4], rhs, self._op, nit, c[2], c[3])
+                return c, ec * err_scale, nit
+        else:
+            body = chain
+        return self._fused(body, chain, carry, 0, nchunks * nchk, rem, eps,
+                           self._stall)
+
     def _poisson_solve_extended(self, pr, dprdtau, divv):
         """The folded + extended hybrid branch of the JAX package's
         `_poisson_solve_pallas` (chorin.py:1127-1298 phase 1, on
-        `_folded_loop`'s K10, K8 or K1 bodies; :1464-1607 phase 2, K2)."""
+        `_folded_loop`'s K10, K8 or K1 bodies; :1464-1607 phase 2, on
+        `_ext_loop`'s K12 or K2 bodies)."""
         num, nchk = self.cfg.numerics, self.grid.nchk
         eps_it = num.eps_it
         nchunks, rem = self._budget()
@@ -884,9 +921,8 @@ class ChorinSolver:
         with span("ns3d.poisson.phase2"):
             carry = (p1, torch.zeros_like(p1), torch.empty_like(p1),
                      torch.empty_like(p1), dpr)
-            carry, it2, err, hist2 = pt_loop_fused(
-                chain2, carry, 0, n2, nchk, nchunks, eps_it, self.dtype,
-                stall=self._stall)
+            carry, it2, err, hist2 = self._ext_loop(
+                chain2, rhs3d, err_scale, carry, nchunks, rem, eps_it)
 
         def pair_of(carry):
             return self.set_bc_pr_pair(carry[0], carry[1])

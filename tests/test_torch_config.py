@@ -139,7 +139,8 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
     monkeypatch.setattr(_build, "build", refuse)
     kernels.reset_counts()
     gpu = nt.preset_gpu(nx=15, compat=False, dtype="float32")
-    # the multi preset at eps_it=1e-9 runs K2 in its first step
+    # the multi preset at eps_it=1e-9 runs its accuracy phase in its first
+    # step: on K12 (its route), and on K2 with the route off (below)
     multi = nt.preset_multi(nx=15, compat=False, dtype="float32")
     multi = multi.replace(numerics=dataclasses.replace(multi.numerics,
                                                        eps_it=1e-9))
@@ -153,6 +154,9 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
         assert stats.iters > 0
         if cfg is multi:
             assert stats.iters_ext > 0
+    s = nt.ChorinSolver(multi, device="cpu")
+    s._resident_plan = None
+    assert s.step(s.init_state())[1].iters_ext > 0
     # the sharded step on an x-only mesh runs K2-dist, and K7-dist in
     # compat mode
     mesh = make_mesh((3, 1, 1), "cpu")
@@ -196,4 +200,5 @@ def test_build_sources_and_key():
         "ns3d_poisson_iter", "ns3d_poisson_iter_ext", "ns3d_poisson_iter_bc",
         "ns3d_poisson_iter_sweeps", "ns3d_predict", "ns3d_correct",
         "ns3d_advect", "ns3d_poisson_iter_bc_dist",
-        "ns3d_poisson_iter_ext_bc_dist", "ns3d_poisson_iter_resident"}
+        "ns3d_poisson_iter_ext_bc_dist", "ns3d_poisson_iter_resident",
+        "ns3d_poisson_iter_resident_ext"}

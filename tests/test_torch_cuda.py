@@ -405,10 +405,11 @@ def test_step_on_card_matches_cpu(preset):
         for name in ("pr", "vx", "vy", "vz", "c", "dprdtau", "pr_lo"):
             assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
     # nx=15 is no wide grid: the sweep plan is off and K8 does not launch;
-    # the folded loops run one K10 launch per check interval (no K1 runs:
-    # no solve exhausts its budget or exits marginally); K7 (compat) and
-    # the dist kernels (sharded solves) are off this path
-    on_path = {"K10", "K3", "K4", "K5"} | ({"K2"} if preset == "multi"
+    # the folded loops run one K10 launch per check interval and the
+    # extended phase one K12 launch (no K1 or K2 runs: no solve exhausts
+    # its budget or exits marginally); K7 (compat) and the dist kernels
+    # (sharded solves) are off this path
+    on_path = {"K10", "K3", "K4", "K5"} | ({"K12"} if preset == "multi"
                                            else set())
     for k in kernels.KERNELS:
         assert ((k.wrapper.launches > 0)
@@ -907,12 +908,13 @@ def test_k10_refused_launches_raise():
 
 def test_k10_route_at_255_is_k1_route():
     """Step 1 of the multi preset at 255x153x153 from init_state with the
-    folded loops' K10 route on (one K10 launch per check interval) and
-    off (`_resident_plan = None`: K1 bodies): the same 3192 iterations,
-    err and check history, every field bitwise equal; phase 1's 2887
-    iterations after the exact first one are 19 K10 launches (151
-    iterations, then 152 each), and 2887 K1 launches with the route
-    off."""
+    folded loops' K10 route and the extended phase's K12 route on (one
+    launch per check interval) and off (`_resident_plan = None`: K1 and
+    K2 bodies): the same 3192 iterations, err and check history, every
+    field bitwise equal; phase 1's 2887 iterations after the exact first
+    one are 19 K10 launches (151 iterations, then 152 each), and 2887 K1
+    launches with the route off; the extended phase's 304 iterations are
+    2 K12 launches, and 304 K2 launches with the route off."""
     on = _solver(255, "multi")
     assert on._resident_plan is not None
     off = nt.ChorinSolver(on.cfg, device="cuda")
@@ -921,15 +923,181 @@ def test_k10_route_at_255_is_k1_route():
     b, sb = off.step(off.init_state())
     assert (kp.poisson_iter.launches, kp.poisson_iter_resident.launches) == (
         2887, 0)
+    assert (kp.poisson_iter_ext.launches,
+            kp.poisson_iter_resident_ext.launches) == (304, 0)
     kernels.reset_counts()
     a, sa = on.step(on.init_state())
     assert (kp.poisson_iter.launches, kp.poisson_iter_resident.launches,
             kp.poisson_iter_resident.iterations) == (0, 19, 2887)
+    assert (kp.poisson_iter_ext.launches,
+            kp.poisson_iter_resident_ext.launches,
+            kp.poisson_iter_resident_ext.iterations) == (0, 2, 304)
     assert sa.iters == sb.iters == 3192
     assert (sa.iters_ext, sa.err) == (sb.iters_ext, sb.err)
     np.testing.assert_array_equal(sa.err_hist, sb.err_hist)
     for name in ("pr", "vx", "vy", "vz", "c", "dprdtau", "pr_lo"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+def _k12_inputs(shape, seed=9):
+    """A pressure pair (lo at the rounding level of hi), dpr and rhs,
+    seeded, on the card."""
+    rng = np.random.default_rng(seed)
+    return (_rand(rng, shape, 50.0), _rand(rng, shape, 50.0 * 2.0 ** -24),
+            _rand(rng, shape, 0.01), _rand(rng, shape))
+
+
+def _k12_against_k2(shape, op, nit, plan=None):
+    """K12 (under `plan`, or resident_plan's) from seeded inputs, NaN in
+    both scratch tensors, against nit K2 launches (the check on the last)
+    and the plain version: hi, lo, dpr and the check value bitwise, the
+    result in the caller's tensors."""
+    hi, lo, dpr, rhs = _k12_inputs(shape)
+    h, l, d = hi.clone(), lo.clone(), dpr.clone()
+    sh, sl = (torch.full_like(hi, float("nan")) for _ in range(2))
+    if plan is None:
+        e = kp.poisson_iter_resident_ext(h, l, d, rhs, op, nit, sh, sl)
+    else:
+        e = kp.launch_resident_ext(h, l, d, rhs, op, nit, plan, sh, sl)
+    q = (hi.clone(), lo.clone(), torch.empty_like(hi), torch.empty_like(lo))
+    dq = dpr.clone()
+    for j in range(nit):
+        e2 = kp.poisson_iter_ext(*q, dq, rhs, op, j == nit - 1)
+        q = (q[2], q[3], q[0], q[1])
+    hp, lp, dp = hi.clone(), lo.clone(), dpr.clone()
+    ep = kp.poisson_iter_resident_ext_plain(hp, lp, dp, rhs, op, nit)
+    assert torch.equal(h, q[0]) and torch.equal(l, q[1])
+    assert torch.equal(d, dq)
+    assert torch.equal(h, hp) and torch.equal(l, lp) and torch.equal(d, dp)
+    assert float(e) == float(e2) == float(ep)
+
+
+@pytest.mark.parametrize("nx,nit", [(63, 1), (63, 2), (63, 37), (63, 38),
+                                    (255, 151), (255, 152)])
+def test_k12_matches_k2_launches_and_plain(nx, nit):
+    """K12 at 63x38x38 and 255x153x153 under resident_plan's plan with
+    the multi preset's operator: one launch bitwise equal to nit K2
+    launches and to its plain version, odd and even nit."""
+    solver = _solver(nx, "multi")
+    assert solver._resident_plan is not None
+    _k12_against_k2(solver.grid.shape_c, solver._op, nit)
+
+
+@pytest.mark.parametrize("nit", [1, 2, 7])
+@pytest.mark.parametrize("shape,cut_y", [((40, 25, 70), None),
+                                         ((33, 17, 65), None),
+                                         ((12, 9, 33), None),
+                                         ((40, 24, 70), 1),
+                                         ((33, 17, 65), 2),
+                                         ((12, 20, 31), 5),
+                                         ((12, 9, 33), 3),
+                                         ((7, 3, 3), 3)])
+def test_k12_forced_plans(nit, shape, cut_y):
+    """K12 on K10's ragged grids (z one past a row of 32 lanes, or short
+    of one) under resident_plan's plan and forced cuts (all 24 rows a
+    block: 768 column slots, one a thread, one run of all 40 planes; z
+    within one row; a few blocks), both x-lo conditions: bitwise equal to
+    nit K2 launches and the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    sms = _build.sm_count(torch.device("cuda"))
+    plan = (kp.resident_plan(shape, sms) if cut_y is None
+            else _grid_plan(shape, cut_y))
+    assert plan is not None
+    for zero_grad_x in (False, True):
+        _k12_against_k2(shape, _k10_operator(shape, zero_grad_x), nit, plan)
+
+
+@pytest.mark.parametrize("nit", [1, 2, 3])
+@pytest.mark.parametrize("below", [0, 1])
+def test_k12_at_its_x_limit(nit, below):
+    """K12 on 38x38 planes at the most planes K10's plan holds (one y row
+    of 32 z a block, their dpr through every plane filling a block's
+    shared memory) and one plane below it: bitwise equal to nit K2
+    launches and the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    sms = kp.resident_sms(torch.device("cuda"))
+    columns = kp.resident_plan((1, 38, 38), sms).per_block
+    limit = (kp.SMEM_LIMIT - kp.RESIDENT_STATIC_SMEM) // (4 * columns)
+    shape = (limit - below, 38, 38)
+    plan = kp.resident_plan(shape, sms)
+    assert plan.per_block == columns
+    _k12_against_k2(shape, _k10_operator(shape, True), nit, plan)
+
+
+def test_k12_is_deterministic_at_63():
+    """Twenty K12 launches at 63x38x38 (nit 37) from the same seeded
+    state give the same hi, lo, dpr and check value. (A grid barrier
+    that let a block read its neighbours' words early would show here now
+    and then.)"""
+    solver = _solver(63, "multi")
+    hi, lo, dpr, rhs = _k12_inputs(solver.grid.shape_c)
+    want = None
+    for _ in range(20):
+        h, l, d = hi.clone(), lo.clone(), dpr.clone()
+        e = float(kp.poisson_iter_resident_ext(h, l, d, rhs, solver._op,
+                                               37))
+        if want is None:
+            want = (h, l, d, e)
+        assert torch.equal(h, want[0]) and torch.equal(l, want[1])
+        assert torch.equal(d, want[2]) and e == want[3]
+
+
+def test_k12_refused_launches_raise():
+    """Operands the wrapper refuses (aliased, of another dtype or shape),
+    a plan the card refuses and a grid with no resident plan raise, with
+    no count, no plain version and no K2 launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    shape = (12, 9, 33)
+    op = _k10_operator(shape)
+    hi, lo, dpr, rhs = _k12_inputs(shape)
+    kernels.reset_counts()
+    run = kp.poisson_iter_resident_ext
+    aliased = ((hi, hi, dpr, rhs, None, None),      # lo is hi
+               (hi, lo, dpr, dpr, None, None),      # rhs is dpr
+               (hi, lo, dpr, rhs, hi, None),        # hi's scratch is hi
+               (hi, lo, dpr, rhs, None, lo),        # lo's scratch is lo
+               (hi, lo, dpr, rhs, rhs, None))       # a scratch is rhs
+    for h, l, d, r, sh, sl in aliased:
+        with pytest.raises(ValueError, match="distinct"):
+            run(h, l, d, r, op, 3, sh, sl)
+    wrong = ((hi.double(), lo, dpr, rhs, None, None),
+             (hi, lo, dpr[:-1].contiguous(), rhs, None, None),
+             (hi, lo, dpr, rhs, torch.empty(1, device="cuda"), None),
+             (hi, lo, dpr, rhs, None, lo.cpu()),
+             (hi, lo.transpose(1, 2).contiguous().transpose(1, 2), dpr,
+              rhs, None, None))
+    for h, l, d, r, sh, sl in wrong:
+        with pytest.raises(ValueError):
+            run(h, l, d, r, op, 3, sh, sl)
+    with pytest.raises(ValueError, match="nit"):
+        run(hi, lo, dpr, rhs, op, 0)
+    # a cut whose blocks are not the plan's
+    with pytest.raises(RuntimeError, match="poisson_iter_resident_ext"):
+        kp.launch_resident_ext(hi, lo, dpr, rhs, op, 3, kp.ResidentPlan(
+            5, 160, kp.RESIDENT_SOLO_SMEM, (2, 2)))
+    # K10's plan for a region of 25 rows of 32 lanes (800 column slots),
+    # more than K12's blocks hold: the C entry refuses a forced launch,
+    # the wrapper the grid
+    sms = _build.sm_count(torch.device("cuda"))
+    tall = (4, sms // 2 * 24 + 1, 33)
+    plan = kp.resident_plan(tall, sms)
+    assert plan.per_block == 800 and not kp.resident_ext_fits(plan)
+    t = _k12_inputs(tall)
+    with pytest.raises(RuntimeError, match="poisson_iter_resident_ext"):
+        kp.launch_resident_ext(*t, _k10_operator(tall), 3, plan)
+    with pytest.raises(ValueError, match="no resident plan"):
+        run(*t, _k10_operator(tall), 3)
+    room = kp.SMEM_LIMIT - kp.RESIDENT_STATIC_SMEM
+    columns = kp.resident_plan((255, 153, 153), sms).per_block
+    big = (room // (4 * columns) + 1, 153, 153)
+    p = torch.zeros(big, device="cuda")
+    with pytest.raises(ValueError, match="no resident plan"):
+        run(p, p.clone(), p.clone(), p.clone(), _k10_operator(big), 2)
+    for k in kernels.KERNELS:
+        assert k.wrapper.launches == 0 and k.plain.calls == 0, k.name
 
 
 @pytest.mark.parametrize("preset", ["gpu", "multi"])
