@@ -5,7 +5,7 @@ Every wrapper launches its kernel for CUDA tensors (building the library
 on first use, kernels/_build.py) and runs the plain version for CPU
 tensors. Each wrapper counts its launches (`wrapper.launches`) and each
 plain version its calls (`plain.calls`), so a run can show which path it
-took; K10's and K12's both count the iterations they advanced
+took; K8's, K10's and K12's also count the iterations they advanced
 (`.iterations`).
 """
 
@@ -78,10 +78,12 @@ def reset_counts() -> None:
     """Set every launch and plain-call count to 0 (also that of
     advect_branch, K5's kernel for one branch, off the main path, and of
     advect_branch_pre_plain, the per-branch part of K6's plain version),
-    and K10's and K12's iteration counts."""
+    and K8's, K10's and K12's iteration counts."""
     for k in KERNELS:
         k.wrapper.launches = 0
         k.plain.calls = 0
+    poisson.poisson_iter_sweeps.iterations = 0
+    poisson.poisson_iter_sweeps_plain.iterations = 0
     poisson.poisson_iter_resident.iterations = 0
     poisson.poisson_iter_resident_plain.iterations = 0
     poisson.poisson_iter_resident_ext.iterations = 0

@@ -36,7 +36,8 @@ K8 (:836, `kernelS` :756, the lane-tiled s-sweep; :1007, `kernel2` :967,
 the untiled two-sweep) runs s of K1's iterations per launch with pr and
 dpr both ping-ponged, bitwise equal to s K1 launches, and emits the
 residual entering the last one: the check value the s-th K1 launch would
-emit, so the convergence loop takes the same decisions.
+emit, so the convergence loop takes the same decisions. Both versions
+count the iterations they advanced (`.iterations`, s a launch or call).
 
 K10 (:1151, `kernelR` :1116, `make_resident` :1066) advances nit folded
 iterations in one launch with pr and dpr updated in place, bitwise equal
@@ -273,6 +274,7 @@ def poisson_iter_sweeps_plain(pr, dpr, rhs, pr_out, dpr_out,
     dpr_out."""
     _check_sweeps(s, "poisson_iter_sweeps_plain")
     poisson_iter_sweeps_plain.calls += 1
+    poisson_iter_sweeps_plain.iterations += s
     dpr_out.copy_(dpr)
     spare = torch.empty_like(pr)
     p = pr
@@ -285,6 +287,7 @@ def poisson_iter_sweeps_plain(pr, dpr, rhs, pr_out, dpr_out,
 
 
 poisson_iter_sweeps_plain.calls = 0
+poisson_iter_sweeps_plain.iterations = 0
 
 
 # K8's launch geometry (csrc/poisson.cu, the K8 section): a block of
@@ -424,10 +427,12 @@ def launch_sweeps(pr, dpr, rhs, pr_out, dpr_out, op: PoissonOperator,
         _build.stream_of(pr))
     _build.check(rc, "poisson_iter_sweeps")
     poisson_iter_sweeps.launches += 1
+    poisson_iter_sweeps.iterations += plan.s
     return err.view(torch.float32)[0] if check else None
 
 
 poisson_iter_sweeps.launches = 0
+poisson_iter_sweeps.iterations = 0
 
 
 # ---- K10: nit folded iterations in one launch, resident on chip ----

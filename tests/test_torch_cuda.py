@@ -442,6 +442,27 @@ def test_sweep_plan_step_on_card_matches_cpu(preset):
     assert k8.wrapper.launches > 0
 
 
+def test_wide_grid_step_runs_on_k8():
+    """One gpu step at 511x307x307 on the normal path: the sweep plan is on
+    at s = 3, and K8 carries over 99% of the step's Poisson iterations by
+    its wrapper's counter; the rest are K1 launches (the warm-in's one,
+    the guarantee's) and the exact first iteration. No resident kernel
+    and no K2 launch."""
+    solver = _solver(511)
+    g = solver.grid
+    assert solver._sweep_plan((g.niter // g.nchk) * g.nchk) == 3
+    kernels.reset_counts()
+    st, stats = solver.step(solver.init_state())
+    n8 = kp.poisson_iter_sweeps.iterations
+    assert n8 == 3 * kp.poisson_iter_sweeps.launches - 2   # two K8(2)
+    assert n8 == stats.iters - kp.poisson_iter.launches - 1
+    assert n8 > 0.99 * stats.iters
+    assert stats.err < 1e-3 and bool(torch.isfinite(st.pr).all())
+    for k in (kp.poisson_iter_resident, kp.poisson_iter_resident_ext,
+              kp.poisson_iter_ext):
+        assert k.launches == 0
+
+
 @pytest.mark.parametrize("preset", ["gpu", "multi"])
 def test_compat_step_on_card_matches_cpu(preset):
     """Two compat float32 steps at nx=15: K7 is the only kernel launched,
