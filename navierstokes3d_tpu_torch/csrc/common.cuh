@@ -6,10 +6,10 @@
 // plane. The block reductions run once per block and are off the hot
 // path (the Poisson kernel reduces only on check iterations, one in nchk).
 //
-// Below them: the asynchronous copy K8 streams its planes with (a 4-byte
-// cp.async, commit and wait), each behind a small function so that a host
-// rehearsal of the kernels can map the copy onto a memcpy and the group
-// operations onto no-ops.
+// Below them: the asynchronous copy K3 and K8 stream their planes with (a
+// 4-byte cp.async, commit and wait), each behind a small function so that
+// a host rehearsal of the kernels can map the copy onto a memcpy and the
+// group operations onto no-ops.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -104,6 +104,15 @@ __device__ inline void cp_async4(void* dst, const void* src) {
                : "memory");
 }
 
+// Copy 4 bytes from global src to shared dst asynchronously where `full`,
+// else write 4 zero bytes to dst and read nothing.
+__device__ inline void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
 // Close this thread's group of copies issued since the last commit.
 __device__ inline void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
@@ -112,6 +121,13 @@ __device__ inline void cp_async_commit() {
 // Wait until every group of this thread's copies has landed.
 __device__ inline void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Wait until at most the newest `pending` groups of this thread's copies
+// are still in flight.
+template <int pending>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(pending) : "memory");
 }
 
 }  // namespace ns3d

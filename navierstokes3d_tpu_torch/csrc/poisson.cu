@@ -60,12 +60,13 @@
 // reduced over each tile's own interior cells (a recomputed halo cell
 // holds partial data and never enters the max): the value the s-th K1
 // launch would emit. Design (the K8 section below: tile, region, bytes
-// per cell, pipeline): a block streams one (y, z) region of tiles along
-// a segment of x, each plane's copies landing one plane ahead, and
-// computes level j of the plane j behind the newest one, for j = 1..s,
-// with one block barrier per plane; a cell's x neighbours, dpr and rhs
-// stay in the registers of the thread that owns the cell at every level.
-// Bound: device-memory bytes, K1's 5 x 4 B per cell for s iterations.
+// per cell, thread maps, pipeline): a block streams one (y, z) region of
+// tiles along a segment of x, each plane's copies landing two planes
+// ahead, and computes level j of the plane j behind the newest one, for
+// j = 1..s, with one block barrier per plane; each thread owns a run of
+// four z-consecutive cells of a region row at every level, whose x and z
+// neighbours, dpr and rhs stay in its registers. Bound: device-memory
+// bytes, K1's 5 x 4 B per cell for s iterations.
 //
 // K10 replaces the Pallas kernel of navierstokes3d_tpu/kernels/poisson.py:1151
 // (`make_resident` :1066, `kernelR` :1116): nit folded iterations in ONE
@@ -292,49 +293,80 @@ __global__ void poisson_iter_ext_kernel(
 // start together and walk x at one rate, so the tiles on both sides of a
 // halo row read it within microseconds, the second time from L2.
 //
-// What held the design it replaces (16-row tiles of 32 lanes, 32-plane
-// segments, a 4-byte cp.async per cell one plane ahead, s + 1 block
-// barriers per plane, 4 blocks per SM) to 25% of the bound, and what this
-// one does: (1) 59% of its 22 x 32 regions was useful, 74% of 34 x 58 is;
-// (2) ONE block barrier per plane instead of s + 1 (below); (3) a cell's
-// x neighbours, dpr and rhs live in the registers of the thread that owns
-// the cell at every level, so shared memory holds only the pr planes the
-// y and z neighbours are read from; (4) host work per launch: the
-// shared-memory attribute is raised once per depth and device, and the
-// check word is reset by a stream-ordered memset. What bounds it now is
-// instruction issue: the address, predicate and queue work around the 25
-// flops per cell and level (PERF.md, scripts/k8_probe.py --sass).
+// The compute map: runs of z. A thread owns one RUN of kSweepRun = 4
+// z-consecutive cells of one region row, the same at every level and
+// plane. A row of the region is padded in shared memory to whole runs
+// (w rounded up to a multiple of 4 floats), so thread tid's run starts at
+// float 4 * tid of every plane and each run is one 16-byte word: 34 rows
+// x 15 runs = 510 of the 512 threads at 511x307x307, s = 3. Per level
+// and plane a thread issues two 16-byte shared loads (its y + 1 and y - 1
+// rows), two 4-byte loads (the z neighbours past the run's ends) and one
+// 16-byte store of the level's plane; the z neighbours inside the run are
+// its own registers, level 0's pr, dpr and rhs are three 16-byte loads of
+// the ring, and the run's four cells share one base offset and one pair
+// of y weights. Every cell of a run computes every level (branch-free, so
+// the four interleave) and the whole run is stored: a cell outside the
+// level's shrinking region holds a value no covered cell reads. The map
+// it replaces gave a thread four cells 512 apart, each with its own
+// offsets, weights, predicate and four scalar neighbour loads a level
+// (889 SASS instructions a plane at s = 3; 0.545 ms a launch, 52.7% of
+// the bound).
 //
-// Loads. Each thread copies its own cells of plane t + 1 with 4-byte
-// cp.async (pr of every cell in the domain, dpr and rhs of the cells a
-// level updates) into a ring of three slots (planes t+1, t and t-1). One
-// plane in flight is enough: deeper rings measured no faster (PERF.md).
-// (A TMA form, one box of a rank-1 tensor map per region row completing
-// on an mbarrier, came first and took 1.27-1.33 ms per s = 3 launch: on
-// the H100 a box must start on a 16-byte boundary, which a row of the
-// native layout does not at nz = 307, and the ~90 small boxes a plane
-// needs are issued one by one; a 16-byte cp.async form with the same
-// row phases took 0.86 ms; PERF.md.)
+// The copy map. The copies and the writes out keep the old map: thread
+// tid copies cells tid + k x 512 of the padded plane, so that one
+// instruction of a warp touches consecutive addresses (in the run map its
+// 4-byte accesses lie 16 B apart: four times the lines and a four-way
+// bank conflict on the shared side; that form took 0.80 ms). So level S's
+// pr and dpr go out through shared memory: the run map stores them as
+// 16-byte words into a staging plane (two per field, by parity), and the
+// next step writes them to pr_out and dpr_out in the copy map.
+//
+// Loads. 4-byte cp.async (pr of every cell in the domain, dpr and rhs of
+// the cells a level updates; a row of the native layout starts on no
+// 16-byte boundary at nz = 307) into a ring of four slots: planes t + 2
+// and t + 1 in flight, t and t - 1. Every cell of the copy map issues its
+// three copies, those it does not need with a source size of 0 (they
+// fill zeros and read nothing), so that no copy sits behind a branch:
+// 0.449 against 0.487 ms a launch at s = 3 with the copies branched on
+// (PERF.md); copying real bytes for those cells instead took 0.533 (10%
+// more bytes from L2). The step issues its copies and its writes out
+// after its arithmetic at s = 2, 3 and before it at s = 4 (as measured:
+// at s = 3 with branched copies 0.488 ms, with them first 0.509, with one
+// plane in flight 0.639, with three 0.489). (A TMA form, one box of a
+// rank-1 tensor map per region row completing on an mbarrier, came first
+// and took 1.27-1.33 ms per s = 3 launch: on the H100 a box must start on
+// a 16-byte boundary, which a row of the native layout does not at nz =
+// 307, and the ~90 small boxes a plane needs are issued one by one; a
+// 16-byte cp.async form with the same row phases took 0.86 ms; PERF.md.)
+//
+// What bounds it now (scripts/k8_probe.py --cut, s = 3 at
+// 511x307x307): 0.448 ms a launch, 64% of the bound; the levels'
+// arithmetic and barriers alone take 0.311 ms, the copies and writes
+// alone 0.369 ms (scripts/copy_ceiling.cu over the same 963 MB: 0.339
+// ms), a launch without the copies 0.366 ms, without the writes 0.380:
+// the two overlap only in part. Both go through the SM's one load/store
+// path with the levels' shared loads and stores, in one block of 16 warps
+// (128 registers a thread: no room for more warps or for copy warps).
 //
 // One block barrier per plane. Level j at step t computes plane t - j from
-// level j-1's planes t-j-1, t-j and t-j+1 of its own (y, z) cell, which
-// the same thread holds in registers (a queue three deep per level: the
-// thread-to-cell map is the same at every level), and from the y and z
-// neighbours of plane t-j, which level j-1 wrote to shared memory in step
-// t-1. Each level's plane is double-buffered by parity, so the barrier
-// that starts step t orders every write of step t-1 before its reads and
-// every read of step t-1 before the next write into the slot; it also
-// publishes plane t, whose copies each thread has waited for, and frees
-// the ring slot the next copies fill. A cell's dpr and rhs wait in
-// registers (a queue s deep each) for the level that needs them. Every
-// cell computes every level (branch-free, so a thread's cells interleave);
-// only the cells a level covers store. Both outputs ping-pong with the
-// inputs: neighbouring blocks read the inputs over their halos, so neither
-// output may alias an input.
+// level j-1's planes t-j-1, t-j and t-j+1 of its own run, which the same
+// thread holds in registers (a queue three deep per level), and from the
+// y neighbours and the run's two outer z neighbours of plane t-j, which
+// level j-1 wrote to shared memory in step t-1. Each level's plane is
+// double-buffered by parity, so the barrier that starts step t orders
+// every write of step t-1 before its reads and every read of step t-1
+// before the next write into the slot; it also publishes plane t, whose
+// copies each thread has waited for. A cell's dpr and rhs wait in
+// registers (a queue s deep each) for the level that needs them. Both
+// outputs ping-pong with the inputs: neighbouring blocks read the inputs
+// over their halos, so neither output may alias an input.
 
 constexpr int kSweepThreads = 512;  // threads of a K8 block (16 warps)
-constexpr int kSweepCols = 4;       // region cells per thread
-constexpr int kSweepRing = 3;       // ring slots: planes t+1, t and t-1
+constexpr int kSweepRun = 4;        // z-consecutive cells a thread owns
+constexpr int kSweepCells = kSweepThreads * kSweepRun;  // most in a plane
+constexpr int kSweepAhead = 2;      // planes whose copies are in flight
+// ring slots: planes t + kSweepAhead .. t + 1 (in flight), t and t - 1
+constexpr int kSweepRing = kSweepAhead + 2;
 
 // The wrapper's plan (kernels/poisson.py SweepPlan, same fields).
 struct SweepPlan {
@@ -344,18 +376,27 @@ struct SweepPlan {
 };
 
 // The region and shared-memory geometry of a plan at depth S: a plane is
-// the region's ry x w cells, row-major (cell c = r * w + zc).
+// the region's ry rows of `runs` runs, each row padded to wp = 4 x runs
+// floats (cell (r, zc) at r * wp + zc; thread tid's run at 4 * tid).
 template <int S>
 struct SweepGeom {
-  int ry, w, plane;
+  int ry, w, runs, wp, plane;
   size_t smem;
   __host__ __device__ explicit SweepGeom(const SweepPlan& p)
-      : ry(p.uy + 2 * S), w(p.uz + 2 * S), plane(ry * w),
-        // the ring (three fields per slot), two planes per level 1..S-1,
-        // 32 words of reduction scratch
-        smem(sizeof(float) * plane * (3 * kSweepRing + 2 * (S - 1)) +
+      : ry(p.uy + 2 * S), w(p.uz + 2 * S),
+        runs((w + kSweepRun - 1) / kSweepRun), wp(runs * kSweepRun),
+        plane(ry * wp),
+        // the ring (three fields of kSweepCells per slot), two planes per
+        // level 1..S-1, two per field of level S on its way out, 32 words
+        // of reduction scratch
+        smem(sizeof(float) * (3 * kSweepRing * kSweepCells +
+                              plane * (2 * (S - 1) + 4)) +
              4 * 32) {}
 };
+
+__device__ inline float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
 template <int S>
 __global__ void __launch_bounds__(kSweepThreads, 1) poisson_sweeps_kernel(
@@ -364,12 +405,17 @@ __global__ void __launch_bounds__(kSweepThreads, 1) poisson_sweeps_kernel(
     float* __restrict__ dpr_out, Weights wt, float inv_dx2, float dtau,
     float decay, int zero_grad_x, int nx, int ny, int nz, SweepPlan p,
     unsigned int* __restrict__ err_bits) {
-  constexpr int C = kSweepCols;
+  constexpr int R = kSweepRun;
   const SweepGeom<S> g(p);
-  extern __shared__ float ring[];  // [slot][field][plane]
-  float* const lev = ring + 3 * kSweepRing * g.plane;  // [level-1][parity]
+  // [slot][field][kSweepCells] of the ring, then [level-1][parity][plane] of
+  // levels 1..S-1, then [field][parity][plane] of level S's pr and dpr on
+  // their way out, then the reduction scratch; every plane 16 B aligned
+  extern __shared__ float4 sweep_smem[];
+  float* const ring = reinterpret_cast<float*>(sweep_smem);
+  float* const lev = ring + 3 * kSweepRing * kSweepCells;
+  float* const outs = lev + 2 * (S - 1) * g.plane;
   unsigned int* const red =
-      reinterpret_cast<unsigned int*>(lev + 2 * (S - 1) * g.plane);
+      reinterpret_cast<unsigned int*>(outs + 4 * g.plane);
 
   // the block's tile and segment
   int b = blockIdx.x;
@@ -386,26 +432,56 @@ __global__ void __launch_bounds__(kSweepThreads, 1) poisson_sweeps_kernel(
   const int l1 = min(xe + S, nx);
   const int tid = threadIdx.x;
 
-  // the thread's cells: c = tid + k * kSweepThreads of the region's ry x w,
-  // the same at every level and plane
-  int soff[C], goff[C], depth[C];  // depth: the deepest level the cell
-  bool yz_in[C];                   // takes, -1 outside the domain
-  float wyp[C], wym[C], wzp[C], wzm[C];
+  // The copy map: the thread copies, and writes out, cells c = tid + k x
+  // kSweepThreads of the padded plane (R of them: a plane holds at most
+  // kSweepThreads runs), so that a warp's cp.async and stores touch
+  // consecutive addresses. cdepth: the deepest level the cell takes, -1
+  // outside the domain or the region, or past the plane; coff: its offset
+  // in a plane of the inputs and outputs, clamped into the domain, so that
+  // every copy has an address and none waits on a branch: a copy the cell
+  // does not need fills zeros and reads nothing (a ring slot's fields
+  // hold kSweepCells each, so the cells past the plane land in them).
+  int cdepth[R], coff[R];
 #pragma unroll
-  for (int k = 0; k < C; ++k) {
+  for (int k = 0; k < R; ++k) {
     const int c = tid + k * kSweepThreads;
-    const int r = c / g.w, zc = c % g.w;
-    const int gy = y0 + r, gz = z0 + zc;
-    const bool in = c < g.ry * g.w && gy >= 0 && gy < ny && gz >= 0 &&
-                    gz < nz;
-    depth[k] = in ? min(min(r, g.ry - 1 - r), min(zc, g.w - 1 - zc)) : -1;
-    // a cell that takes no level reads at row 1, lane 1 (every read in
-    // the region) and stores nothing
-    soff[k] = depth[k] >= 1 ? c : g.w + 1;
-    goff[k] = in ? gy * nz + gz : 0;
-    yz_in[k] = gy >= 1 && gy <= ny - 2 && gz >= 1 && gz <= nz - 2;
-    wyp[k] = in ? wt.yp[gy] : 0.0f;
-    wym[k] = in ? wt.ym[gy] : 0.0f;
+    const int rr = c / g.wp, zc = c - rr * g.wp;
+    const int gy = y0 + rr, gz = z0 + zc;
+    const bool in = c < g.plane && zc < g.w && gy >= 0 && gy < ny &&
+                    gz >= 0 && gz < nz;
+    cdepth[k] = in ? min(min(rr, g.ry - 1 - rr), min(zc, g.w - 1 - zc)) : -1;
+    coff[k] = min(max(gy, 0), ny - 1) * nz + min(max(gz, 0), nz - 1);
+  }
+
+  // The compute map: the thread's run, row r, lanes zc0 .. zc0 + R - 1; a
+  // thread past the region's runs owns none, reads row 0 and stores
+  // nothing
+  const bool owns = tid < g.ry * g.runs;
+  const int r = owns ? tid / g.runs : 0;
+  const int zc0 = owns ? (tid - r * g.runs) * R : 0;
+  const int o = r * g.wp + zc0;
+  // its neighbours' offsets, kept inside the plane at the region's edges
+  // (the cells there take no level)
+  const int oym = r > 0 ? o - g.wp : o;
+  const int oyp = r + 1 < g.ry ? o + g.wp : o;
+  const int ozm = zc0 > 0 ? o - 1 : o;
+  const int ozp = zc0 + R < g.wp ? o + R : o + R - 1;
+  const int gy = y0 + r, gz0 = z0 + zc0;
+  const bool y_ok = owns && gy >= 0 && gy < ny;
+  const bool y_in = gy >= 1 && gy <= ny - 2;
+  const int rdepth = min(r, g.ry - 1 - r);
+  const float wyp = y_ok ? wt.yp[gy] : 0.0f;
+  const float wym = y_ok ? wt.ym[gy] : 0.0f;
+  // per cell of the run: whether it reaches level S and is interior in
+  // (y, z) (its residual enters the check), and its z weights
+  bool last[R], yz_in[R];
+  float wzp[R], wzm[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int zc = zc0 + k, gz = gz0 + k;
+    const bool in = y_ok && zc < g.w && gz >= 0 && gz < nz;
+    last[k] = in && min(rdepth, min(zc, g.w - 1 - zc)) >= S;
+    yz_in[k] = y_in && gz >= 1 && gz <= nz - 2;
     wzp[k] = in ? wt.zp[gz] : 0.0f;
     wzm[k] = in ? wt.zm[gz] : 0.0f;
   }
@@ -413,60 +489,89 @@ __global__ void __launch_bounds__(kSweepThreads, 1) poisson_sweeps_kernel(
   // per level j-1 = 0..S-1, entering step t: its values of planes
   // t-j (p1) and t-j-1 (p2); the dpr of plane t-j after j-1 levels (dq)
   // and the rhs of plane t-j (rq)
-  float p1[S][C], p2[S][C], dq[S][C], rq[S][C];
+  float p1[S][R], p2[S][R], dq[S][R], rq[S][R];
 #pragma unroll
   for (int j = 0; j < S; ++j)
 #pragma unroll
-    for (int k = 0; k < C; ++k) p1[j][k] = p2[j][k] = dq[j][k] = rq[j][k] = 0.0f;
+    for (int k = 0; k < R; ++k)
+      p1[j][k] = p2[j][k] = dq[j][k] = rq[j][k] = 0.0f;
   unsigned int bits = 0u;
 
-  // plane x into ring slot `slot`: each thread copies its own cells (pr
-  // of every cell in the domain, dpr and rhs of those a level updates)
+  // plane x into ring slot `slot`: pr of every cell in the domain, dpr
+  // and rhs of those a level updates, zeros for the rest
   auto load = [&](int x, int slot) {
-    float* const dst = ring + slot * 3 * g.plane + tid;
+    float* const dst = ring + slot * 3 * kSweepCells + tid;
     const float* const px = pr + x * sx;
     const float* const dx = dpr + x * sx;
     const float* const rx = rhs + x * sx;
 #pragma unroll
-    for (int k = 0; k < C; ++k) {
-      if (depth[k] < 0) continue;
+    for (int k = 0; k < R; ++k) {
       float* const d = dst + k * kSweepThreads;
-      ns3d::cp_async4(d, px + goff[k]);
-      if (depth[k] >= 1) {
-        ns3d::cp_async4(d + g.plane, dx + goff[k]);
-        ns3d::cp_async4(d + 2 * g.plane, rx + goff[k]);
-      }
+      ns3d::cp_async4(d, px + coff[k], cdepth[k] >= 0);
+      ns3d::cp_async4(d + kSweepCells, dx + coff[k], cdepth[k] >= 1);
+      ns3d::cp_async4(d + 2 * kSweepCells, rx + coff[k], cdepth[k] >= 1);
     }
   };
 
-  load(l0, 0);
-  ns3d::cp_async_commit();
-  // step t loads plane t + 1 and computes level j of plane t - j, j =
-  // 1..S, from plane t (level 0) and the levels' planes of step t-1; plane
-  // t sits in ring slot `slot`, plane t - 1 in `prev`
-  int slot = 0, prev = kSweepRing - 1;
-  for (int t = l0; t < xe + S; ++t) {
-    ns3d::cp_async_wait_all();  // this thread's copies of plane t
-    __syncthreads();
-    if (t + 1 < l1) {
-      load(t + 1, slot + 1 < kSweepRing ? slot + 1 : 0);
-      ns3d::cp_async_commit();
-    }
-    float cur[S][C];  // level j's value of plane t - j (j = 0: loaded)
-    float dnew[S][C];
-    float rnew[C];
-    if (t < l1) {
-      const float* const s = ring + slot * 3 * g.plane;
+  // level S's plane xs from its staging planes to pr_out and dpr_out
+  auto write_out = [&](int xs) {
+    if (xs < xb || xs >= xe) return;
+    const float* const sq = outs + (xs & 1) * g.plane + tid;
+    const float* const sd = sq + 2 * g.plane;
+    float* const pox = pr_out + xs * sx;
+    float* const dox = dpr_out + xs * sx;
 #pragma unroll
-      for (int k = 0; k < C; ++k) {
-        const int o = soff[k];
-        cur[0][k] = s[o];
-        dnew[0][k] = s[g.plane + o];
-        rnew[k] = s[2 * g.plane + o];
+    for (int k = 0; k < R; ++k)
+      if (cdepth[k] >= S) {
+        pox[coff[k]] = sq[k * kSweepThreads];
+        dox[coff[k]] = sd[k * kSweepThreads];
       }
+  };
+
+  // The step's memory work: the copies of plane t + kSweepAhead (into the
+  // slot plane t - 2 left) and the writes of level S's plane t - S - 1,
+  // which step t-1 left in the staging planes of its parity. It follows
+  // the step's arithmetic, except at s = 4, where it precedes it: 0.453-
+  // 0.460 against 0.463 ms a launch at s = 3, 0.895 against 1.057 at s = 4
+  // (PERF.md).
+  constexpr bool memory_first = S >= 4;
+  auto memory_work = [&](int t, int slot) {
+    if (t + kSweepAhead < l1)
+      load(t + kSweepAhead, (slot + kSweepAhead) % kSweepRing);
+    ns3d::cp_async_commit();
+    write_out(t - S - 1);
+  };
+
+  // planes l0 .. l0 + kSweepAhead - 1 in flight; one group of copies a
+  // plane, empty past l1, so that step t waits for plane t by count
+#pragma unroll
+  for (int a = 0; a < kSweepAhead; ++a) {
+    if (l0 + a < l1) load(l0 + a, a);
+    ns3d::cp_async_commit();
+  }
+  // step t computes level j of plane t - j, j = 1..S, from plane t (level
+  // 0) and the levels' planes of step t-1, and does its memory work;
+  // plane t sits in ring slot `slot`, plane t - 1 in `prev`. The last step
+  // only writes out.
+  int slot = 0, prev = kSweepRing - 1;
+  for (int t = l0; t <= xe + S; ++t) {
+    // this thread's copies of plane t (those of later planes may fly on)
+    ns3d::cp_async_wait<kSweepAhead - 1>();
+    __syncthreads();
+    if (memory_first) memory_work(t, slot);
+    float cur[S][R];  // level j's value of plane t - j (j = 0: loaded)
+    float dnew[S][R];
+    float rnew[R];
+    if (t < l1) {
+      const float* const s = ring + slot * 3 * kSweepCells + o;
+      const float4 a = ld4(s), c = ld4(s + kSweepCells),
+                   e = ld4(s + 2 * kSweepCells);
+      cur[0][0] = a.x, cur[0][1] = a.y, cur[0][2] = a.z, cur[0][3] = a.w;
+      dnew[0][0] = c.x, dnew[0][1] = c.y, dnew[0][2] = c.z, dnew[0][3] = c.w;
+      rnew[0] = e.x, rnew[1] = e.y, rnew[2] = e.z, rnew[3] = e.w;
     } else {
 #pragma unroll
-      for (int k = 0; k < C; ++k) cur[0][k] = dnew[0][k] = rnew[k] = 0.0f;
+      for (int k = 0; k < R; ++k) cur[0][k] = dnew[0][k] = rnew[k] = 0.0f;
     }
 #pragma unroll
     for (int j = 1; j <= S; ++j) {
@@ -476,7 +581,7 @@ __global__ void __launch_bounds__(kSweepThreads, 1) poisson_sweeps_kernel(
       if (!active) {  // keep the queues defined
         if (j < S) {
 #pragma unroll
-          for (int k = 0; k < C; ++k) {
+          for (int k = 0; k < R; ++k) {
             cur[j][k] = p1[j][k];
             dnew[j][k] = dq[j][k];
           }
@@ -487,46 +592,52 @@ __global__ void __launch_bounds__(kSweepThreads, 1) poisson_sweeps_kernel(
       const bool drop_xm = zero_grad_x && x == 1;
       // level j-1's plane x: the ring slot (j = 1) or its parity buffer
       const float* const src =
-          j == 1 ? ring + prev * 3 * g.plane
+          j == 1 ? ring + prev * 3 * kSweepCells
                  : lev + (2 * (j - 2) + (x & 1)) * g.plane;
-      float* const dst = lev + (2 * (j - 1) + (x & 1)) * g.plane;
-      float* const pox = pr_out + x * sx;  // level S's outputs
-      float* const dox = dpr_out + x * sx;
-      // every cell computes (branch-free, so the C cells interleave);
-      // only the cells that take level j store
+      const float4 yp4 = ld4(src + oyp), ym4 = ld4(src + oym);
+      const float ypv[R] = {yp4.x, yp4.y, yp4.z, yp4.w};
+      const float ymv[R] = {ym4.x, ym4.y, ym4.z, ym4.w};
+      const float zlo = src[ozm], zhi = src[ozp];
+      float q[R], d[R];
 #pragma unroll
-      for (int k = 0; k < C; ++k) {
-        const bool act = depth[k] >= j;
-        const int o = soff[k];
-        const float* const sc = src + o;
+      for (int k = 0; k < R; ++k) {
         const float pc = p1[j - 1][k];
-        // K1's expressions in K1's order (poisson_iter_kernel)
-        const float lap = lap_folded(
-            cur[j - 1][k], p2[j - 1][k], sc[g.w], sc[-g.w], sc[1], sc[-1],
-            pc, drop_xm, inv_dx2, wyp[k], wym[k], wzp[k], wzm[k]);
+        // z neighbours inside the run from registers, past its ends from
+        // shared memory; K1's expressions in K1's order (poisson_iter_kernel)
+        const float zmv = k == 0 ? zlo : p1[j - 1][k - 1];
+        const float zpv = k == R - 1 ? zhi : p1[j - 1][k + 1];
+        const float lap = lap_folded(cur[j - 1][k], p2[j - 1][k], ypv[k],
+                                     ymv[k], zpv, zmv, pc, drop_xm, inv_dx2,
+                                     wyp, wym, wzp[k], wzm[k]);
         const float resid = lap - rq[j - 1][k];
         const bool in = x_in && yz_in[k];
-        const float d = in ? dq[j - 1][k] * decay + dtau * resid : 0.0f;
-        const float q = pc + dtau * d;
+        d[k] = in ? dq[j - 1][k] * decay + dtau * resid : 0.0f;
+        q[k] = pc + dtau * d[k];
         if (j < S) {
-          if (act) dst[o] = q;
-          cur[j][k] = q;
-          dnew[j][k] = d;
+          cur[j][k] = q[k];
+          dnew[j][k] = d[k];
         } else {
-          if (act) {
-            pox[goff[k]] = q;
-            dox[goff[k]] = d;
-          }
           const unsigned int e = __float_as_uint(fabsf(resid));
-          bits = act && in && e > bits ? e : bits;
+          bits = last[k] && in && e > bits ? e : bits;
         }
       }
+      // level j's plane x, for level j + 1 or (j = S) for writing out
+      float* const dst = j < S ? lev + (2 * (j - 1) + (x & 1)) * g.plane
+                               : outs + (x & 1) * g.plane;
+      if (owns) {
+        *reinterpret_cast<float4*>(dst + o) =
+            make_float4(q[0], q[1], q[2], q[3]);
+        if (j == S)
+          *reinterpret_cast<float4*>(dst + 2 * g.plane + o) =
+              make_float4(d[0], d[1], d[2], d[3]);
+      }
     }
+    if (!memory_first) memory_work(t, slot);
     prev = slot;
-    slot = slot + 1 < kSweepRing ? slot + 1 : 0;
+    slot = (slot + 1) % kSweepRing;
     // advance the queues by one plane
 #pragma unroll
-    for (int k = 0; k < C; ++k) {
+    for (int k = 0; k < R; ++k) {
 #pragma unroll
       for (int j = S - 1; j >= 1; --j) rq[j][k] = rq[j - 1][k];
       rq[0][k] = rnew[k];
@@ -563,7 +674,7 @@ cudaError_t launch_sweeps(const float* pr, const float* dpr, const float* rhs,
   if (p.uy < 1 || p.uz < 1 || p.seg < 1 ||
       static_cast<long>(p.tiles_y) * p.uy < ny ||
       static_cast<long>(p.tiles_z) * p.uz < nz ||
-      g.ry * g.w > kSweepThreads * kSweepCols)
+      g.ry * g.runs > kSweepThreads)
     return cudaErrorInvalidValue;
   const int segs = (nx + p.seg - 1) / p.seg;
   // raise the block's shared-memory limit once per depth and device (past

@@ -290,13 +290,15 @@ poisson_iter_sweeps_plain.calls = 0
 poisson_iter_sweeps_plain.iterations = 0
 
 
-# K8's launch geometry (csrc/poisson.cu, the K8 section): a block of
-# SWEEP_THREADS threads holds SWEEP_COLS cells of its (y, z) region each
-# and a ring of SWEEP_RING planes of pr, dpr and rhs, within the block's
-# shared memory (SMEM_LIMIT, Hopper's 227 KB)
+# K8's launch geometry (csrc/poisson.cu, the K8 section): each of a
+# block's SWEEP_THREADS threads owns a run of SWEEP_RUN z-consecutive cells
+# of one row of its (y, z) region, a row padded to whole runs in shared
+# memory, which holds a ring of SWEEP_RING planes of pr, dpr and rhs (two
+# in flight, t and t - 1) within the block's limit (SMEM_LIMIT, Hopper's
+# 227 KB)
 SWEEP_THREADS = 512
-SWEEP_COLS = 4
-SWEEP_RING = 3
+SWEEP_RUN = 4
+SWEEP_RING = 4
 SMEM_LIMIT = 232448
 
 
@@ -325,40 +327,52 @@ class SweepPlan:
         return self.uz + 2 * self.s
 
     @property
+    def runs(self) -> int:        # a region row's runs (threads)
+        return -(-self.w // SWEEP_RUN)
+
+    @property
+    def wp(self) -> int:          # a region row's floats in shared memory
+        return self.runs * SWEEP_RUN
+
+    @property
     def blocks(self) -> int:
         return self.tiles_y * self.tiles_z * self.segs
 
     @property
     def smem_bytes(self) -> int:
-        """SweepGeom::smem: the ring (three fields per slot), two planes
-        per level 1..s-1 (a plane: ry x w floats), reduction scratch."""
-        plane = self.ry * self.w
-        return 4 * plane * (3 * SWEEP_RING + 2 * (self.s - 1)) + 4 * 32
+        """SweepGeom::smem: the ring (three fields of SWEEP_THREADS x
+        SWEEP_RUN floats per slot), two planes per level 1..s-1, two per
+        field (pr, dpr) of level s on its way out (a plane: ry rows of wp
+        floats), reduction scratch."""
+        plane = self.ry * self.wp
+        ring = 3 * SWEEP_RING * SWEEP_THREADS * SWEEP_RUN
+        return 4 * (ring + plane * (2 * (self.s - 1) + 4)) + 4 * 32
 
 
 @functools.lru_cache(maxsize=64)
 def sweep_plan(shape: Tuple[int, int, int], s: int, sms: int) -> SweepPlan:
     """K8's plan for a grid of `shape` on a card of `sms` SMs (one block
     per SM: a block's shared memory is most of an SM's). Among the region
-    shapes that fit a block (ry*w <= SWEEP_THREADS*SWEEP_COLS, shared
-    memory within SMEM_LIMIT) and the x cuts, it minimises the estimated
-    time: waves x the planes a block streams (its segment, the 2s
-    recomputed ones and one of fill) x the floats a plane of its region
-    moves (ry rows of w, plus 8 for the 32-byte sector a row at an
-    arbitrary offset adds). Ties go to fewer blocks. At 511x307x307, s =
-    3 on 132 SMs: tiles of 28 x 52 in 34 x 58 regions, 11 x 6 of them, 2
-    segments of 256 planes: 132 blocks, one wave."""
+    shapes that fit a block (a thread a run: ry * ceil(w / SWEEP_RUN) <=
+    SWEEP_THREADS; shared memory within SMEM_LIMIT) and the x cuts, it
+    minimises the estimated time: waves x the planes a block streams (its
+    segment, the 2s recomputed ones and one of fill) x the floats a plane
+    of its region moves (ry rows of w, plus 8 for the 32-byte sector a row
+    at an arbitrary offset adds). Ties go to fewer blocks. At 511x307x307,
+    s = 3 on 132 SMs: tiles of 28 x 52 in 34 x 58 regions (34 rows of 15
+    runs: 510 threads), 11 x 6 of them, 2 segments of 256 planes: 132
+    blocks, one wave."""
     _check_sweeps(s, "sweep_plan")
     nx, ny, nz = shape
     if min(shape) < 1 or sms < 1:
         raise ValueError(f"sweep_plan: shape {shape}, sms {sms}")
     best, best_key = None, None
-    cap = SWEEP_THREADS * SWEEP_COLS
     for uz in sorted({-(-nz // tz) for tz in range(1, nz + 1)}):
         w = uz + 2 * s
-        if w * (2 * s + 1) > cap:
+        runs = -(-w // SWEEP_RUN)
+        if runs * (2 * s + 1) > SWEEP_THREADS:
             continue
-        uy = min(cap // w - 2 * s, ny)
+        uy = min(SWEEP_THREADS // runs - 2 * s, ny)
         tiles_y = -(-ny // uy)
         uy = -(-ny // tiles_y)
         tiles_z = -(-nz // uz)

@@ -3,23 +3,31 @@ wrapper's plan and any others, each held bitwise against s K1 launches,
 then timed against K1 in the same process.
 
     python3 scripts/k8_probe.py [--nx 511] [--s 2 3] [--reps 20]
-        [--plans UY,UZ,SEG ...] [--sass]
+        [--plans UY,UZ,SEG ...] [--sass] [--cut]
 
 On the gpu preset's grid at --nx (511: 511x307x307, the wide grid) with
 its operator and seeded inputs: K1 per launch, then K8 at each depth under
 `sweep_plan` and under each --plans entry (tile rows and lanes, x
 segment), by CUDA events over --reps launches after warm-up, in the
 order K1, K8..., K8..., K1. Prints the card's name and power limit, K8's
-register and spill report from the build, and per plan: ms per launch,
-ms per iteration over K1's, the share of the bytes bound (5 x 4 B per cell
-over 3.35 TB/s), and the plan; the last line is one JSON object of them.
-With --sass, also the instruction counts of K8's plane loop.
+register and spill report from the build at each depth it instantiates
+(s = 2, 3, 4), and per plan: ms per launch, ms per iteration over K1's,
+the share of the bytes bound (5 x 4 B per cell over 3.35 TB/s), and the
+plan; the last line is one JSON object of them. With --sass, also the
+instructions of K8's plane loop at each depth: a thread's per plane and
+per cell-level (its run of SWEEP_RUN cells at s levels), beside the float
+arithmetic among them (FADD, FMUL, FFMA) and the most frequent opcodes.
+With --cut, also K8 cut apart at the first depth (copies built aside,
+their results not K8's): without its copies, without its writes out,
+without both, and without its arithmetic; and scripts/copy_ceiling.cu
+over the same bytes (half read, half written): what each part costs.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import json
 import re
 import subprocess
@@ -33,6 +41,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import navierstokes3d_tpu_torch as nt  # noqa: E402
 from navierstokes3d_tpu_torch.kernels import _build  # noqa: E402
 from navierstokes3d_tpu_torch.kernels import poisson as kp  # noqa: E402
+from probe_lib import build_aside, library  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
 
@@ -68,23 +77,32 @@ def bitwise_k8(pr, dpr, rhs, op, plan) -> None:
         raise RuntimeError(f"K8 under {plan} differs from {s} K1 launches")
 
 
-def sass_counts(lib: Path) -> None:
-    """Per K8 instantiation: its SASS instructions, those of its plane
-    loop (from the loop's block barrier to the branch back above it) and
-    that loop's most frequent opcodes."""
+def sass_counts(lib: Path) -> dict:
+    """Per K8 instantiation: its SASS instructions and those of its plane
+    loop (from the loop's block barrier to the branch back above it)."""
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    print_sass_counts(sass)
+    return print_sass_counts(sass)
 
 
-def print_sass_counts(sass: str) -> None:
+FLOAT_ARITH = ("FADD", "FMUL", "FFMA")
+
+
+def print_sass_counts(sass: str) -> dict:
+    """Print and return, per depth s, the plane loop's instructions a
+    thread and plane (the loop's length over its block barriers, one a
+    plane), a cell-level (over SWEEP_RUN x s), the float arithmetic among
+    them and the loop's most frequent opcodes."""
     line = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                       r"([A-Z][A-Z0-9_]*)([^;]*);")
+    rows = {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0]
-        if "poisson_sweeps_kernel" not in name:
+        depth = re.search(r"poisson_sweeps_kernelILi(\d)E", name)
+        if depth is None:
             continue
+        s = int(depth.group(1))
         ins = []
         for addr, op, rest in line.findall(fn):
             target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
@@ -94,10 +112,82 @@ def print_sass_counts(sass: str) -> None:
         end = max(i for i, (_, op, tgt) in enumerate(ins)
                   if op == "BRA" and tgt is not None and tgt <= ins[bar][0])
         loop = collections.Counter(op for _, op, _ in ins[bar:end + 1])
-        depth = re.search(r"kernelILi(\d)E", name)
-        print(f"[sass] K8 s={depth.group(1) if depth else '?'}: {len(ins)} "
-              f"instructions, plane loop {end + 1 - bar}: "
-              f"{dict(loop.most_common(12))}")
+        planes = loop["BAR"]
+        per_plane = (end + 1 - bar) / planes
+        flops = sum(loop[op] for op in FLOAT_ARITH) / planes
+        cell_levels = kp.SWEEP_RUN * s
+        rows[s] = dict(instructions=len(ins), plane_loop=end + 1 - bar,
+                       planes_a_pass=planes, per_plane=per_plane,
+                       per_cell_level=per_plane / cell_levels,
+                       float_per_plane=flops,
+                       float_per_cell_level=flops / cell_levels)
+        print(f"[sass] K8 s={s}: {len(ins)} instructions; plane loop "
+              f"{end + 1 - bar} for {planes} plane(s): {per_plane:.0f} a "
+              f"thread and plane, {per_plane / cell_levels:.1f} a "
+              f"cell-level ({kp.SWEEP_RUN} cells x {s} levels); float "
+              f"arithmetic {flops:.0f} a plane, "
+              f"{flops / cell_levels:.1f} a cell-level; "
+              f"{dict(loop.most_common(14))}")
+    return rows
+
+
+def registers(log: str) -> dict:
+    """ptxas's register and spill report for K8, per depth s."""
+    out, depth = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"poisson_sweeps_kernelILi(\d)E", line)
+            depth = int(m.group(1)) if m else None
+        elif depth is not None and ("registers" in line or "spill" in line):
+            out.setdefault(depth, []).append(line.split(":", 1)[-1].strip())
+    return out
+
+
+# K8 cut apart (--cut): each a list of (old, new) replacements in
+# csrc/poisson.cu, whose old text must occur once
+CUT_COPIES = ("  auto load = [&](int x, int slot) {\n",
+              "  auto load = [&](int x, int slot) {\n    return;\n")
+CUT_WRITES = ("    if (xs < xb || xs >= xe) return;\n", "    return;\n")
+CUT_FORMS = {
+    "no copies": [CUT_COPIES],
+    "no writes out": [CUT_WRITES],
+    "no copies, no writes out": [CUT_COPIES, CUT_WRITES],
+    "no arithmetic": [("    for (int j = 1; j <= S; ++j) {\n"
+                       "      const int x = t - j;",
+                       "    for (int j = 1; j <= 0; ++j) {\n"
+                       "      const int x = t - j;")],
+}
+
+
+def cut_apart(pr, dpr, rhs, op, plan, reps: int) -> dict:
+    """K8 under `plan` with parts of its work cut out (CUT_FORMS), each
+    built aside, and the copy ceiling of its bytes; ms per launch."""
+    here = Path(__file__).resolve().parent
+    out = {}
+    po, do = torch.empty_like(pr), torch.empty_like(pr)
+    for label, patch in CUT_FORMS.items():
+        lib = build_aside(_build, _build.SRC_DIR, "poisson.cu",
+                          {"poisson.cu": patch})
+        with library(_build, lib):
+            out[label] = min(events_ms(lambda: kp.launch_sweeps(
+                pr, dpr, rhs, po, do, op, plan, False), reps)
+                for _ in range(2))
+        print(f"[k8 cut] s={plan.s} {label}: {out[label]:.4f} ms",
+              flush=True)
+    copy = build_aside(_build, here, "copy_ceiling.cu")
+    copy.ns3d_copy_float4.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_long, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_void_p]
+    nbytes = 5 * 4 * pr.numel()
+    src = torch.empty(nbytes // 8, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    stream = torch.cuda.current_stream().cuda_stream
+    out["copy ceiling"] = min(events_ms(lambda: copy.ns3d_copy_float4(
+        src.data_ptr(), dst.data_ptr(), src.numel() // 4, 4 * 132, 512,
+        stream), reps) for _ in range(2))
+    print(f"[k8 cut] copy of the same {nbytes / 1e6:.1f} MB (half read, "
+          f"half written): {out['copy ceiling']:.4f} ms", flush=True)
+    return out
 
 
 def main() -> int:
@@ -109,6 +199,8 @@ def main() -> int:
                     help="UY,UZ,SEG of extra plans to time")
     ap.add_argument("--sass", action="store_true",
                     help="print K8's instruction counts (cuobjdump -sass)")
+    ap.add_argument("--cut", action="store_true",
+                    help="time K8 cut apart and the copy ceiling")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k8_probe: CUDA is not available", file=sys.stderr)
@@ -118,14 +210,10 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     print(smi)
     res = _build.build()
-    entry = ""
-    for line in res.log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line
-        elif "sweeps" in entry and ("registers" in line or "spill" in line):
-            print(f"[build] {entry.split()[-3]} {line.strip()}")
-    if args.sass:
-        sass_counts(res.path)
+    regs = registers(res.log)
+    for s in sorted(regs):
+        print(f"[build] K8 s={s}: {'; '.join(regs[s])}")
+    sass = sass_counts(res.path) if args.sass else {}
     solver = nt.ChorinSolver(nt.preset_gpu(nx=args.nx, compat=False,
                                            dtype="float32"), device="cuda")
     g, op = solver.grid, solver._op
@@ -179,8 +267,11 @@ def main() -> int:
               f"{r['per_iteration_over_k1']:.3f} x K1, "
               f"{100 * r['bound_share']:.1f}% of the bound; {r['blocks']} "
               f"blocks, {r['smem']} B shared; {r['plan']}")
+    cut = (cut_apart(pr, dpr, rhs, op, plans[0][1], args.reps)
+           if args.cut else {})
     print(json.dumps({"device": smi, "shape": shape, "k1_ms": k1m,
-                      "bound_ms": bound_ms, "k8": rows}))
+                      "bound_ms": bound_ms, "k8": rows, "ptxas": regs,
+                      "sass": sass, "cut": cut}))
     return 0
 
 

@@ -163,13 +163,26 @@ def _forced_plan(shape, s, uy, uz, seg):
 # K8's tile edges, each a grid and a plan: ny and nz one more than a
 # multiple of the tile (the last tile one row and one lane wide) with
 # three x segments, the last short; an x segment longer than nx; nx =
-# 2s + 1 under the wrapper's own plan; rows of tiles wider than a warp
+# 2s + 1 under the wrapper's own plan; rows of tiles wider than a warp.
+# Then the edges of the run map (a thread owns 4 z-consecutive cells of a
+# region row, the row padded to whole runs): a region width (uz + 2s) 1, 2
+# and 3 past a multiple of 4; the domain's last z lane the third cell of
+# a run (zc 6 of the last tile's region); a tile one lane wide
 K8_EDGES = {
     "yz_one_past": lambda s: ((20, 3 * 6 + 1, 2 * 10 + 1),
                               dict(uy=6, uz=10, seg=8)),
     "seg_past_nx": lambda s: ((9, 17, 23), dict(uy=5, uz=7, seg=16)),
     "nx_2s_plus_1": lambda s: ((2 * s + 1, 19, 21), None),
     "long_rows": lambda s: ((30, 25, 70), dict(uy=9, uz=33, seg=11)),
+    "w_1_past_run": lambda s: ((12, 14, 2 * (13 - 2 * s) + 3),
+                               dict(uy=5, uz=13 - 2 * s, seg=5)),
+    "w_2_past_run": lambda s: ((12, 14, 2 * (14 - 2 * s) + 3),
+                               dict(uy=5, uz=14 - 2 * s, seg=5)),
+    "w_3_past_run": lambda s: ((12, 14, 2 * (15 - 2 * s) + 3),
+                               dict(uy=5, uz=15 - 2 * s, seg=5)),
+    "last_lane_in_run": lambda s: ((10, 11, 19 - s),
+                                   dict(uy=4, uz=6, seg=4)),
+    "one_lane_tile": lambda s: ((8, 9, 5), dict(uy=4, uz=1, seg=3)),
 }
 
 

@@ -5,8 +5,10 @@ The plan cuts a grid into the (y, z) tiles and x segments that K8's blocks
 stream (csrc/poisson.cu, the K8 section). It is plain Python, so these
 tests hold here what the kernel relies on: every cell belongs to exactly
 one (tile, segment) in the kernel's block order, no tile or segment is
-empty, the region fits a block (its cells in 512 threads x 4, its shared
-memory within Hopper's 227 KB), and the wide grid runs in one wave of 132 SMs.
+empty, the region fits a block (a thread a run of 4 z-consecutive cells of
+a region row: rows x runs a row within 512 threads, the rows padded to
+whole runs; its shared memory within Hopper's 227 KB), and the wide grid
+runs in one wave of 132 SMs with nearly every thread owning a run.
 """
 
 import dataclasses
@@ -68,8 +70,32 @@ def test_plan_fits_a_block(shape, s):
     plan = kp.sweep_plan(shape, s, 132)
     assert plan.s == s
     assert plan.ry == plan.uy + 2 * s and plan.w == plan.uz + 2 * s
-    assert plan.ry * plan.w <= kp.SWEEP_THREADS * kp.SWEEP_COLS
+    assert kp.SWEEP_RUN == 4
+    assert plan.runs == -(-plan.w // 4) and plan.wp == 4 * plan.runs
+    assert plan.ry * plan.runs <= kp.SWEEP_THREADS == 512
     assert plan.smem_bytes <= kp.SMEM_LIMIT == 227 * 1024
+
+
+@pytest.mark.parametrize("s", [2, 3, 4])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda t: "x".join(map(str, t)))
+def test_plan_fit_rule(shape, s):
+    """The fit rule: a thread a run, so a region of ry rows of w lanes
+    takes ry * ceil(w / 4) threads, at most 512; its shared memory is the
+    ring's 4 x 3 fields (two planes in flight, t and t - 1; pr, dpr, rhs)
+    of 512 x 4 floats each, then 2 planes per level 1..s-1 and 4 for level
+    s's pr and dpr on their way out, of ry rows padded to whole runs (wp
+    floats), plus 32 words. The plan's rows are the most the rule allows
+    for its lanes, unless the grid has fewer (then balanced over the tiles
+    y needs)."""
+    plan = kp.sweep_plan(shape, s, 132)
+    runs = -(-(plan.uz + 2 * s) // 4)
+    assert plan.runs == runs and plan.ry * runs <= 512
+    assert kp.SWEEP_RING == 4
+    assert plan.smem_bytes == (4 * (3 * 4 * 2048 + plan.ry * 4 * runs
+                                    * (2 * (s - 1) + 4)) + 128)
+    most = min(512 // runs - 2 * s, shape[1])
+    assert plan.tiles_y == -(-shape[1] // most)
+    assert plan.uy == -(-shape[1] // plan.tiles_y) <= most
 
 
 def test_plan_wide_grid_is_one_wave():
@@ -83,13 +109,28 @@ def test_plan_wide_grid_is_one_wave():
         assert plan.segs == 2 and plan.seg == 256
 
 
+def test_plan_wide_grid_s3_keeps_its_tile_and_threads():
+    """At 511x307x307, s = 3 (the wide path's bodies): the 28 x 52 tiles
+    in 34 x 58 regions, 11 x 6 of them x 2 segments, one wave on 132 SMs;
+    34 rows of 15 runs, so 510 of the 512 threads (at least 95%) own a
+    run, in 34 x 60 floats of shared memory a plane."""
+    plan = kp.sweep_plan((511, 307, 307), 3, 132)
+    assert (plan.uy, plan.uz, plan.tiles_y, plan.tiles_z) == (28, 52, 11, 6)
+    assert (plan.ry, plan.w, plan.runs, plan.wp) == (34, 58, 15, 60)
+    assert plan.blocks == 132 and plan.segs == 2
+    assert plan.ry * plan.runs == 510
+    assert plan.ry * plan.runs >= 0.95 * kp.SWEEP_THREADS
+
+
 def test_plan_smem_matches_the_kernel_formula():
-    """SweepGeom::smem in csrc/poisson.cu: three fields per slot of the
-    three-slot ring, two planes per level 1..s-1, 32 words of reduction
-    scratch, a plane being the region's ry x w floats."""
+    """SweepGeom::smem in csrc/poisson.cu: three fields of 512 x 4
+    floats per slot of the four-slot ring, two planes per level 1..s-1,
+    two per field of level s on its way out (pr, dpr), 32 words of
+    reduction scratch, a plane being the region's ry rows padded to whole
+    runs of 4 floats (58 lanes: 15 runs, 60 floats a row)."""
     plan = kp.SweepPlan(3, 28, 52, 11, 6, 256, 2)
-    assert (plan.ry, plan.w) == (34, 58)
-    assert plan.smem_bytes == 4 * 34 * 58 * (3 * 3 + 4) + 128
+    assert (plan.ry, plan.w, plan.wp) == (34, 58, 60)
+    assert plan.smem_bytes == 4 * (3 * 4 * 2048 + 34 * 60 * (4 + 4)) + 128
 
 
 def test_plan_refuses_depths_and_shapes():
