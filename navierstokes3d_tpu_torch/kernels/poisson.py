@@ -59,7 +59,8 @@ check value entering the last one. It keeps dpr in shared memory and
 moves 20 B a cell and iteration where K2 moves 28. The extended accuracy
 phase runs one K12 launch per check interval wherever the grid has a
 plan (models/chorin.py `_poisson_solve_extended`); K2 runs the rest.
-Both versions count their iterations (`.iterations`), as K10's do.
+Both versions count their iterations (`.iterations`), as K10's do, and
+so do K2's, one a launch or call.
 
 K7 (:914 with folded=False, `compute_slab` :334, `apply_bc_rows` :257) is
 the reference's own loop body: the unfolded iteration on every interior
@@ -677,10 +678,12 @@ def poisson_iter_ext_plain(hi, lo, hi_out, lo_out, dpr, rhs,
     """Plain PyTorch version of K2 (same arguments and effects as
     poisson_iter_ext)."""
     poisson_iter_ext_plain.calls += 1
+    poisson_iter_ext_plain.iterations += 1
     return _ext_math(hi, lo, hi_out, lo_out, dpr, rhs, op, check)
 
 
 poisson_iter_ext_plain.calls = 0
+poisson_iter_ext_plain.iterations = 0
 
 
 def poisson_iter_ext(hi, lo, hi_out, lo_out, dpr, rhs, op: PoissonOperator,
@@ -715,10 +718,12 @@ def poisson_iter_ext(hi, lo, hi_out, lo_out, dpr, rhs, op: PoissonOperator,
         _build.stream_of(hi))
     _build.check(rc, "poisson_iter_ext")
     poisson_iter_ext.launches += 1
+    poisson_iter_ext.iterations += 1
     return err.view(torch.float32)[0] if check else None
 
 
 poisson_iter_ext.launches = 0
+poisson_iter_ext.iterations = 0
 
 
 # ---- K12: nit of K2's iterations in one launch, resident on chip ----

@@ -174,6 +174,9 @@ class ChorinSolver:
     # select-shift advection's window: k=2 is a 2x margin over the
     # CFL_adv=1 displacement bound, clamp-counted beyond (ops/advect.py)
     advect_k = 2
+    # the iterations the stored-state guarantee added, over every solver
+    # of the process (kernels.reset_counts clears it)
+    guarantee_iterations = 0
 
     def __init__(self, cfg: SimConfig, device: torch.device | str = "cuda",
                  *, fused_step: bool = True, poisson_mode: str = "blocked"):
@@ -968,8 +971,9 @@ class ChorinSolver:
         the loop's exit check is one iteration stale and float32-evaluated,
         so on a marginal exit re-evaluate the STORED pair pair_of(carry)
         with the compensated residual and keep iterating in nchk chunks
-        until it meets eps_it or the budget runs out. Returns (carry, it,
-        err) with err the stored pair's compensated residual."""
+        until it meets eps_it or the budget runs out, each chunk counted
+        in `guarantee_iterations`. Returns (carry, it, err) with err the
+        stored pair's compensated residual."""
         ft = np_float(self.dtype)
         eps, nchk = ft(self.cfg.numerics.eps_it), self.grid.nchk
         err_scale = self._err_scale()
@@ -984,6 +988,7 @@ class ChorinSolver:
                 for _ in range(nchk):
                     carry = chain(carry, 0)[0]   # it=0: no check flag
                 it += nchk
+                ChorinSolver.guarantee_iterations += nchk
             return carry, it, true_err(carry)
 
     def _comp_residual(self, hi, lo, rhs_hi, rhs_lo):

@@ -202,8 +202,11 @@ def test_k8_wide_grid(s, zero_grad_x):
     _check_k8((511, 307, 307), s, zero_grad_x)
 
 
-def test_k2_matches_plain(multi):
-    g, rng = multi.grid, np.random.default_rng(3)
+def _check_k2(multi, seed):
+    """K2 under the multi solver's operator on seeded inputs, NaN in its
+    outputs: hi_out, lo_out, dpr and the check value bitwise its plain
+    version's, with and without the check flag."""
+    g, rng = multi.grid, np.random.default_rng(seed)
     hi = multi.set_bc_pr(_rand(rng, g.shape_c, 50.0))
     lo = _rand(rng, g.shape_c, 50.0 * 2.0 ** -24)
     rhs = _rand(rng, g.shape_c, 1e5)
@@ -219,6 +222,19 @@ def test_k2_matches_plain(multi):
         assert torch.equal(da, db)
         if check:
             assert float(ea) == float(eb)
+
+
+def test_k2_matches_plain(multi):
+    _check_k2(multi, 3)
+
+
+def test_k2_wide_grid_multi_operator():
+    """K2 at 511x307x307 under the multi preset's operator (the extended
+    phase's kernel there, where no resident plan fits)."""
+    multi = _solver(511, "multi")
+    assert kp.resident_plan(multi.grid.shape_c,
+                            kp.resident_sms(multi.device)) is None
+    _check_k2(multi, 5)
 
 
 @pytest.mark.parametrize("variant,split", [("multi", False),
@@ -473,6 +489,27 @@ def test_wide_grid_step_runs_on_k8():
     assert stats.err < 1e-3 and bool(torch.isfinite(st.pr).all())
     for k in (kp.poisson_iter_resident, kp.poisson_iter_resident_ext,
               kp.poisson_iter_ext):
+        assert k.launches == 0
+
+
+def test_wide_grid_multi_step_runs_on_k8_and_k2():
+    """One multi step at 511x307x307 on the normal path: phase 1 on the
+    sweep plan at s = 3, the extended phase on K2, one launch an
+    iteration: iters = K8 iterations + K1 launches + 1 + K2 launches, and
+    iters_ext = K2 launches (the guarantee's included). No resident
+    kernel."""
+    solver = _solver(511, "multi")
+    g = solver.grid
+    assert solver._resident_plan is None
+    assert solver._sweep_plan((g.niter // g.nchk) * g.nchk) == 3
+    kernels.reset_counts()
+    st, stats = solver.step(solver.init_state())
+    n8, n2 = kp.poisson_iter_sweeps.iterations, kp.poisson_iter_ext.launches
+    assert n8 == 3 * kp.poisson_iter_sweeps.launches - 2   # two K8(2)
+    assert stats.iters_ext == n2 == kp.poisson_iter_ext.iterations > 0
+    assert stats.iters == n8 + kp.poisson_iter.launches + 1 + n2
+    assert stats.err < 1e-3 and bool(torch.isfinite(st.pr).all())
+    for k in (kp.poisson_iter_resident, kp.poisson_iter_resident_ext):
         assert k.launches == 0
 
 
