@@ -29,8 +29,8 @@ Phases (any failure exits non-zero; nothing is caught):
      eps_it (the nx=63 ones are reported), and the nx=63 iteration counts
      are held against the JAX package's
   Each main path runs with the launch counts set to 0 just before it and
-  read just after: every kernel of the path (K10, the folded loops'
-  bodies, one launch per check interval; K12, the extended phase's
+  read just after: every kernel of the path (K10, one launch a folded
+  loop, its exits decided on the card; K12, the extended phase's
   bodies, one launch per check interval, on both multi runs, its
   launches and iterations printed) must have launched and no plain
   version may have run. Then one more step of
@@ -122,7 +122,13 @@ Phases (any failure exits non-zero; nothing is caught):
      that of the nit K1 launches (device time from torch.profiler, and
      CUDA events); the design's ceiling (rhs from HBM, 12 B a cell and
      iteration at the rate of a warm copy of pr into a buffer as large)
-     beside the JSON line's one-pass bound;
+     beside the JSON line's one-pass bound; at each grid the folded
+     loop's K10 launch (poisson_loop_resident, from it0 = 1, the exit
+     decisions on the card) over a budget of 6 checks, eps just above
+     the third check value and a stall window of 2, against host-driven
+     K10 launches of nit = nchk - it % nchk and its plain version: it
+     ends partway, pr, dpr, the check values and the checks taken
+     bitwise, one launch and no plain call;
      at 63 one Poisson solve (the gpu
      preset's first, K1 over its budget) whose first chunk runs on K10 and
      the rest in pt_loop_fused(seed0=True) on K1, with the launch counts
@@ -228,7 +234,8 @@ from navierstokes3d_tpu_torch.parallel import (  # noqa: E402
     build_poisson_shard_map, make_mesh)
 from navierstokes3d_tpu_torch.parallel.fullstep import (  # noqa: E402
     from_dist, to_dist)
-from navierstokes3d_tpu_torch.ptloop import pt_loop_fused  # noqa: E402
+from navierstokes3d_tpu_torch.ptloop import (  # noqa: E402
+    ExitRule, pt_loop_fused)
 
 NX = 255
 NSTEPS = 4
@@ -295,6 +302,9 @@ K11_ROW = {"name": "K11 poisson_iter_bc (dma mode)",
 # K10's phase: the 63x38x38 grid with nit = nchk, and 255 with nit = 152
 RESIDENT_NX = (63, 255)
 RESIDENT_NIT = {63: 37, 255: 152}
+# the folded loop's K10 launch in phase 16: a budget of 6 checks from
+# it0 = 1, eps just above the third check value, a stall window of 2
+LOOP_CHECKS, LOOP_WINDOW = 6, 2
 UNCHAINED_STEPS = 4
 DMA_STEPS = 4
 # the dist kernels' device symbols as the profiler names them (one kernel
@@ -1045,7 +1055,7 @@ def profile_step(solver, state, label, step=None) -> dict:
 
 def phase_gpu_path(solver) -> dict:
     counts, iters, states, _ = run_steps(solver, NSTEPS, "gpu", REF_ITERS)
-    # the folded loops run one K10 launch per check interval at 255
+    # the folded loops run one K10 launch a loop at 255
     for name in (K10_NAME, "K3 predict", "K4 correct", "K5 advect"):
         require(counts[name][0] > 0, f"gpu: {name} never launched")
     stored_errs(solver, states, "gpu", [NSTEPS])
@@ -2135,6 +2145,73 @@ def check_k10(solver, nit, smi) -> dict:
                 form_bound_ms=form_ms, **b)
 
 
+def check_k10_loop(solver, smi) -> None:
+    """The folded loop's K10 launch (poisson_loop_resident: check
+    intervals from it0 = 1, each exit decision taken on the card) on
+    resident_inputs, against host-driven K10 launches of nit = nchk - it
+    % nchk (each check value read by the host, the parent design) and
+    against its plain version: a budget of LOOP_CHECKS checks, eps just
+    above the third check value, the stall window of the preset's ratio
+    over LOOP_WINDOW checks, NaN in the scratch. The loop must end
+    partway, as ExitRule.stops on the host-driven check values says; pr,
+    dpr, the check values and the checks taken bitwise; one launch and no
+    plain call, read right after the launch."""
+    g, op = solver.grid, solver._op
+    nchk, f32 = g.nchk, np.float32
+    label = f"{g.nx}x{g.ny}x{g.nz}, nchk {nchk}"
+    scale = f32(solver._err_scale())
+    pr0, dpr0, rhs = resident_inputs(g)
+    q, dq = pr0.clone(), dpr0.clone()
+    scratch = torch.full_like(q, float("nan"))
+    it, errs, fields = 1, [], []
+    while it < LOOP_CHECKS * nchk:
+        nit = nchk - it % nchk
+        e = k_poisson.poisson_iter_resident(q, dq, rhs, op, nit, scratch)
+        it += nit
+        errs.append(f32(float(e)) * scale)
+        fields.append((q.clone(), dq.clone()))
+    errs = np.array(errs, np.float32)
+    eps = np.nextafter(errs[2], f32(np.inf))
+    rule = ExitRule(1, LOOP_CHECKS * nchk, nchk, eps, scale, LOOP_WINDOW,
+                    f32(solver.cfg.numerics.stall_ratio ** LOOP_WINDOW),
+                    f32(1e30))
+    n = next(k + 1 for k in range(LOOP_CHECKS)
+             if rule.stops((k + 1) * nchk, errs[:k + 1]))
+    kind = "stall" if rule.stalled(errs[:n]) else "eps"
+    require(n < LOOP_CHECKS, f"K10 loop ({label}): the check values "
+            f"{errs} end no loop partway")
+    kernels.reset_counts()
+    p, d = pr0.clone(), dpr0.clone()
+    scratch.fill_(float("nan"))
+    got = k_poisson.poisson_loop_resident(p, d, rhs, op, rule, scratch)
+    counts = (k_poisson.poisson_iter_resident.launches,
+              k_poisson.poisson_iter_resident_plain.calls,
+              k_poisson.poisson_iter_resident.checks)
+    pp, dp = pr0.clone(), dpr0.clone()
+    words = k_poisson.poisson_loop_resident_plain(pp, dp, rhs, op,
+                                                  rule).numpy()
+    plain = words[1:1 + words[0]].view(np.float32) * scale
+    torch.cuda.synchronize()
+    qn, dqn = fields[n - 1]
+    require(counts == (1, 0, n), f"K10 loop ({label}): launches, plain "
+            f"calls and checks {counts}, expected (1, 0, {n})")
+    require(got.view(np.int32).tolist() == errs[:n].view(np.int32).tolist()
+            and bitwise(p, qn) and bitwise(d, dqn),
+            f"K10 loop ({label}) differs from the host-driven launches: "
+            f"check values {got}, expected {errs[:n]}")
+    require(plain.view(np.int32).tolist() == got.view(np.int32).tolist()
+            and bitwise(p, pp) and bitwise(d, dp)
+            and k_poisson.poisson_iter_resident_plain.checks == n,
+            f"K10 loop ({label}) differs from its plain version by "
+            f"{max_abs(((p, pp), (d, dp)))}")
+    print(f"[resident] K10 loop ({label}): one launch took {n} of "
+          f"{LOOP_CHECKS} checks on the card and stopped by {kind} (eps "
+          f"{float(eps):.9e}, window {LOOP_WINDOW}); pr, dpr and the check "
+          f"values {[float(v) for v in got]} bitwise equal to {n} "
+          f"host-driven K10 launches and to the plain version; no plain "
+          f"call ({smi})")
+
+
 def resident_solve(smi) -> dict:
     """One Poisson solve at 63x38x38 (the gpu preset's first, from
     init_state: the folded protocol's exact first iteration, then K1 over
@@ -2271,6 +2348,7 @@ def phase_resident(smi):
         s = nt.ChorinSolver(nt.preset_gpu(nx=nx, compat=False,
                                           dtype="float32"), device="cuda")
         rows[nx] = check_k10(s, RESIDENT_NIT[nx], smi)
+        check_k10_loop(s, smi)
         del s
     counts = resident_solve(smi)
     for nx in RESIDENT_NX:

@@ -90,8 +90,13 @@
 // there is no K10, as the JAX package has none above its VMEM budget. Per
 // cell and iteration K10 computes K1's arithmetic in K1's order, so a
 // launch is bitwise nit K1 launches; the check value is K1's (float bits
-// as unsigned, block max). Bound: device-memory bytes, 12 B per cell and
-// iteration.
+// as unsigned, block max). The folded loops run all their check
+// intervals in one launch: after each check a grid barrier, then every
+// block takes the loop's exit decision (err < eps_it, a non-finite err,
+// the stall window, the budget) from the check values on the card, so
+// the host reads once a loop (ptloop.py `pt_loop_device`), where the JAX
+// package's loop is one lax.while_loop on the device. Bound:
+// device-memory bytes, 12 B per cell and iteration.
 //
 // K12 replaces no TPU kernel: it is K10's design carried over to K2's
 // (hi, lo) iteration, nit of K2's iterations in one cooperative launch
@@ -761,18 +766,56 @@ __host__ __device__ inline Part balanced_part(int n, int parts, int i) {
 // that the y and z neighbour reads hit).
 //
 // pr ping-pongs between pr_a (the caller's tensor, which holds the result
-// at the end) and pr_b (scratch). Neither is declared const or
-// __restrict__: each is written during the launch, so neither may be read
-// through the read-only (non-coherent) cache, whose lines a grid barrier
-// does not refresh.
+// at the end of every check interval) and pr_b (scratch). Neither is
+// declared const or __restrict__: each is written during the launch, so
+// neither may be read through the read-only (non-coherent) cache, whose
+// lines a grid barrier does not refresh.
+//
+// The launch runs check intervals of the folded loop (ptloop.py
+// `ExitRule`, kernels/poisson.py `poisson_loop_resident`): from global
+// iteration it = rule.it0, interval k runs nit = nchk - it % nchk
+// iterations (as one launch of that nit would: for an odd nit pr_a is
+// first copied into pr_b), reduces the residual entering its last
+// iteration into err_bits[k] and, unless it ends the budget, passes a
+// grid barrier, after which every block takes the same decision from
+// err_bits[0..k] (resident_runs_on). dpr stays in shared memory for the
+// whole launch. A launch of nit iterations is the rule {0, nit, nit}: one
+// interval, no decision. *checks (where not null) gets the intervals run.
+struct ExitRule {
+  int it0, niter, nchk;  // it0 < niter, niter a multiple of nchk
+  int window;            // the stall window in checks, 0: none
+  float eps, scale, thresh, big;
+};
+
+// The check value of interval k: its max |resid| (float bits, read in L2,
+// where the blocks' atomics landed) times the loop's scale, one float32
+// rounding, as the host's torch multiply rounds it.
+__device__ inline float resident_err(const unsigned int* bits, int k,
+                                     float scale) {
+  return __fmul_rn(__uint_as_float(__ldcg(bits + k)), scale);
+}
+
+// Whether the loop runs on after its k-th check (k >= 1; the budget is
+// not yet spent): pt_loop_fused's `running` in float32, on the check
+// values err_bits[0..k-1].
+__device__ inline bool resident_runs_on(const ExitRule& r,
+                                        const unsigned int* bits, int k) {
+  const float err = resident_err(bits, k - 1, r.scale);
+  if (!(err >= r.eps) || isinf(err)) return false;
+  if (r.window == 0 || k <= r.window) return true;
+  const float e0 = resident_err(bits, k - 1 - r.window, r.scale);
+  return !(err > __fmul_rn(r.thresh, e0) && e0 < r.big);
+}
+
 __global__ void __launch_bounds__(kResidentThreads, 1)
     poisson_resident_grid_kernel(float* pr_a, float* pr_b,
                                  float* __restrict__ dpr,
                                  const float* __restrict__ rhs, Weights w,
                                  float inv_dx2, float dtau, float decay,
                                  int zero_grad_x, int nx, int ny, int nz,
-                                 int nit, int cut_y, int cut_z,
-                                 unsigned int* __restrict__ err_bits) {
+                                 ExitRule rule, int cut_y, int cut_z,
+                                 unsigned int* __restrict__ err_bits,
+                                 int* __restrict__ checks) {
   namespace cg = cooperative_groups;
   const cg::grid_group grid = cg::this_grid();
   // the region's dpr, plane x of column c at x * cols + c
@@ -794,77 +837,92 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
   const float wyp = yz_in ? w.yp[y] : 0.0f, wym = yz_in ? w.ym[y] : 0.0f;
   const float wzp = yz_in ? w.zp[z] : 0.0f, wzm = yz_in ? w.zm[z] : 0.0f;
   float* const dcol = dsm + c;
-  // an even iteration j reads `even` and writes `odd`, an odd one the
-  // reverse; for an odd nit the input is first copied into pr_b, so that
-  // the last iteration (j = nit - 1) writes pr_a either way
-  float* const even = nit % 2 == 0 ? pr_a : pr_b;
-  float* const odd = nit % 2 == 0 ? pr_b : pr_a;
 #pragma unroll 4
-  for (int x = x0; x < x1; ++x) {
-    const int i = x * nyz + col;
-    dcol[x * cols] = dpr[i];
-    if (nit % 2 != 0) pr_b[i] = pr_a[i];
-  }
-  grid.sync();
-  unsigned int bits = 0u;
-  for (int j = 0; j < nit; ++j) {
-    const float* const p = j % 2 == 0 ? even : odd;
-    float* const q = j % 2 == 0 ? odd : even;
-    const bool last = j == nit - 1;
-    // the cell's x - 1 and x values, carried along the run
-    float pm = x0 > 0 && x0 < x1 ? p[(x0 - 1) * nyz + col] : 0.0f;
-    float pc = x0 < x1 ? p[x0 * nyz + col] : 0.0f;
-    for (int xb = x0; xb < x1; xb += kResidentUnroll) {
-      // the loads of kResidentUnroll planes, then their arithmetic
-      float pn[kResidentUnroll], yp[kResidentUnroll], ym[kResidentUnroll];
-      float zp[kResidentUnroll], zm[kResidentUnroll], r[kResidentUnroll];
-#pragma unroll
-      for (int u = 0; u < kResidentUnroll; ++u) {
-        const int x = xb + u;
-        const int i = x * nyz + col;
-        pn[u] = x < x1 && x + 1 < nx ? p[i + nyz] : 0.0f;
-        if (x < x1 && yz_in && x >= 1 && x <= nx - 2) {
-          yp[u] = p[i + nz];
-          ym[u] = p[i - nz];
-          zp[u] = p[i + 1];
-          zm[u] = p[i - 1];
-          // rhs streams (evict first), so that the pr buffers stay in L2
-          r[u] = __ldcs(rhs + i);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kResidentUnroll; ++u) {
-        const int x = xb + u;
-        if (x >= x1) continue;
-        const int i = x * nyz + col;
-        float* const dp = dcol + x * cols;
-        // K1's expressions in K1's order (poisson_iter_kernel)
-        if (yz_in && x >= 1 && x <= nx - 2) {
-          const float lap =
-              lap_folded(pn[u], pm, yp[u], ym[u], zp[u], zm[u], pc,
-                         zero_grad_x && x == 1, inv_dx2, wyp, wym, wzp, wzm);
-          const float resid = lap - r[u];
-          const float d = *dp * decay + dtau * resid;
-          *dp = d;
-          q[i] = pc + dtau * d;
-          if (last) {
-            const unsigned int b = __float_as_uint(fabsf(resid));
-            bits = b > bits ? b : bits;
-          }
-        } else {
-          *dp = 0.0f;
-          q[i] = pc + dtau * 0.0f;
-        }
-        pm = pc;
-        pc = pn[u];
-      }
+  for (int x = x0; x < x1; ++x) dcol[x * cols] = dpr[x * nyz + col];
+  int it = rule.it0, k = 0;
+  for (;;) {
+    const int nit = rule.nchk - it % rule.nchk;
+    // an even iteration j reads `even` and writes `odd`, an odd one the
+    // reverse; for an odd nit the input is first copied into pr_b, so that
+    // the last iteration (j = nit - 1) writes pr_a either way
+    float* const even = nit % 2 == 0 ? pr_a : pr_b;
+    float* const odd = nit % 2 == 0 ? pr_b : pr_a;
+    if (nit % 2 != 0) {
+#pragma unroll 4
+      for (int x = x0; x < x1; ++x) pr_b[x * nyz + col] = pr_a[x * nyz + col];
     }
-    if (!last) grid.sync();
+    // after the copy, and before the first interval (as a launch of nit
+    // iterations has it); a later even interval follows the decision's
+    // barrier
+    if (nit % 2 != 0 || k == 0) grid.sync();
+    unsigned int bits = 0u;
+    for (int j = 0; j < nit; ++j) {
+      const float* const p = j % 2 == 0 ? even : odd;
+      float* const q = j % 2 == 0 ? odd : even;
+      const bool last = j == nit - 1;
+      // the cell's x - 1 and x values, carried along the run
+      float pm = x0 > 0 && x0 < x1 ? p[(x0 - 1) * nyz + col] : 0.0f;
+      float pc = x0 < x1 ? p[x0 * nyz + col] : 0.0f;
+      for (int xb = x0; xb < x1; xb += kResidentUnroll) {
+        // the loads of kResidentUnroll planes, then their arithmetic
+        float pn[kResidentUnroll], yp[kResidentUnroll], ym[kResidentUnroll];
+        float zp[kResidentUnroll], zm[kResidentUnroll], r[kResidentUnroll];
+#pragma unroll
+        for (int u = 0; u < kResidentUnroll; ++u) {
+          const int x = xb + u;
+          const int i = x * nyz + col;
+          pn[u] = x < x1 && x + 1 < nx ? p[i + nyz] : 0.0f;
+          if (x < x1 && yz_in && x >= 1 && x <= nx - 2) {
+            yp[u] = p[i + nz];
+            ym[u] = p[i - nz];
+            zp[u] = p[i + 1];
+            zm[u] = p[i - 1];
+            // rhs streams (evict first), so that the pr buffers stay in L2
+            r[u] = __ldcs(rhs + i);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kResidentUnroll; ++u) {
+          const int x = xb + u;
+          if (x >= x1) continue;
+          const int i = x * nyz + col;
+          float* const dp = dcol + x * cols;
+          // K1's expressions in K1's order (poisson_iter_kernel)
+          if (yz_in && x >= 1 && x <= nx - 2) {
+            const float lap =
+                lap_folded(pn[u], pm, yp[u], ym[u], zp[u], zm[u], pc,
+                           zero_grad_x && x == 1, inv_dx2, wyp, wym, wzp, wzm);
+            const float resid = lap - r[u];
+            const float d = *dp * decay + dtau * resid;
+            *dp = d;
+            q[i] = pc + dtau * d;
+            if (last) {
+              const unsigned int b = __float_as_uint(fabsf(resid));
+              bits = b > bits ? b : bits;
+            }
+          } else {
+            *dp = 0.0f;
+            q[i] = pc + dtau * 0.0f;
+          }
+          pm = pc;
+          pc = pn[u];
+        }
+      }
+      if (!last) grid.sync();
+    }
+    bits = ns3d::block_max<kResidentThreads>(bits);
+    if (ns3d::thread_rank() == 0 && bits != 0u) atomicMax(err_bits + k, bits);
+    it += nit;
+    ++k;
+    if (it >= rule.niter) break;
+    // every block's max is in err_bits[k - 1]: all take the same decision
+    grid.sync();
+    if (!resident_runs_on(rule, err_bits, k)) break;
   }
 #pragma unroll 4
   for (int x = x0; x < x1; ++x) dpr[x * nyz + col] = dcol[x * cols];
-  bits = ns3d::block_max<kResidentThreads>(bits);
-  if (ns3d::thread_rank() == 0 && bits != 0u) atomicMax(err_bits, bits);
+  if (checks != nullptr && blockIdx.x == 0 && ns3d::thread_rank() == 0)
+    *checks = k;
 }
 
 // ---- K12: nit of K2's iterations in one launch, resident on chip ----
@@ -1389,29 +1447,38 @@ extern "C" int ns3d_poisson_iter_ext_bc_dist(
       tiles_z, err_bits, stream));
 }
 
-// K10: nit iterations in one launch, the result in pr (the caller's
-// tensor) and dpr, the check value of the state entering the last
-// iteration in err_bits (zeroed by the caller): a cooperative grid of
-// blocks = cut_y x cut_z blocks (at most one per SM), block b owning the
-// (y, z) columns of y part b / cut_z and z part b % cut_z, scratch the
-// second pr buffer. smem: the dynamic shared memory per block the plan
-// asked for, which must hold the largest region's dpr. A refused launch
-// returns its error (launch_resident_grid); nothing falls back to K1
-// launches.
+// K10: a folded loop's check intervals in one launch, from global
+// iteration it0 < niter (a multiple of nchk) under the exit rule (eps,
+// scale, thresh, big: float32; window 0 for no stall exit), or nit
+// iterations (it0 = 0, niter = nchk = nit); the result in pr (the
+// caller's tensor) and dpr, each interval's check value (the state
+// entering its last iteration) in err_bits, one zeroed slot a check the
+// loop may take, and the intervals run in *checks (nullable): a
+// cooperative grid of blocks = cut_y x cut_z blocks (at most one per SM),
+// block b owning the (y, z) columns of y part b / cut_z and z part b %
+// cut_z, scratch the second pr buffer. smem: the dynamic shared memory
+// per block the plan asked for, which must hold the largest region's dpr.
+// A refused launch returns its error (launch_resident_grid); nothing
+// falls back to K1 launches.
 extern "C" int ns3d_poisson_iter_resident(
     float* pr, float* scratch, float* dpr, const float* rhs,
     const float* wyp, const float* wym, const float* wzp, const float* wzm,
     float inv_dx2, float dtau, float decay, int zero_grad_x, int nx, int ny,
-    int nz, int nit, int blocks, int cut_y, int cut_z, int smem,
-    unsigned int* err_bits, cudaStream_t stream) {
+    int nz, int it0, int niter, int nchk, float eps, float scale,
+    float thresh, float big, int window, int blocks, int cut_y, int cut_z,
+    int smem, unsigned int* err_bits, int* checks, cudaStream_t stream) {
+  if (nchk < 1 || it0 < 0 || it0 >= niter || niter % nchk != 0 ||
+      window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   Weights w{wyp, wym, wzp, wzm};
+  ExitRule rule{it0, niter, nchk, window, eps, scale, thresh, big};
   void* args[] = {&pr, &scratch, &dpr, &rhs, &w, &inv_dx2, &dtau, &decay,
-                  &zero_grad_x, &nx, &ny, &nz, &nit, &cut_y, &cut_z,
-                  &err_bits};
+                  &zero_grad_x, &nx, &ny, &nz, &rule, &cut_y, &cut_z,
+                  &err_bits, &checks};
   return static_cast<int>(launch_resident_grid(
       reinterpret_cast<const void*>(poisson_resident_grid_kernel),
-      kResidentThreads, args, nx, ny, nz, nit, blocks, cut_y, cut_z, smem,
-      stream));
+      kResidentThreads, args, nx, ny, nz, nchk - it0 % nchk, blocks, cut_y,
+      cut_z, smem, stream));
 }
 
 // K12: nit of K2's iterations in one launch under K10's plan, the result

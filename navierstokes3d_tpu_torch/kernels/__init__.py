@@ -6,7 +6,8 @@ on first use, kernels/_build.py) and runs the plain version for CPU
 tensors. Each wrapper counts its launches (`wrapper.launches`) and each
 plain version its calls (`plain.calls`), so a run can show which path it
 took; K2's, K8's, K10's and K12's also count the iterations they
-advanced (`.iterations`).
+advanced (`.iterations`), and K10's the checks its folded loops took on
+the card (`.checks`).
 """
 
 from __future__ import annotations
@@ -78,8 +79,8 @@ def reset_counts() -> None:
     """Set every launch and plain-call count to 0 (also that of
     advect_branch, K5's kernel for one branch, off the main path, and of
     advect_branch_pre_plain, the per-branch part of K6's plain version),
-    K2's, K8's, K10's and K12's iteration counts, and the iterations the
-    solver's stored-state guarantee added
+    K2's, K8's, K10's and K12's iteration counts, K10's checks, and the
+    iterations the solver's stored-state guarantee added
     (`ChorinSolver.guarantee_iterations`)."""
     from ..models.chorin import ChorinSolver
     for k in KERNELS:
@@ -91,6 +92,8 @@ def reset_counts() -> None:
     poisson.poisson_iter_sweeps_plain.iterations = 0
     poisson.poisson_iter_resident.iterations = 0
     poisson.poisson_iter_resident_plain.iterations = 0
+    poisson.poisson_iter_resident.checks = 0
+    poisson.poisson_iter_resident_plain.checks = 0
     poisson.poisson_iter_resident_ext.iterations = 0
     poisson.poisson_iter_resident_ext_plain.iterations = 0
     advect.advect_branch.launches = 0

@@ -55,10 +55,11 @@ SIGNATURES = {
     "ns3d_poisson_iter_sweeps": (*(_P,) * 9, _F, _F, _F, *(_I,) * 10, _P,
                                  _P),
     # pr, scratch, dpr, rhs, wyp, wym, wzp, wzm, inv_dx2, dtau, decay,
-    # zero_grad_x, nx, ny, nz, nit, then the plan: blocks, the cut (y
-    # parts, z parts), smem bytes; err_bits, stream
-    "ns3d_poisson_iter_resident": (*(_P,) * 8, _F, _F, _F, *(_I,) * 9, _P,
-                                   _P),
+    # zero_grad_x, nx, ny, nz, the exit rule: it0, niter, nchk, eps,
+    # scale, thresh, big, window; then the plan: blocks, the cut (y parts,
+    # z parts), smem bytes; err_bits, checks (nullable), stream
+    "ns3d_poisson_iter_resident": (*(_P,) * 8, _F, _F, _F, *(_I,) * 7,
+                                   *(_F,) * 4, *(_I,) * 5, _P, _P, _P),
     # hi, lo, hi_scratch, lo_scratch, dpr, rhs, wyp, wym, wzp, wzm,
     # inv_dx2, dtau, decay, zero_grad_x, nx, ny, nz, nit, then the plan:
     # blocks, the cut (y parts, z parts), smem bytes; err_bits, stream

@@ -5,12 +5,12 @@ iteration with the boundary conditions applied in-kernel (compat mode and
 the dma-mode solve), and the residual evaluations of the Poisson solve.
 
 `poisson_iter`, `poisson_iter_sweeps`, `poisson_iter_resident`,
-`poisson_iter_ext`, `poisson_iter_resident_ext` and `poisson_iter_bc`
-launch the CUDA kernels of csrc/poisson.cu for CUDA tensors and run
-`poisson_iter_plain`, `poisson_iter_sweeps_plain`,
-`poisson_iter_resident_plain`, `poisson_iter_ext_plain`,
-`poisson_iter_resident_ext_plain` and `poisson_iter_bc_plain`, their plain
-PyTorch versions, for CPU tensors.
+`poisson_loop_resident`, `poisson_iter_ext`, `poisson_iter_resident_ext`
+and `poisson_iter_bc` launch the CUDA kernels of csrc/poisson.cu for CUDA
+tensors and run `poisson_iter_plain`, `poisson_iter_sweeps_plain`,
+`poisson_iter_resident_plain`, `poisson_loop_resident_plain`,
+`poisson_iter_ext_plain`, `poisson_iter_resident_ext_plain` and
+`poisson_iter_bc_plain`, their plain PyTorch versions, for CPU tensors.
 K1 computes the Pallas kernel's iteration (navierstokes3d_tpu/kernels/
 poisson.py:914, `compute_slab_folded` :305) on the canonical 3D layout:
 
@@ -46,11 +46,16 @@ keeps dpr on chip, in the shared memory of a grid of one block per SM
 (`resident_plan`), and moves 12 B a cell and iteration where K1 moves
 20; a grid whose dpr does not fit has no K10 (`make_resident` returns
 None, as the JAX package's does above its VMEM budget). The solver's
-folded loops run one K10 launch per check interval wherever it has a
-plan and the sweep plan is off (models/chorin.py `_folded_loop`);
-`make_resident` and ptloop.pt_loop_fused's `seed0` compose it with a K1
-loop as the JAX package does. Both versions count the iterations they
-advanced (`.iterations`) beside their launches or calls.
+folded loops run as ONE K10 launch each wherever it has a plan and the
+sweep plan is off (models/chorin.py `_folded_loop`,
+`poisson_loop_resident`): the launch runs check interval after check
+interval, takes each exit decision on the card (ptloop.ExitRule) and
+hands the host the loop's check values in one read, as the JAX package
+runs the loop in one lax.while_loop on the device. `make_resident` and
+ptloop.pt_loop_fused's `seed0` compose a launch of nit iterations with a
+K1 loop as the JAX package does. Both versions count the iterations they
+advanced (`.iterations`) and the checks the loop took on the card
+(`.checks`) beside their launches or calls.
 
 K12 replaces no TPU kernel: it is K10's design carried over to K2, nit of
 K2's iterations in one launch under K10's plan (`resident_plan`), hi, lo
@@ -100,6 +105,7 @@ import torch
 
 from ..ops import ds
 from ..ops.stencil import div
+from ..ptloop import ExitRule, host_array
 from . import _build
 
 
@@ -457,15 +463,9 @@ def _check_nit(nit: int, name: str) -> None:
         raise ValueError(f"{name}: nit={nit}, expected >= 1")
 
 
-def poisson_iter_resident_plain(pr, dpr, rhs, op: PoissonOperator, nit: int,
-                                scratch=None) -> torch.Tensor:
-    """Plain PyTorch version of K10 (same arguments and effects as
-    poisson_iter_resident): K1's arithmetic nit times, only the last
-    iteration checked, pr ping-ponging with scratch."""
-    _check_nit(nit, "poisson_iter_resident_plain")
-    poisson_iter_resident_plain.calls += 1
-    poisson_iter_resident_plain.iterations += int(nit)
-    spare = torch.empty_like(pr) if scratch is None else scratch
+def _resident_math(pr, dpr, rhs, op: PoissonOperator, nit: int, spare):
+    """K10's arithmetic over nit iterations, uncounted
+    (poisson_iter_resident_plain and poisson_loop_resident_plain)."""
     # as the kernel: iteration j reads src and writes dst, then they
     # swap; for an odd nit the input is first copied into the scratch, so
     # that the last iteration writes the caller's pr
@@ -479,8 +479,49 @@ def poisson_iter_resident_plain(pr, dpr, rhs, op: PoissonOperator, nit: int,
     return err
 
 
+def poisson_iter_resident_plain(pr, dpr, rhs, op: PoissonOperator, nit: int,
+                                scratch=None) -> torch.Tensor:
+    """Plain PyTorch version of K10 (same arguments and effects as
+    poisson_iter_resident): K1's arithmetic nit times, only the last
+    iteration checked, pr ping-ponging with scratch."""
+    _check_nit(nit, "poisson_iter_resident_plain")
+    poisson_iter_resident_plain.calls += 1
+    poisson_iter_resident_plain.iterations += int(nit)
+    spare = torch.empty_like(pr) if scratch is None else scratch
+    return _resident_math(pr, dpr, rhs, op, nit, spare)
+
+
 poisson_iter_resident_plain.calls = 0
 poisson_iter_resident_plain.iterations = 0
+poisson_iter_resident_plain.checks = 0
+
+
+def poisson_loop_resident_plain(pr, dpr, rhs, op: PoissonOperator,
+                                rule: ExitRule, scratch=None) -> torch.Tensor:
+    """Plain PyTorch version of the launch behind poisson_loop_resident:
+    from global iteration rule.it0, K10's arithmetic over check intervals
+    of nit = nchk - it % nchk iterations (the result in the caller's pr
+    after each), each exit decision taken from the check values as the
+    kernel takes it (`rule`). Returns the launch's result: an int32
+    tensor of the checks taken, then each check's max |resid| as float
+    bits (rule.max_checks slots, zero past the last). It counts as one
+    call of K10's plain version, with the loop's iterations and checks."""
+    poisson_iter_resident_plain.calls += 1
+    spare = torch.empty_like(pr) if scratch is None else scratch
+    res = torch.zeros((1 + rule.max_checks,), dtype=torch.int32)
+    it, errs = rule.it0, []
+    while True:
+        nit = rule.nchk - it % rule.nchk
+        raw = _resident_math(pr, dpr, rhs, op, nit, spare).cpu()
+        it += nit
+        res[1 + len(errs)] = raw.view(torch.int32)
+        errs.append(raw.numpy() * rule.scale)
+        if rule.stops(it, errs):
+            break
+    res[0] = len(errs)
+    poisson_iter_resident_plain.iterations += it - rule.it0
+    poisson_iter_resident_plain.checks += len(errs)
+    return res
 
 
 # K10's launch geometry (csrc/poisson.cu, the K10 section): blocks of
@@ -587,12 +628,11 @@ def poisson_iter_resident(pr, dpr, rhs, op: PoissonOperator, nit: int,
     return launch_resident(pr, dpr, rhs, op, nit, plan, scratch)
 
 
-def launch_resident(pr, dpr, rhs, op: PoissonOperator, nit: int,
-                    plan: ResidentPlan, scratch=None) -> torch.Tensor:
-    """One K10 launch under a given plan (poisson_iter_resident takes
-    `resident_plan`'s; the card tests force others): the operand checks,
-    the launch, the count."""
-    _check_nit(nit, "launch_resident")
+def _launch_k10(pr, dpr, rhs, op: PoissonOperator, rule: ExitRule,
+                plan: ResidentPlan, scratch, res: torch.Tensor) -> None:
+    """One K10 launch under `rule` and `plan`: the operand checks, the
+    launch, the launch count. res: int32, zeroed, the checks taken then
+    rule.max_checks slots of check values."""
     dev = pr.device
     if scratch is None:
         scratch = torch.empty_like(pr)
@@ -602,25 +642,72 @@ def launch_resident(pr, dpr, rhs, op: PoissonOperator, nit: int,
     if len(set(ptrs)) != 4:
         raise ValueError("poisson_iter_resident: pr, dpr, rhs and scratch "
                          "must be distinct")
-    err = torch.zeros((1,), dtype=torch.int32, device=dev)
     nx, ny, nz = pr.shape
     lib = _build.load()
+    f32 = ctypes.c_float
+    floats = (f32(float(v)) for v in (rule.eps, rule.scale, rule.thresh,
+                                      rule.big))
     rc = lib.ns3d_poisson_iter_resident(
         pr.data_ptr(), scratch.data_ptr(), dpr.data_ptr(), rhs.data_ptr(),
         op.wyp.data_ptr(), op.wym.data_ptr(), op.wzp.data_ptr(),
-        op.wzm.data_ptr(), ctypes.c_float(op.inv_dx2),
-        ctypes.c_float(op.dtau), ctypes.c_float(op.decay),
-        int(op.zero_grad_x), nx, ny, nz, int(nit),
-        plan.blocks, *plan.cut, plan.smem_bytes, err.data_ptr(),
-        _build.stream_of(pr))
+        op.wzm.data_ptr(), f32(op.inv_dx2), f32(op.dtau), f32(op.decay),
+        int(op.zero_grad_x), nx, ny, nz, rule.it0, rule.niter, rule.nchk,
+        *floats, rule.window, plan.blocks, *plan.cut, plan.smem_bytes,
+        res[1:].data_ptr(), res.data_ptr(), _build.stream_of(pr))
     _build.check(rc, "poisson_iter_resident")
     poisson_iter_resident.launches += 1
+
+
+def launch_resident(pr, dpr, rhs, op: PoissonOperator, nit: int,
+                    plan: ResidentPlan, scratch=None) -> torch.Tensor:
+    """One K10 launch of nit iterations under a given plan
+    (poisson_iter_resident takes `resident_plan`'s; the card tests force
+    others): the operand checks, the launch, the counts."""
+    _check_nit(nit, "launch_resident")
+    one = np.float32(1.0)
+    res = torch.zeros((2,), dtype=torch.int32, device=pr.device)
+    _launch_k10(pr, dpr, rhs, op, ExitRule(0, nit, nit, one, one, 0, one,
+                                           one), plan, scratch, res)
     poisson_iter_resident.iterations += int(nit)
-    return err.view(torch.float32)[0]
+    return res[1:].view(torch.float32)[0]
 
 
 poisson_iter_resident.launches = 0
 poisson_iter_resident.iterations = 0
+poisson_iter_resident.checks = 0
+
+
+def poisson_loop_resident(pr, dpr, rhs, op: PoissonOperator,
+                          rule: ExitRule, scratch=None) -> np.ndarray:
+    """A folded loop's check intervals in ONE K10 launch that takes each
+    exit decision on the card: from global iteration rule.it0, intervals
+    of nit = nchk - it % nchk iterations, each bitwise one
+    poisson_iter_resident launch of that nit (pr and dpr in place,
+    `scratch` the other half of pr's ping-pong), until `rule` stops the
+    loop (ptloop.ExitRule: pt_loop_fused's decision after each check).
+    Returns the check values the loop took, in order, in err units
+    (max|resid| x rule.scale, float32), read by the host in one
+    ptloop.host_array, which also adds the loop's iterations and checks
+    to the counts. CUDA tensors launch the kernel under `resident_plan`'s
+    plan, and raise where the grid has none or the card refuses the
+    launch; CPU tensors run the plain version."""
+    if not _build.on_cuda(pr, "poisson_loop_resident"):
+        res = poisson_loop_resident_plain(pr, dpr, rhs, op, rule, scratch)
+    else:
+        plan = resident_plan(tuple(pr.shape), resident_sms(pr.device))
+        if plan is None:
+            raise ValueError(f"poisson_loop_resident: no resident plan for "
+                             f"a grid of {tuple(pr.shape)}")
+        res = torch.zeros((1 + rule.max_checks,), dtype=torch.int32,
+                          device=pr.device)
+        _launch_k10(pr, dpr, rhs, op, rule, plan, scratch, res)
+    words = host_array(res)
+    n = int(words[0])
+    if res.is_cuda:
+        poisson_iter_resident.iterations += (
+            (rule.it0 // rule.nchk + n) * rule.nchk - rule.it0)
+        poisson_iter_resident.checks += n
+    return words[1:1 + n].view(np.float32) * rule.scale
 
 
 def make_resident(nit: int, shape: Optional[Tuple[int, int, int]] = None,

@@ -24,9 +24,10 @@ and NavierStokes3D_multi_gpu.jl:383-444):
      of one K1, with the same iterations and check values
      (`sweep_depths`, `_sweep_plan`); elsewhere, where K10 has a plan
      for the grid (`_resident_plan`: 255x153x153, 63x38x38), one K10
-     launch per check interval, and the extended phase one K12 launch
-     per check interval instead of K2's, again with the same iterations
-     and check values
+     launch per folded loop, which takes each check's exit decision on
+     the card (the host reads once a loop), and the extended phase one
+     K12 launch per check interval instead of K2's, again with the same
+     iterations and check values
   3. fused corrector + cylinder mask + the variant's velocity BCs (K4)
   4. four semi-Lagrangian advection branches (K5)
 
@@ -114,7 +115,8 @@ from ..ops.cylinder import (CylinderMasks, apply_cylinder, build_masks,
 from ..ops.fdm_poisson import build_fdm_solver, solve_host_f64
 from ..parallel.halo import build_poisson_shard_map
 from ..parallel.mesh import Mesh
-from ..ptloop import host_scalar, np_float, pt_loop, pt_loop_fused
+from ..ptloop import (host_scalar, np_float, pt_loop, pt_loop_device,
+                      pt_loop_fused)
 from ..state import FIELDS, FlowState, StepStats, zeros_state
 from ..utils.profiling import span
 
@@ -240,23 +242,22 @@ class ChorinSolver:
                 grid, self.device)
         kp = k_poisson
         (self._poisson_iter, self._poisson_iter_sweeps,
-         self._poisson_iter_resident, self._poisson_iter_ext,
-         self._poisson_iter_resident_ext, self._poisson_iter_bc) = (
+         self._poisson_iter_ext, self._poisson_iter_resident_ext,
+         self._poisson_iter_bc) = (
             (kp.poisson_iter_plain, kp.poisson_iter_sweeps_plain,
-             kp.poisson_iter_resident_plain, kp.poisson_iter_ext_plain,
-             kp.poisson_iter_resident_ext_plain, kp.poisson_iter_bc_plain)
+             kp.poisson_iter_ext_plain, kp.poisson_iter_resident_ext_plain,
+             kp.poisson_iter_bc_plain)
             if self.plain else
-            (kp.poisson_iter, kp.poisson_iter_sweeps,
-             kp.poisson_iter_resident, kp.poisson_iter_ext,
+            (kp.poisson_iter, kp.poisson_iter_sweeps, kp.poisson_iter_ext,
              kp.poisson_iter_resident_ext, kp.poisson_iter_bc))
         # the sweep depths the folded loops may run K8 at; () keeps them on
         # 1-iteration K1 bodies (the JAX default, see sweep_depths)
         self._sweep_depths = sweep_depths(grid.ny, grid.nz)
         # K10's plan for this grid on this device (kernels/poisson.py
-        # resident_plan): where the sweep plan is off, the folded loops run
-        # one K10 launch per check interval, and the extended phase one K12
-        # launch; None keeps the K1 and K2 bodies. The plain solver
-        # (float64) keeps its K1 bodies
+        # resident_plan): where the sweep plan is off, each folded loop
+        # runs as one K10 launch (poisson_loop_resident), and the extended
+        # phase one K12 launch per check interval; None keeps the K1 and
+        # K2 bodies. The plain solver (float64) keeps its K1 bodies
         self._resident_plan = (
             None if self.plain else
             kp.resident_plan(grid.shape_c, kp.resident_sms(self.device)))
@@ -734,10 +735,12 @@ class ChorinSolver:
             second; from it0 = 1 the loop first runs to global iteration
             2s (one K1, then s-1 K8(2) launches);
           * else, where K10 has a plan for the grid (`_resident_plan`),
-            one K10 launch from global iteration it to the next check,
-            nit = nchk - it % nchk iterations, with pr and dpr updated in
-            place (carry[1] is its scratch) and its check value the one
-            the flagged K1 launch would emit;
+            the whole loop as one K10 launch (ptloop.pt_loop_device,
+            kernels/poisson.py `poisson_loop_resident`): check intervals
+            of nit = nchk - it % nchk iterations from it0, pr and dpr
+            updated in place (carry[1] is its scratch), each check value
+            the one the flagged K1 launch would emit and each exit
+            decision taken on the card, read by the host once;
           * else one K1 iteration."""
         nchk = self.grid.nchk
         if rem and it0 > n_checked:
@@ -763,15 +766,28 @@ class ChorinSolver:
                 c, ec = self._sweep(c, rhs, s, (it + 2 * s) % nchk == 0)
                 return c, None if ec is None else ec * err_scale, 2 * s
         elif self._resident_plan is not None:
-            def body(c, it):
-                nit = nchk - it % nchk
-                ec = self._poisson_iter_resident(c[0], c[2], rhs, self._op,
-                                                 nit, c[1])
-                return c, ec * err_scale, nit
+            def run_loop(c, rule):
+                return c, k_poisson.poisson_loop_resident(
+                    c[0], c[2], rhs, self._op, rule, c[1])
+
+            return pt_loop_device(run_loop, carry, it0, n_checked, nchk,
+                                  eps, self.dtype, err_scale, stall=stall,
+                                  err0=err0, rem=rem,
+                                  tail_fn=self._tail(chain, rem))
         else:
             body = chain
         return self._fused(body, chain, carry, it0, n_checked, rem, eps,
                            stall, err0)
+
+    @staticmethod
+    def _tail(chain, rem: int) -> Callable:
+        """The trailing partial chunk: `rem` single unchecked iterations
+        of `chain`."""
+        def tail(c):
+            for _ in range(rem):
+                c = chain(c, 0)[0]       # it=0: no check flag
+            return c
+        return tail
 
     def _fused(self, body, chain, carry, it0: int, n_checked: int, rem: int,
                eps, stall, err0=None):
@@ -779,21 +795,16 @@ class ChorinSolver:
         of n_checked iterations, then `rem` single iterations of `chain`
         as its tail."""
         nchk = self.grid.nchk
-
-        def tail(c):
-            for _ in range(rem):
-                c = chain(c, 0)[0]       # it=0: no check flag
-            return c
-
         return pt_loop_fused(body, carry, it0, n_checked, nchk,
                              n_checked // nchk, eps, self.dtype, stall=stall,
-                             err0=err0, rem=rem, tail_fn=tail)
+                             err0=err0, rem=rem,
+                             tail_fn=self._tail(chain, rem))
 
     def _poisson_solve_defect(self, pr, dprdtau, divv):
         """The folded + defect branch of the JAX package's
         `_poisson_solve_pallas` (chorin.py:1127-1462), both phases on
-        `_folded_loop`'s bodies (K10 where it has a plan for the grid, K8
-        where the sweep plan is on, else K1)."""
+        `_folded_loop`'s bodies (one K10 launch a loop where it has a plan
+        for the grid, K8 where the sweep plan is on, else K1)."""
         grid, phys, num = self.grid, self.cfg.physics, self.cfg.numerics
         nchunks, rem = self._budget()
         nchk, eps_it = grid.nchk, num.eps_it

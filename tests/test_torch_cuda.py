@@ -12,6 +12,7 @@ every operation in float32 in the same order (the kernels are built with
 --fmad=false), so the expected difference is zero."""
 
 import dataclasses
+import functools
 import types
 
 import numpy as np
@@ -20,7 +21,7 @@ import torch
 
 import advect_faults
 import navierstokes3d_tpu_torch as nt
-from navierstokes3d_tpu_torch import kernels
+from navierstokes3d_tpu_torch import kernels, ptloop
 from navierstokes3d_tpu_torch.kernels import _build
 from navierstokes3d_tpu_torch.kernels import advect as ka
 from navierstokes3d_tpu_torch.kernels import fused_step as kf
@@ -434,7 +435,7 @@ def test_step_on_card_matches_cpu(preset):
         for name in ("pr", "vx", "vy", "vz", "c", "dprdtau", "pr_lo"):
             assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
     # nx=15 is no wide grid: the sweep plan is off and K8 does not launch;
-    # the folded loops run one K10 launch per check interval and the
+    # the folded loops run one K10 launch a loop and the
     # extended phase one K12 launch (no K1 or K2 runs: no solve exhausts
     # its budget or exits marginally); K7 (compat) and the dist kernels
     # (sharded solves) are off this path
@@ -983,9 +984,10 @@ def test_k10_route_at_255_is_k1_route():
     launch per check interval) and off (`_resident_plan = None`: K1 and
     K2 bodies): the same 3192 iterations, err and check history, every
     field bitwise equal; phase 1's 2887 iterations after the exact first
-    one are 19 K10 launches (151 iterations, then 152 each), and 2887 K1
-    launches with the route off; the extended phase's 304 iterations are
-    2 K12 launches, and 304 K2 launches with the route off."""
+    one are one K10 launch that took 19 checks on the card (151
+    iterations, then 152 each), and 2887 K1 launches with the route off;
+    the extended phase's 304 iterations are 2 K12 launches, and 304 K2
+    launches with the route off."""
     on = _solver(255, "multi")
     assert on._resident_plan is not None
     off = nt.ChorinSolver(on.cfg, device="cuda")
@@ -999,7 +1001,8 @@ def test_k10_route_at_255_is_k1_route():
     kernels.reset_counts()
     a, sa = on.step(on.init_state())
     assert (kp.poisson_iter.launches, kp.poisson_iter_resident.launches,
-            kp.poisson_iter_resident.iterations) == (0, 19, 2887)
+            kp.poisson_iter_resident.iterations,
+            kp.poisson_iter_resident.checks) == (0, 1, 2887, 19)
     assert (kp.poisson_iter_ext.launches,
             kp.poisson_iter_resident_ext.launches,
             kp.poisson_iter_resident_ext.iterations) == (0, 2, 304)
@@ -1194,7 +1197,7 @@ def test_unchained_and_dma_steps_on_card_match_cpu(preset, kw):
             assert (x is None) == (y is None), name
             assert x is None or torch.equal(x.cpu(), y), name
     # at nx=15 the multi solves converge in phase 1 (no K2); the folded
-    # loops run on K10 (one launch per check interval)
+    # loops run on K10 (one launch a loop)
     if "fused_step" in kw:
         on_path = {"K10", "K6"}
     else:
@@ -1347,3 +1350,123 @@ def test_float64_step_on_card_matches_cpu(preset):
                 rtol=0, atol=1e-12, err_msg=name)
     for k in kernels.KERNELS:
         assert k.wrapper.launches == 0, k.name
+
+
+@functools.lru_cache(maxsize=None)
+def _loop_case(preset, nx):
+    """A solver on the card and a folded loop's inputs from its preset's
+    first step: the first iteration's pr and dpr and the folded RHS."""
+    s = _solver(nx, preset)
+    state = s.init_state()
+    divv = s.predictor_divv(state)
+    pr, dpr = s._first_iteration(state.pr, state.dprdtau, divv)
+    return s, s._rhs3d(divv), pr, dpr
+
+
+def _host_driven_k10(s, rhs, carry, it0, n_checked, rem, eps, stall, err0):
+    """The folded loop as the host drove K10 before its checks moved onto
+    the card: pt_loop_fused over one K10 launch from global iteration it
+    to the next check, its check value read after each."""
+    nchk, err_scale = s.grid.nchk, s._err_scale()
+
+    def body(c, it):
+        nit = nchk - it % nchk
+        ec = kp.poisson_iter_resident(c[0], c[2], rhs, s._op, nit, c[1])
+        return c, ec * err_scale, nit
+    return s._fused(body, s._kernel_chain(rhs, err_scale), carry, it0,
+                    n_checked, rem, eps, stall, err0)
+
+
+# each way a folded loop ends: (eps, stall, checks of budget, rem, err0,
+# dtau factor); None: the whole budget and its rem; eps "mid": the check
+# value halfway down a budget of 8 checks, read first from the
+# host-driven loop
+K10_EXITS = {
+    "eps_it": ("mid", None, 8, 0, None, 1.0),
+    "defect_1000_eps": (1.0, (0.96, 5), None, 0, None, 1.0),
+    "stall": (1e-30, (0.96, 5), None, None, None, 1.0),
+    "nonfinite": (1e-30, None, 12, 0, None, 2.0),
+    "budget_tail": (1e-30, None, 6, 5, None, 1.0),
+    "budget_no_tail": (1e-30, None, 6, 0, None, 1.0),
+    "err0_no_op": (1e-3, None, None, None, 5e-4, 1.0),
+}
+
+
+# the exit the defect phase 1's loop (1000 x eps_it, the stall window on)
+# takes from each preset's first step, where it is not the eps exit: at
+# 255 the gpu preset's stalls above 1000 x eps_it (2888 iterations, err
+# 1.29), on both routes alike
+DEFECT_1000_EPS_EXIT = {("gpu", 255): "stall"}
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("it0", [1, 0])
+@pytest.mark.parametrize("exit_by", list(K10_EXITS))
+@pytest.mark.parametrize("nx", [63, 255])
+@pytest.mark.parametrize("preset", ["gpu", "multi"])
+def test_k10_device_loop_is_host_driven_loop(preset, nx, exit_by, it0):
+    """A folded loop on K10's route (one launch that takes each check's
+    exit decision on the card, `_folded_loop`) against pt_loop_fused over
+    host-driven K10 launches, one a check interval, each read by the
+    host, with NaN in the scratch half of pr on both sides: pr, dpr,
+    iterations, err and check history bit for bit; the loop ends as
+    named; one launch and one host read (none for the no-op), its checks
+    (`poisson_iter_resident.checks`) the host-driven loop's launches."""
+    s, rhs, pr, dpr = _loop_case(preset, nx)
+    eps, stall, n_checks, rem, err0, dtau = K10_EXITS[exit_by]
+    nchk = s.grid.nchk
+    budget, tail = s._budget()
+    n_checked = (n_checks or budget) * nchk
+    rem = tail if rem is None else rem
+    err0 = None if err0 is None else np.float32(err0)
+    op = s._op
+    s._op = dataclasses.replace(op, dtau=op.dtau * dtau)
+    try:
+        if eps == "mid":
+            carry = (pr.clone(), torch.full_like(pr, float("nan")),
+                     dpr.clone(), None)
+            h = _host_driven_k10(s, rhs, carry, it0, n_checked, 0,
+                                 np.float32(1e-30), None, None)[3]
+            eps = h[4]
+        eps = np.float32(eps)
+        out, counts = [], []
+        for device_loop in (False, True):
+            kernels.reset_counts()
+            ptloop.reset_reads()
+            carry = (pr.clone(), torch.full_like(pr, float("nan")),
+                     dpr.clone(), None)
+            if device_loop:
+                out.append(s._folded_loop(rhs, s._err_scale(), carry, it0,
+                                          n_checked, rem, eps, stall, err0))
+            else:
+                out.append(_host_driven_k10(s, rhs, carry, it0, n_checked,
+                                            rem, eps, stall, err0))
+            counts.append((kp.poisson_iter_resident.launches,
+                           kp.poisson_iter_resident.iterations,
+                           kp.poisson_iter_resident.checks,
+                           ptloop.host_scalar.reads))
+    finally:
+        s._op = op
+    (c_ref, it_ref, e_ref, h_ref), (c, it, e, h) = out
+    assert it == it_ref and _bits(e) == _bits(e_ref)
+    np.testing.assert_array_equal(_bits(h), _bits(h_ref))
+    for a, b in ((c[0], c_ref[0]), (c[2], c_ref[2])):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    tail = rem if it == n_checked + rem else 0
+    ends = {"eps_it": e < eps and it < n_checked,
+            "stall": np.isfinite(e) and e >= eps and it < n_checked,
+            "nonfinite": not np.isfinite(e) and it < n_checked,
+            "budget_tail": it == n_checked + rem and rem > 0,
+            "budget_no_tail": it == n_checked and rem == 0,
+            "err0_no_op": it == it0}
+    if exit_by == "defect_1000_eps":
+        exit_by = DEFECT_1000_EPS_EXIT.get((preset, nx), "eps_it")
+    assert ends[exit_by], (it, e)
+    (launches_ref, iters_ref, _, reads_ref), (launches, iters, checks,
+                                              reads) = counts
+    assert iters == iters_ref == it - tail - it0
+    assert checks == launches_ref == reads_ref
+    assert launches == reads == (checks > 0)

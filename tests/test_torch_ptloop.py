@@ -4,7 +4,10 @@ tests/test_ptloop.py): both must give the same (iters, err, hist) and
 carry — the check value is the residual entering iteration k*nchk
 (pt_loop_fused) or a residual evaluated after each chunk (pt_loop), the
 stall window and err0 seeding behave alike, and the trailing partial chunk
-runs unchecked, in pt_loop only on an unconverged budget exhaustion."""
+runs unchecked, in pt_loop only on an unconverged budget exhaustion. Also
+pt_loop_device, whose body takes each exit decision itself (ExitRule),
+against pt_loop_fused on scripted check values, and its refusal of a
+body that decided otherwise than ExitRule."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +17,7 @@ import torch
 from navierstokes3d_tpu.ptloop import pt_loop as jax_chunks
 from navierstokes3d_tpu.ptloop import pt_loop_fused as jax_loop
 from navierstokes3d_tpu_torch.ptloop import pt_loop as torch_chunks
+from navierstokes3d_tpu_torch.ptloop import pt_loop_device
 from navierstokes3d_tpu_torch.ptloop import pt_loop_fused as torch_loop
 
 torch.set_num_threads(2)
@@ -279,3 +283,84 @@ def test_chunks_marginal_threshold_compares_in_float32():
     assert e32 < eps
     it, err, _ = chunks_both([1.0, e32, e32], 3, 2, 1, eps)
     assert it == 7 and err == np.float32(eps)
+
+
+# scripted check values, one a check of nchk = 4 iterations over a budget
+# of 6 checks: (values, eps, stall, err0, rem)
+DEVICE_EXITS = {
+    "eps": ([1.0, 0.5, 0.25, 1e-4, 1e-5, 1e-6], 1e-3, (0.9, 2), None, 3),
+    "stall": ([1.0, 0.8, 0.79, 0.78, 0.77, 0.76], 1e-9, (0.9, 2), None, 3),
+    "nan": ([1.0, 0.5, float("nan"), 0.1, 0.1, 0.1], 1e-9, None, None, 3),
+    "inf": ([1.0, float("inf"), 0.1, 0.1, 0.1, 0.1], 1e-9, None, None, 3),
+    "budget_tail": ([1.0, 0.9, 0.8, 0.7, 0.6, 0.5], 1e-9, (0.9, 2), None,
+                    3),
+    "budget_no_tail": ([1.0, 0.9, 0.8, 0.7, 0.6, 0.5], 1e-9, None, None,
+                       0),
+    "err0_no_op": ([1.0, 0.5, 0.25, 1e-4, 1e-5, 1e-6], 1e-3, None, 5e-4,
+                   3),
+}
+
+
+def scripted_device(values, nchk, decide=None):
+    """A body that runs the whole loop: from rule.it0, check intervals to
+    the next multiple of nchk, the k-th check reading values[k-1], until
+    rule.stops (or `decide(rule, it, errs)`, a device that decides
+    otherwise); the carry counts the iterations."""
+    decide = decide or (lambda rule, it, errs: rule.stops(it, errs))
+
+    def run_loop(c, rule):
+        it, errs = rule.it0, []
+        while True:
+            it = (it // nchk + 1) * nchk
+            errs.append(values[it // nchk - 1])
+            if decide(rule, it, errs):
+                return c + (it - rule.it0), np.array(errs, np.float32)
+    return run_loop
+
+
+def scripted_chunks(values, nchk):
+    """pt_loop_fused's body on the same values: one check interval a step,
+    its check value values[k-1]."""
+    def step(c, it):
+        nit = nchk - it % nchk
+        return c + nit, values[(it + nit) // nchk - 1], nit
+    return step
+
+
+@pytest.mark.parametrize("it0", [0, 1])
+@pytest.mark.parametrize("exit_by", list(DEVICE_EXITS))
+def test_device_loop_takes_pt_loop_fused_decisions(exit_by, it0):
+    """pt_loop_device, its body deciding by ExitRule, gives pt_loop_fused's
+    carry, iterations, err and history bit for bit, the tail included."""
+    values, eps, stall, err0, rem = DEVICE_EXITS[exit_by]
+    nchk, niter = 4, 24
+    kw = dict(stall=stall, err0=err0, rem=rem, tail_fn=lambda c: c + 1000)
+    ref = torch_loop(scripted_chunks(values, nchk), 0, it0, niter, nchk,
+                     niter // nchk, eps, torch.float32, **kw)
+    got = pt_loop_device(scripted_device(values, nchk), 0, it0, niter, nchk,
+                         eps, torch.float32, 1.0, **kw)
+    assert got[:2] == ref[:2]
+    np.testing.assert_array_equal(np.float32(got[2]).view(np.int32),
+                                  np.float32(ref[2]).view(np.int32))
+    np.testing.assert_array_equal(got[3].view(np.int32),
+                                  ref[3].view(np.int32))
+    ran_tail = got[0] >= 1000
+    assert ran_tail == (exit_by == "budget_tail")
+    assert (got[1] == it0) == (exit_by == "err0_no_op")
+
+
+@pytest.mark.parametrize("decide,match", [
+    (lambda rule, it, errs: len(errs) == 1, "not ExitRule's"),
+    (lambda rule, it, errs: rule.stops(it, errs[:-1]) if len(errs) > 1
+     else False, "not ExitRule's"),
+    (None, "took no check"),
+])
+def test_device_loop_refuses_another_decision(decide, match):
+    """A body that stops early, runs on past ExitRule's stop or takes no
+    check makes pt_loop_device raise."""
+    values, eps, stall, _, _ = DEVICE_EXITS["eps"]
+    run_loop = (scripted_device(values, 4, decide) if decide is not None
+                else lambda c, rule: (c, np.zeros((0,), np.float32)))
+    with pytest.raises(RuntimeError, match=match):
+        pt_loop_device(run_loop, 0, 1, 24, 4, eps, torch.float32, 1.0,
+                       stall=stall)

@@ -1,19 +1,28 @@
 """The folded loops' K10 route (models/chorin.py `_folded_loop`): where
 the sweep plan is off and K10 has a plan for the grid (`_resident_plan`),
-each check interval runs as one K10 launch. On the CPU the plain versions
-run (K10's plan is decided as on an H100), and the route must take every
-decision of the K1 loop:
+each folded loop runs as one K10 launch that takes every check's exit
+decision on the card (ptloop.pt_loop_device, kernels/poisson.py
+`poisson_loop_resident`). On the CPU the plain versions run (K10's plan
+is decided as on an H100), and the route must take every decision of the
+K1 loop and of the host-driven K10 loop it replaces:
 
   1. whole steps of the gpu (defect) and multi (extended) presets and of
      accuracy='none', route on against `_resident_plan = None`: every
      field bitwise equal, the same iterations, errors and check history;
-     K10 called once per check the K1 loops ran, for their iterations less
-     the trailing partial chunk;
+     K10 called once per folded loop that checked, for the checks and
+     iterations (less the trailing partial chunk) the K1 loops ran;
   2. `_folded_loop` alone, on a budget that runs out unconverged (so the
      trailing `rem` iterations run on K1, where rem > 0) and on one where
      the stall exit fires, from global iteration 1 and 0, with K10 bodies
      and with the sweep plan's K8 bodies forced on: the K1 loop's carry,
-     iterations, err and history."""
+     iterations, err and history;
+  3. `_folded_loop` on each way a loop ends (eps_it, the defect phase 1's
+     1000 x eps_it, the stall window, an inf and a NaN err, the budget
+     with and without a tail, an err0 that makes the loop a no-op), from
+     global iteration 1 and 0, against pt_loop_fused over host-driven
+     K10 chunks (one launch a check interval, the parent route): the
+     same carry, iterations, err and history, bit for bit, and one host
+     read a loop."""
 
 import dataclasses
 
@@ -22,7 +31,7 @@ import pytest
 import torch
 
 import navierstokes3d_tpu_torch as nt
-from navierstokes3d_tpu_torch import kernels
+from navierstokes3d_tpu_torch import kernels, ptloop
 from navierstokes3d_tpu_torch.kernels import poisson as kp
 
 torch.set_num_threads(2)
@@ -61,14 +70,15 @@ def _record_loops(s):
 
 
 def _checks_and_iterations(loops, nchk):
-    """The checks the folded loops ran and their iterations less the
-    trailing partial chunk."""
-    checks = iters = 0
+    """The folded loops that took a check, the checks they ran and their
+    iterations less the trailing partial chunk."""
+    ran = checks = iters = 0
     for it0, n_checked, _rem, it in loops:
         end = min(it, n_checked)
+        ran += end > it0
         checks += end // nchk - it0 // nchk
         iters += end - it0
-    return checks, iters
+    return ran, checks, iters
 
 
 @pytest.mark.parametrize("case", [("gpu", 15, None), ("multi", 15, None),
@@ -98,9 +108,10 @@ def test_route_steps_are_k1_steps(case):
         assert (x is None) == (y is None), f
         assert x is None or torch.equal(x, y), f
     # the counts are the route's run's (reset before it)
-    checks, iters = _checks_and_iterations(loops, on.grid.nchk)
+    ran, checks, iters = _checks_and_iterations(loops, on.grid.nchk)
     assert checks > 0
-    assert kp.poisson_iter_resident_plain.calls == checks
+    assert kp.poisson_iter_resident_plain.calls == ran
+    assert kp.poisson_iter_resident_plain.checks == checks
     assert kp.poisson_iter_resident_plain.iterations == iters
     assert kp.poisson_iter_resident.launches == 0
 
@@ -122,10 +133,10 @@ def test_folded_loop_route_is_k1_loop(it0, exit_by, body, rem):
     out of reach it runs out of budget and the trailing rem iterations run
     (on K1); with a stall window of one check at ratio 0.5 it stalls on a
     check before the last. The route's carry, iterations, err and history
-    are the K1 loop's. K10 bodies: K10 ran once a check, for the
-    iterations less the tail. K8 bodies (the sweep plan forced on at
-    depth 2, nchk 8): from global iteration 1, one K1 and one K8(2)
-    launch first, then two K8(2) launches a body."""
+    are the K1 loop's. K10 bodies: K10 ran once for the loop, for its
+    checks and its iterations less the tail. K8 bodies (the sweep plan
+    forced on at depth 2, nchk 8): from global iteration 1, one K1 and
+    one K8(2) launch first, then two K8(2) launches a body."""
     cfg = _cfg(("multi", 15, None))
     on, off = _solver(cfg, True), _solver(cfg, False)
     if body == "k8":
@@ -151,7 +162,8 @@ def test_folded_loop_route_is_k1_loop(it0, exit_by, body, rem):
     np.testing.assert_array_equal(h_on, h_off)
     assert torch.equal(c_on[0], c_off[0]) and torch.equal(c_on[2], c_off[2])
     if body == "k10":
-        assert kp.poisson_iter_resident_plain.calls == (it_on - tail) // nchk
+        assert kp.poisson_iter_resident_plain.calls == 1
+        assert kp.poisson_iter_resident_plain.checks == (it_on - tail) // nchk
         assert kp.poisson_iter_resident_plain.iterations == (
             it_on - tail - it0)
         assert kp.poisson_iter_plain.calls == tail
@@ -162,6 +174,96 @@ def test_folded_loop_route_is_k1_loop(it0, exit_by, body, rem):
         assert kp.poisson_iter_sweeps_plain.calls == (
             (it0 == 1) + (it_on - tail - start) // 2)
         assert kp.poisson_iter_plain.calls == tail + (it0 == 1)
+
+
+# each way a folded loop ends: (preset, eps, stall, checks of budget, rem,
+# err0, dtau factor); None: the solver's own (eps_it and its stall window,
+# the whole budget and its rem). At nx 15 the multi preset's checks fall
+# from 7.0e-4 below 1e-5 at the tenth; the gpu preset's from 34 below 1
+# at the eighth; dtau x 2 (multi) and x 1.5 (gpu) make the iteration grow
+# until a check reads NaN and inf.
+EXITS = {
+    "eps_it": ("multi", 1e-5, None, None, None, None, 1.0),
+    "defect_1000_eps": ("gpu", 1.0, None, None, 0, None, 1.0),
+    "stall": ("multi", 1e-30, (0.5, 1), 6, 5, None, 1.0),
+    "nan": ("multi", 1e-30, None, 12, 0, None, 2.0),
+    "inf": ("gpu", 1e-30, None, 12, 0, None, 1.5),
+    "budget_tail": ("multi", 1e-30, None, 6, 5, None, 1.0),
+    "budget_no_tail": ("multi", 1e-30, None, 6, 0, None, 1.0),
+    "err0_no_op": ("multi", 1e-3, None, None, None, 5e-4, 1.0),
+}
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+def _host_driven_k10(s, rhs, carry, it0, n_checked, rem, eps, stall, err0):
+    """The folded loop as the host drove K10 before its checks moved onto
+    the card: pt_loop_fused over one K10 launch (here its plain version)
+    from global iteration it to the next check, its check value read
+    after each."""
+    nchk, err_scale = s.grid.nchk, s._err_scale()
+
+    def body(c, it):
+        nit = nchk - it % nchk
+        ec = kp.poisson_iter_resident_plain(c[0], c[2], rhs, s._op, nit, c[1])
+        return c, ec * err_scale, nit
+    return s._fused(body, s._kernel_chain(rhs, err_scale), carry, it0,
+                    n_checked, rem, eps, stall, err0)
+
+
+@pytest.mark.parametrize("it0", [1, 0])
+@pytest.mark.parametrize("exit_by", list(EXITS))
+def test_device_loop_is_host_driven_k10_loop(exit_by, it0):
+    """`_folded_loop` on K10's route (one launch a loop, its exits decided
+    on the card) against pt_loop_fused over host-driven K10 chunks: the
+    carry (pr, dpr), iterations, err and check history bit for bit; the
+    loop ends as named; one read of the host (none for the no-op), one
+    call of K10's plain version for the loop's checks and iterations."""
+    preset, eps, stall, n_checks, rem, err0, dtau = EXITS[exit_by]
+    s = _solver(_cfg((preset, 15, None)), True)
+    rhs, pr, dpr = _loop_inputs(s)
+    s._op = dataclasses.replace(s._op, dtau=s._op.dtau * dtau)
+    num, nchk = s.cfg.numerics, s.grid.nchk
+    budget, tail = s._budget()
+    n_checked = (n_checks or budget) * nchk
+    rem = tail if rem is None else rem
+    stall = stall or (num.stall_ratio, num.stall_checks)
+    eps = np.float32(eps)
+    err0 = None if err0 is None else np.float32(err0)
+    out = []
+    for loop in (_host_driven_k10, type(s)._folded_loop):
+        kernels.reset_counts()
+        ptloop.reset_reads()
+        carry = (pr.clone(), torch.empty_like(pr), dpr.clone(), None)
+        out.append(loop(s, rhs, carry, it0, n_checked, rem, eps, stall,
+                        err0) if loop is _host_driven_k10 else
+                   loop(s, rhs, s._err_scale(), carry, it0, n_checked, rem,
+                        eps, stall, err0))
+    (c_ref, it_ref, e_ref, h_ref), (c, it, e, h) = out
+    assert it == it_ref and _bits(e) == _bits(e_ref)
+    np.testing.assert_array_equal(_bits(h), _bits(h_ref))
+    for a, b in ((c[0], c_ref[0]), (c[2], c_ref[2])):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    tail = rem if it == n_checked + rem else 0
+    checks = (it - tail) // nchk - it0 // nchk
+    ends = {"eps_it": e < eps and it < n_checked,
+            "defect_1000_eps": e < eps and it < n_checked,
+            "stall": e >= eps and it < n_checked,
+            "nan": np.isnan(e) and it < n_checked,
+            "inf": np.isinf(e) and it < n_checked,
+            "budget_tail": it == n_checked + rem and rem > 0,
+            "budget_no_tail": it == n_checked and rem == 0,
+            "err0_no_op": it == it0}
+    assert ends[exit_by]
+    # the card decided to run on at least once before the loop ended
+    assert (checks >= 2) == (exit_by != "err0_no_op")
+    assert ptloop.host_scalar.reads == (checks > 0)
+    assert kp.poisson_iter_resident_plain.calls == (checks > 0)
+    assert kp.poisson_iter_resident_plain.checks == checks
+    assert kp.poisson_iter_resident_plain.iterations == it - tail - it0
+    assert kp.poisson_iter_plain.calls == tail
 
 
 def test_folded_loop_refuses_a_tail_before_it0():

@@ -10,6 +10,7 @@ Paths: 'extended' (the multi preset's K2 accuracy phase), 'guarantee'
 preset's defect correction), 'plain' (accuracy 'none'); eps_it 1e-9, so
 the accuracy phases run at nx 15."""
 
+import collections
 import dataclasses
 import json
 import os
@@ -18,7 +19,8 @@ import pytest
 import torch
 
 import navierstokes3d_tpu_torch as nt
-from navierstokes3d_tpu_torch import ptloop
+from navierstokes3d_tpu_torch import kernels, ptloop
+from navierstokes3d_tpu_torch.kernels import poisson as kp
 from navierstokes3d_tpu_torch.parallel import make_mesh
 from navierstokes3d_tpu_torch.parallel.fullstep import to_dist
 from navierstokes3d_tpu_torch.utils import profiling
@@ -75,9 +77,14 @@ def test_spans_nest_as_the_step_runs(path, monkeypatch):
     under ns3d.step, the solve's under ns3d.poisson, each once (so none
     sits in a loop body, which runs once an iteration); ns3d.read once a
     counted read, inside phase 1, phase 2, the guarantee or the
-    advection, which reads once."""
+    advection, which reads once. Each span's reads are counted exactly:
+    one a folded loop on K10's route (phase 1, and the defect solve's
+    phase 2), one a K12 launch of the extended phase 2, the guarantee's
+    one a test of its loop and one for its result, the defect's r0 and
+    the advection's clamp count."""
     s = _solver(path, monkeypatch)
     st = _state(s)
+    kernels.reset_counts()
     r0 = ptloop.host_scalar.reads
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof, \
@@ -99,16 +106,20 @@ def test_spans_nest_as_the_step_runs(path, monkeypatch):
     spans = {e.name for e in ev}
     assert spans == set(want) | {"ns3d.read"}
     read_parents = [_ns3d_parent(e) for e in ev if e.name == "ns3d.read"]
-    assert len(read_parents) == reads > 2
-    assert read_parents.count("ns3d.advect") == 1
-    allowed = {"ns3d.advect", "ns3d.poisson.phase1", "ns3d.poisson.phase2",
-               "ns3d.poisson.guarantee", "ns3d.poisson.defect"}
-    assert set(read_parents) <= allowed
-    assert read_parents.count("ns3d.poisson.phase1") >= 1
-    assert ("ns3d.poisson.phase2" in read_parents) == (path != "plain")
-    assert ("ns3d.poisson.guarantee" in read_parents) == (
-        path == "guarantee")
-    assert read_parents.count("ns3d.poisson.defect") == (path == "defect")
+    assert s._resident_plan is not None
+    want_reads = {"ns3d.poisson.phase1": 1, "ns3d.advect": 1}
+    if path == "defect":
+        want_reads.update({"ns3d.poisson.defect": 1,
+                           "ns3d.poisson.phase2": 1})
+    elif path != "plain":
+        launches = kp.poisson_iter_resident_ext_plain.calls
+        assert launches > 0
+        want_reads["ns3d.poisson.phase2"] = launches
+    if path == "guarantee":
+        want_reads["ns3d.poisson.guarantee"] = (
+            2 + nt.ChorinSolver.guarantee_iterations // s.grid.nchk)
+    assert len(read_parents) == reads
+    assert collections.Counter(read_parents) == want_reads
     if path != "plain":
         assert stats.iters_ext > 0
 
@@ -146,21 +157,25 @@ def test_defect_span_once_a_step_inside_phase2():
 
 
 def _count_items(monkeypatch):
+    """Count every .item() and .tolist() (ptloop.host_array's one read of a
+    whole tensor)."""
     calls = [0]
-    item = torch.Tensor.item
+    for name in ("item", "tolist"):
+        read = getattr(torch.Tensor, name)
 
-    def counted(self):
-        calls[0] += 1
-        return item(self)
-    monkeypatch.setattr(torch.Tensor, "item", counted)
+        def counted(self, read=read):
+            calls[0] += 1
+            return read(self)
+        monkeypatch.setattr(torch.Tensor, name, counted)
     return calls
 
 
 @pytest.mark.parametrize("path", (*PATHS, "fdm", "fullstep"))
 def test_every_item_of_a_step_is_a_counted_read(path, monkeypatch):
-    """Every .item() a step calls goes through ptloop.host_scalar, which
-    counts it; also on the fdm step and the full step on a (2, 1, 1) mesh
-    of CPU shards (nx 16)."""
+    """Every .item() a step calls goes through ptloop.host_scalar, and
+    every .tolist() through ptloop.host_array, which count them; also on
+    the fdm step and the full step on a (2, 1, 1) mesh of CPU shards (nx
+    16)."""
     if path == "fdm":
         cfg = nt.preset_gpu(nx=15, compat=False, dtype="float32")
         s = nt.ChorinSolver(cfg.replace(numerics=dataclasses.replace(

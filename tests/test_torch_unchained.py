@@ -132,7 +132,7 @@ def test_unchained_steps_match_jax(jax_ref, name):
         assert s.stored_residual_err(st, divv=divv) < 1e-3
     # K6 ran once a step, on the four branches; K3, K4 and K5 not at all
     # (predictor_divv runs the unchained chain too); the folded loops ran
-    # on K10, one call per check interval
+    # on K10, one call a loop
     calls = {kk.name.split()[0]: kk.plain.calls for kk in kernels.KERNELS}
     assert calls["K6"] == NSTEPS
     assert ka.advect_branch_pre_plain.calls == 4 * NSTEPS
