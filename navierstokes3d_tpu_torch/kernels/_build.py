@@ -8,6 +8,11 @@ name keyed by a hash of the sources and flags, so an edited source is
 rebuilt and a stale library is never loaded. Nothing here runs at import:
 the first kernel launch calls `load()`, which builds if needed.
 
+Set-up records (utils/profiling.py setup_span): `load` is
+ns3d.setup.kernels, a compile in `build` ns3d.setup.kernels.build (also
+counted in `builds` and `build_s`), and the first call in the process of
+each C entry point ns3d.setup.launch (`Library`).
+
 Flags: sm_90a (Hopper), and --fmad=false so that `a*b + c` is not
 contracted into an FMA — the kernels then round exactly as the JAX
 expressions and the plain PyTorch versions do, and K2's two_sum stays an
@@ -28,6 +33,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ..utils.profiling import setup_span
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
@@ -100,6 +107,10 @@ SIGNATURES = {
                     _I, _I, _I, _P),
 }
 
+# nvcc builds of the library in this process, and their seconds
+builds = 0
+build_s = 0.0
+
 
 def sources() -> list[Path]:
     return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
@@ -134,13 +145,15 @@ def build() -> BuildResult:
     per source in parallel into a private temporary directory, then one
     link, written under a temporary name and renamed, so a concurrent or
     interrupted build never leaves a partial file."""
+    global builds, build_s
     key = build_key()
     lib = BUILD_DIR / f"libns3d_kernels_{key}.so"
     if lib.exists():
         return BuildResult(lib, False, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with setup_span("ns3d.setup.kernels.build"), \
+            tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
         for src in sorted(SRC_DIR.glob("*.cu")):
             obj = os.path.join(tmp, src.stem + ".o")
@@ -160,19 +173,45 @@ def build() -> BuildResult:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
         os.replace(so, lib)
-    return BuildResult(lib, True, time.perf_counter() - t0,
-                       log + proc.stdout + proc.stderr)
+    seconds = time.perf_counter() - t0
+    builds += 1
+    build_s += seconds
+    return BuildResult(lib, True, seconds, log + proc.stdout + proc.stderr)
+
+
+class Library:
+    """The bound kernel library: each C entry point of SIGNATURES an
+    attribute, any other name the CDLL's. An entry point's first call in
+    the process runs inside an ns3d.setup.launch span (`entry` its name),
+    which then replaces the attribute with the ctypes function itself, so
+    later launches pay nothing for it."""
+
+    def __init__(self, cdll: ctypes.CDLL):
+        self._cdll = cdll
+        for name in SIGNATURES:
+            setattr(self, name, self._first_call(name, getattr(cdll, name)))
+
+    def _first_call(self, name: str, fn):
+        def call(*args):
+            setattr(self, name, fn)
+            with setup_span("ns3d.setup.launch", entry=name):
+                return fn(*args)
+        return call
+
+    def __getattr__(self, name: str):
+        return getattr(self._cdll, name)
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
+def load() -> Library:
     """Build (if needed) and bind the kernel library, once per process."""
-    lib = ctypes.CDLL(str(build().path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    with setup_span("ns3d.setup.kernels"):
+        cdll = ctypes.CDLL(str(build().path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(cdll, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        return Library(cdll)
 
 
 def check(rc: int, name: str) -> None:

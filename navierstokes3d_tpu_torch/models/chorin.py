@@ -95,6 +95,7 @@ stage per shard on the owned-face layout, with the same Poisson solve.
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -118,7 +119,8 @@ from ..parallel.mesh import Mesh
 from ..ptloop import (host_scalar, np_float, pt_loop, pt_loop_device,
                       pt_loop_fused)
 from ..state import FIELDS, FlowState, StepStats, zeros_state
-from ..utils.profiling import span
+from ..utils import profiling
+from ..utils.profiling import NO_SPAN, setup_span, span
 
 INNER = (slice(1, -1),) * 3
 # the Poisson kernel modes (the JAX package's NS3D_PALLAS_MODE): 'blocked'
@@ -179,9 +181,18 @@ class ChorinSolver:
     # the iterations the stored-state guarantee added, over every solver
     # of the process (kernels.reset_counts clears it)
     guarantee_iterations = 0
+    # each solver's serial number, which groups its set-up records
+    _serials = itertools.count(1)
 
     def __init__(self, cfg: SimConfig, device: torch.device | str = "cuda",
                  *, fused_step: bool = True, poisson_mode: str = "blocked"):
+        self.serial = next(ChorinSolver._serials)
+        self._stepped = False
+        with setup_span("ns3d.setup.solver", solver=self.serial):
+            self._setup(cfg, device, fused_step, poisson_mode)
+
+    def _setup(self, cfg: SimConfig, device, fused_step: bool,
+               poisson_mode: str) -> None:
         self.cfg = cfg
         self.device = torch.device(device)
         if poisson_mode not in POISSON_MODES:
@@ -387,6 +398,10 @@ class ChorinSolver:
         then the cylinder mask.
         gpu (NavierStokes3D_gpu.jl:84-88): 1/6-power-law Vx profile and
         hydrostatic pressure, which under the split is p' = 0 exactly."""
+        with setup_span("ns3d.setup.init_state", solver=self.serial):
+            return self._initial_state()
+
+    def _initial_state(self) -> FlowState:
         cfg, grid, phys = self.cfg, self.grid, self.cfg.physics
         st = zeros_state(grid, self.dtype, self.device)
         if cfg.variant == "multi":
@@ -1060,6 +1075,12 @@ class ChorinSolver:
         return self._step_impl(state, self.poisson_solve,
                                chained=self.fused_step)
 
+    def _first_step(self):
+        """The ns3d.setup.first_step span around the solver's first step,
+        whichever step function runs it (`_step_impl`, fullstep's)."""
+        self._stepped = True
+        return profiling.first_step(self.serial, self.device)
+
     def _check_state_device(self, state: FlowState) -> None:
         """Raise unless every tensor of `state` lies on the solver's
         device (a state made with state_from_numpy's or zeros_state's
@@ -1087,7 +1108,8 @@ class ChorinSolver:
         advect_kernel=False advects with torch ops instead (what its
         distributed step runs on a mesh of more than one device,
         allow_pallas_advect=False); compat always advects by gather."""
-        with span("ns3d.step"):
+        with NO_SPAN if self._stepped else self._first_step(), \
+                span("ns3d.step"):
             self._check_state_device(state)
             k = self._consts
             if chained:

@@ -51,7 +51,7 @@ from ..ops import physics as ph
 from ..ops.stencil import div
 from ..ptloop import host_scalar
 from ..state import FlowState, StepStats
-from ..utils.profiling import span
+from ..utils.profiling import NO_SPAN, span
 from .halo import build_poisson_shard_map, halo_pad, halo_pad_asym
 from .mesh import Mesh, join_blocks, split_blocks
 from .transport import mesh_sum, pick_hi
@@ -372,7 +372,8 @@ def build_fullstep(solver, mesh: Mesh, use_pallas: bool | None = None
     c_corr = -dt / rho
 
     def step(dist: DistState) -> Tuple[DistState, StepStats]:
-        with span("ns3d.step"):
+        with NO_SPAN if solver._stepped else solver._first_step(), \
+                span("ns3d.step"):
             return _step(dist)
 
     def _step(dist: DistState) -> Tuple[DistState, StepStats]:

@@ -1470,3 +1470,69 @@ def test_k10_device_loop_is_host_driven_loop(preset, nx, exit_by, it0):
     assert iters == iters_ref == it - tail - it0
     assert checks == launches_ref == reads_ref
     assert launches == reads == (checks > 0)
+
+
+# the C entry point each wrapper of kernels.KERNELS launches
+ENTRY_POINTS = {
+    "K1 poisson_iter": "ns3d_poisson_iter",
+    "K2 poisson_iter_ext": "ns3d_poisson_iter_ext",
+    "K3 predict": "ns3d_predict", "K4 correct": "ns3d_correct",
+    "K5 advect": "ns3d_advect", "K6 advect_pre": "ns3d_advect",
+    "K7 poisson_iter_bc": "ns3d_poisson_iter_bc",
+    "K8 poisson_iter_sweeps": "ns3d_poisson_iter_sweeps",
+    "K10 poisson_iter_resident": "ns3d_poisson_iter_resident",
+    "K12 poisson_iter_resident_ext": "ns3d_poisson_iter_resident_ext",
+    "K7-dist poisson_iter_bc_dist": "ns3d_poisson_iter_bc_dist",
+    "K2-dist poisson_iter_ext_bc_dist": "ns3d_poisson_iter_ext_bc_dist",
+}
+FIRST_STEP_SCRIPT = """
+import json
+import navierstokes3d_tpu_torch as nt
+from navierstokes3d_tpu_torch import kernels
+from navierstokes3d_tpu_torch.utils import profiling
+s = nt.ChorinSolver(nt.preset_multi(nx=63, compat=False, dtype="float32"),
+                    device="cuda")
+st = s.init_state()
+kernels.reset_counts()
+st, _ = s.step(st)
+launched = {k.name: k.wrapper.launches for k in kernels.KERNELS}
+n = len(profiling.setup_records())
+st, _ = s.step(st)
+print(json.dumps({"serial": s.serial, "launched": launched,
+                  "after_second": len(profiling.setup_records()) - n,
+                  "records": profiling.setup_records()}))
+"""
+
+
+def test_first_step_records_the_library_and_each_first_launch():
+    """A fresh process's first step on the card (multi preset at 63, K10
+    and K12 on their plan): the library's load once inside it, one
+    ns3d.setup.launch inside it per C entry point its wrappers launched,
+    the pool's new segments and bytes in its detail; the second step
+    records nothing."""
+    import json
+    import os
+    import subprocess
+    import sys
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    out = subprocess.run(
+        [sys.executable, "-c", FIRST_STEP_SCRIPT], capture_output=True,
+        text=True, timeout=600,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    recs = got["records"]
+    (step,) = [r for r in recs if r["name"] == "ns3d.setup.first_step"]
+    assert step["solver"] == got["serial"] and step["parent"] is None
+    assert step["detail"]["new_segments"] >= 0
+    assert step["detail"]["new_bytes"] >= 0
+    (load,) = [r for r in recs if r["name"] == "ns3d.setup.kernels"]
+    assert load["parent"] == step["id"]
+    launches = [r for r in recs if r["name"] == "ns3d.setup.launch"]
+    assert all(r["parent"] == step["id"] for r in launches)
+    entries = [r["detail"]["entry"] for r in launches]
+    want = {ENTRY_POINTS[k] for k, n in got["launched"].items() if n}
+    assert {"ns3d_predict", "ns3d_poisson_iter_resident"} <= want
+    assert sorted(entries) == sorted(want)
+    assert got["after_second"] == 0

@@ -197,21 +197,16 @@ def test_every_item_of_a_step_is_a_counted_read(path, monkeypatch):
 
 def test_trace_writes_the_step_span(tmp_path):
     """trace() turns spans on for its block (and off after it): its Chrome
-    trace holds ns3d.step and the solve's spans; profile_steps with a
-    trace_dir too."""
+    trace holds ns3d.step and the solve's spans."""
     s = _solver("extended")
     st = _state(s)
     with profiling.trace(str(tmp_path / "t")):
         assert profiling.spans_on is True
         st, _ = s.step(st)
     assert profiling.spans_on is False
-    out = profiling.profile_steps(s, st, n_steps=1,
-                                  trace_dir=str(tmp_path / "p"))
-    assert out["steps"] == 1 and "roofline_fraction" not in out
-    for d in ("t", "p"):
-        with open(os.path.join(tmp_path, d, "trace.json")) as f:
-            names = {e.get("name") for e in json.load(f)["traceEvents"]}
-        assert {"ns3d.step", "ns3d.poisson.phase2", "ns3d.read"} <= names
+    with open(os.path.join(tmp_path, "t", "trace.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"ns3d.step", "ns3d.poisson.phase2", "ns3d.read"} <= names
 
 
 def test_reset_reads_clears_the_read_counter():

@@ -14,11 +14,10 @@ import sys
 import pytest
 import torch
 
-import navierstokes3d_tpu_torch as nt
 from navierstokes3d_tpu.utils import timers as jtimers
 from navierstokes3d_tpu_torch import run as trun
 from navierstokes3d_tpu_torch.utils import timers
-from navierstokes3d_tpu_torch.utils.profiling import profile_steps, trace
+from navierstokes3d_tpu_torch.utils.profiling import trace
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -91,18 +90,6 @@ def test_run_timer_matches_jax():
     for skip in (0, 1, 5):
         assert a.summary(skip) == b.summary(skip)
     assert timers.RunTimer().summary() == {}
-
-
-def test_profile_steps_on_the_cpu(tmp_path):
-    """The summary of 2 steps on the CPU: times and iteration rates; the
-    trace context writes a Chrome trace."""
-    s = nt.ChorinSolver(nt.preset_multi(nx=9, compat=False,
-                                        dtype="float32"), device="cpu")
-    state, _ = s.step(s.init_state())
-    out = profile_steps(s, state, n_steps=2, trace_dir=str(tmp_path / "tr"))
-    assert out["steps"] == 2
-    assert out["time_per_step_s"] > 0 and out["poisson_iters_per_sec"] > 0
-    assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
 
 
 def test_trace_context_manager(tmp_path):
