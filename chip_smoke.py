@@ -11,8 +11,10 @@ Phases (any failure exits non-zero; nothing is caught):
   3. kernels: each hand-written kernel (K1 poisson_iter with the gpu and
      the multi operator, K2 poisson_iter_ext, K3 predict with both presets'
      masks, K4 correct for both variants, K5 advect, K7 poisson_iter_bc
-     with the compat gpu and multi BC specs) against its plain PyTorch
-     version on the card, at the main paths' 255x153x153 float32 shapes
+     with the compat gpu and multi BC specs, K13's two forms with both
+     operators on a pressure pair near a solution, bitwise: r, its ring
+     and max|r|, the pair form with r and without) against its plain
+     PyTorch version on the card, at the main paths' 255x153x153 float32 shapes
      with seeded inputs: max ulp / abs difference (K3 and K5 bitwise with
      NaN-filled outputs, K5's one launch and its one-branch launches, the
      clamp counts equal), kernel and plain times (CUDA events), and each
@@ -58,8 +60,8 @@ Phases (any failure exits non-zero; nothing is caught):
      s = 2 and 3 with the gpu operator against its plain version and
      against s K1 launches (bitwise, NaN-filled outputs, check value
      equal; its time per iteration over K1's in the same run and its
-     launch plan printed), and K1, K3, K4 and K5 against their plain
-     versions (K3 and K5 bitwise as in phase 3; the counterparts there of
+     launch plan printed), and K1, K3, K4, K5 and K13's two forms against
+     their plain versions (K3, K5 and K13 bitwise as in phase 3; the counterparts there of
      the JAX package's lane-tiled K9a, K3t, K4t and K5t); phase 3 holds K8 at
      s = 2 on the 255 gpu and multi operators
  10. wide path: ChorinSolver(preset_gpu(nx=511, compat=False,
@@ -157,8 +159,9 @@ Phases (any failure exits non-zero; nothing is caught):
      RHS, the solution and the eigenbases at the HBM rate
  18. fdm paths: ChorinSolver with poisson_backend='fdm' for the gpu and the
      multi preset at 255, 4 steps each from init_state, launch counts set
-     to 0 just before and read just after: K3, K4 and K5 launched, no
-     Poisson kernel, no plain version; every step within fdm_refine
+     to 0 just before and read just after: K3, K4 and K5 launched, and
+     K13's pair form (the refinement's residuals), no Poisson iteration
+     kernel, no plain version; every step within fdm_refine
      refinement rounds, err and the stored-state error below eps_it,
      finite fields; the rounds and err per step beside the JAX package's
      record; K3 with the step's constants (the gpu variant's g_eff = g:
@@ -279,7 +282,9 @@ FLOPS_PER_CELL = {"K1 poisson_iter": 22, "K2 poisson_iter_ext": 45,
                   "K7-dist poisson_iter_bc_dist": 20,
                   "K2-dist poisson_iter_ext_bc_dist": 45,
                   "K6 advect_pre": 40, "K10 poisson_iter_resident": 22,
-                  "K12 poisson_iter_resident_ext": 45}
+                  "K12 poisson_iter_resident_ext": 45,
+                  "K13 compensated_residual": 180,
+                  "K13-pair pair_residual": 180}
 # the largest share by which a resident kernel's device time from
 # torch.profiler may differ from CUDA events around the same launches
 # (agrees_with_events)
@@ -293,6 +298,8 @@ K2D_NAME = "K2-dist poisson_iter_ext_bc_dist"
 K6_NAME = "K6 advect_pre"
 K10_NAME = "K10 poisson_iter_resident"
 K12_NAME = "K12 poisson_iter_resident_ext"
+K13_NAME = "K13 compensated_residual"
+K13P_NAME = "K13-pair pair_residual"
 # the dma-mode kernel, whose function K7's kernel computes: its row in the
 # JSON line carries K7's numbers under the split gpu spec and K7's
 # launches on the dma path
@@ -544,7 +551,9 @@ SYMBOLS = {K1_NAME: r"19poisson_iter_kernelE", K2_NAME:
            K7_NAME: r"19poisson_dist_kernelILi1E", K8_NAME:
            r"21poisson_sweeps_kernelILi3E", K10_NAME:
            r"28poisson_resident_grid_kernelE", K12_NAME:
-           r"27poisson_resident_ext_kernelE", K7D_NAME:
+           r"27poisson_resident_ext_kernelE", K13_NAME:
+           r"20comp_residual_kernelILi1E", K13P_NAME:
+           r"20comp_residual_kernelILi2E", K7D_NAME:
            r"19poisson_dist_kernelILi1E", K2D_NAME:
            r"19poisson_dist_kernelILi2E"}
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
@@ -788,6 +797,77 @@ def k5_row(fields, k, window, phase, err: float) -> dict:
                 four_launches_ms=four_ms, four_branch_bounds_ms=four, **b)
 
 
+def k13_inputs(solver, rng) -> tuple:
+    """A seeded pressure pair near a solution of the solver's folded
+    Poisson problem: hi, its lo word at the rounding level, and the rhs
+    pair (whole-grid, 0 on the ring) at hi's float64 folded Laplacian plus
+    noise of 1e-3, so that r is as small as after a solve, where every
+    rounding of the compensated arithmetic shows in it."""
+    g = solver.grid
+    shape = (g.nx, g.ny, g.nz)
+    hi = solver.set_bc_pr(seeded(rng, *shape, scale=50.0))
+    lo = seeded(rng, *shape, scale=50.0 * 2.0 ** -24)
+    q = {k: v[0].double() + v[1].double()
+         for k, v in solver._op.quads.items()}
+    p = hi.double()
+    pc = p[1:-1, 1:-1, 1:-1]
+    lap = ((p[2:, 1:-1, 1:-1] - pc) * q["xp"] + (p[:-2, 1:-1, 1:-1] - pc)
+           * q["xm"] + (p[1:-1, 2:, 1:-1] - pc) * q["yp"]
+           + (p[1:-1, :-2, 1:-1] - pc) * q["ym"] + (p[1:-1, 1:-1, 2:] - pc)
+           * q["zp"] + (p[1:-1, 1:-1, :-2] - pc) * q["zm"])
+    del p, pc
+    lap += torch.tensor(rng.normal(size=lap.shape) * 1e-3, device="cuda")
+    rh, rl = torch.zeros_like(hi), torch.zeros_like(hi)
+    rh[1:-1, 1:-1, 1:-1] = lap.float()
+    rl[1:-1, 1:-1, 1:-1] = (lap - lap.float().double()).float()
+    return hi, lo, rh, rl
+
+
+def check_k13(solver, label, rng, time_it=True) -> dict:
+    """K13's two forms against their plain versions on k13_inputs: r (with
+    its 0 ring for the single word) and max|r| bitwise, the pair form
+    with r and without; then each form's device time (torch.profiler),
+    its plain version's (CUDA events) and its bound (16 B a cell). Returns
+    a row for each form's name."""
+    op, inner = solver._op, (slice(1, -1),) * 3
+    hi, lo, rh, rl = k13_inputs(solver, rng)
+    r1, e1 = k_poisson.compensated_residual(hi, rh, rl, op)
+    r0, e0 = k_poisson.compensated_residual_plain(hi, rh, rl, op)
+    require(bitwise(r1, r0) and float(e1) == float(e0),
+            f"K13 ({label}): r or max|r| {float(e1)} differs from the plain "
+            f"version's {float(e0)}")
+    args = (hi, lo, rh[inner], rl[inner], op)
+    r2, e2 = k_poisson.pair_residual(*args)
+    q0, f0 = k_poisson.pair_residual_plain(*args)
+    m2 = k_poisson.pair_residual_max(*args)
+    require(bitwise(r2, q0) and float(e2) == float(f0) == float(m2),
+            f"K13-pair ({label}): r or max|r| {float(e2)}, {float(m2)} "
+            f"differs from the plain version's {float(f0)}")
+    print(f"[kernels] K13 ({label}): bitwise, max|r| {float(e1):.9e} "
+          f"(single word), {float(e2):.9e} (pair)")
+    if not time_it:
+        return {}
+    cells, rows = hi.numel(), {}
+    for name, fn, plain, ins, outs in (
+            (K13_NAME, lambda: k_poisson.compensated_residual(hi, rh, rl, op),
+             lambda: k_poisson.compensated_residual_plain(hi, rh, rl, op),
+             (hi, rh, rl), (r1,)),
+            (K13P_NAME, lambda: k_poisson.pair_residual_max(*args),
+             lambda: k_poisson.pair_residual_plain(*args),
+             (hi, lo, rh, rl), ())):
+        ms = device_ms(fn, 20, "comp_residual_kernel")
+        plain_ms = cuda_ms(plain, 3, warmup=1)
+        rows[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                          **bound(name, ins, outs, cells))
+        r = rows[name]
+        print(f"[kernels] {name} ({label}, {'x'.join(map(str, hi.shape))}): "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r['bytes'] / 1e6:.1f} MB), kernel at "
+              f"{100 * r['bound_ms'] / ms:.1f}% of it")
+    return rows
+
+
 def phase_kernels(gpu, multi) -> dict:
     """Each kernel against its plain version on identical inputs, at the
     main paths' shapes."""
@@ -899,6 +979,10 @@ def phase_kernels(gpu, multi) -> dict:
                 f"K5 case of velocity scale {scale}: {ncl} clamped points")
     results["K5 advect"] = k5_row((vx, vy, vz, c), k, gpu.advect_k, "kernels",
                                   err)
+    # K13's two forms with each preset's operator, timed with the gpu one
+    del vx, vy, vz, c
+    check_k13(multi, "multi operator", rng, time_it=False)
+    results.update(check_k13(gpu, "gpu operator", rng))
     for name, r in results.items():
         if name == K8_NAME:
             continue
@@ -1055,8 +1139,10 @@ def profile_step(solver, state, label, step=None) -> dict:
 
 def phase_gpu_path(solver) -> dict:
     counts, iters, states, _ = run_steps(solver, NSTEPS, "gpu", REF_ITERS)
-    # the folded loops run one K10 launch a loop at 255
-    for name in (K10_NAME, "K3 predict", "K4 correct", "K5 advect"):
+    # the folded loops run one K10 launch a loop at 255; the defect phase
+    # one K13 launch a step
+    for name in (K10_NAME, K13_NAME, "K3 predict", "K4 correct",
+                 "K5 advect"):
         require(counts[name][0] > 0, f"gpu: {name} never launched")
     stored_errs(solver, states, "gpu", [NSTEPS])
     profile_step(solver, states[-1], "gpu")
@@ -1290,6 +1376,8 @@ def phase_kernels_wide(wide, results) -> None:
               for scale in (1.0, 2.5))
     wide_rows["K5 advect"] = k5_row(fields, k, wide.advect_k, "wide kernels",
                                     err)
+    del vx, vy, vz, pr, c, fields
+    wide_rows.update(check_k13(wide, f"{nx}, gpu operator", rng))
     for name, r in wide_rows.items():
         print(f"[wide kernels] {name} at {nx}x{ny}x{nz}: max abs "
               f"{r['max_abs_err']:.3e}; {r['ms']:.4f} ms, plain "
@@ -2491,8 +2579,9 @@ def run_fdm(solver, nsteps: int, label: str, smi) -> dict:
           f"1 round a step, err ~1.4e-8 at 255, 6.6e-8 at 511")
     counts, iters, states, stats = run_steps(solver, nsteps, label,
                                              clamps_allowed=True)
+    # K13's pair form: the refinement's residuals of the stored pair
     for name, (launches, _) in counts.items():
-        on_path = name.split()[0] in ("K3", "K4", "K5")
+        on_path = name.split()[0] in ("K3", "K4", "K5", "K13-pair")
         require((launches > 0) == on_path,
                 f"{label}: {name} launched {launches} times")
     for step, st in enumerate(stats):

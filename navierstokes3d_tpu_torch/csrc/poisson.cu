@@ -3,7 +3,8 @@
 // double-single (hi, lo) pressure pair, K7: the iteration followed by the
 // reference's boundary-condition sequence, as compat mode and the
 // dma-mode solve run it, K8: s folded iterations per launch, K10: nit
-// of them in one cooperative launch, and K12: nit of K2's in one.
+// of them in one cooperative launch, K12: nit of K2's in one, and K13:
+// the compensated residual of the accuracy phases.
 //
 // K1 replaces the Pallas kernel of navierstokes3d_tpu/kernels/poisson.py:914
 // (build_poisson_iter(mode='blocked', folded=True): `kernel` :872,
@@ -114,6 +115,34 @@
 // and the distributed solve still run it. Bound: device-memory bytes,
 // 20 B per cell and iteration.
 //
+// K13 replaces no TPU kernel: the compensated folded residual, which XLA
+// computes in the JAX package (navierstokes3d_tpu/kernels/poisson.py:1362
+// `compensated_residual`, models/chorin.py:909 `_comp_residual_fn`). Per
+// interior cell, for each of the six neighbours, with ops/ds.py's
+// error-free transformations:
+//   (dh, dl) = two_sum(nb, -pc)         [+ (nb_lo - pc_lo) into dl: W = 2]
+//   (p, e)   = weighted_term(dh, dl, the neighbour's weight quad)
+// then the compensated sum of the six (p, e) pairs and (-rhs_hi, -rhs_lo)
+// (two_sum of the running sum, the errors summed beside it), r = s + c.
+// W = 1, the defect phase's restart from phase 1's pressure, takes the
+// Pallas path's order x+, x-, y+, y-, z+, z- and writes r on the whole
+// grid, 0 off the interior; W = 2, the stored (hi, lo) pair's residual
+// (the stored-state guarantee, stored_residual_err, the fdm refinement,
+// the dma-mode pair solve), the order x-, x+, y-, y+, z-, z+ and r on the
+// interior, or only the max. Both reduce max |r| as K1 reduces its check
+// value. Every operation rounds on its own in the plain version's order
+// (--fmad=false), so r and the max are bitwise the plain version's.
+// What bounds it on this card: it moves 16 B a cell (the words and the
+// rhs pair read, r written for W = 1: 770.6 MB at 511x307x307, 0.230 ms
+// at 3.35 TB/s) against ~190 float32 adds and multiplies a cell that
+// --fmad=false keeps from pairing into FMAs: at one a lane and clock,
+// ~0.27 ms at 511, so instruction issue weighs as much as the bytes. The
+// design (the K13 section below) spends few instructions beside that
+// arithmetic: each neighbour difference once, the words streamed along x
+// (x neighbours in registers, y and z neighbours from a staged plane, one
+// barrier a plane), the weight quads loaded once a block, no branch on
+// the boundary ring.
+//
 // K7 replaces the Pallas kernel of navierstokes3d_tpu/kernels/poisson.py:914
 // built with folded=False (`kernel` :872, `compute_slab` :334,
 // `lap_of_rows` :241, `apply_bc_rows` :257). Per interior cell, in
@@ -165,6 +194,8 @@
 // per cell) and K2 (7 x 4 B per cell: hi, lo, dpr, rhs in; hi', lo', dpr'
 // out) plus the halo planes.
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -1335,6 +1366,346 @@ cudaError_t launch_dist(const DistWords<W>& f, const float* dpr,
   return cudaGetLastError();
 }
 
+// ---- K13: the compensated folded residual ----
+//
+// One template over the pressure words W (the expressions: the header's
+// K13 paragraph). A block of 32 lanes by kResThreadRows rows of threads
+// stands on a (y, z) tile of the WHOLE plane, 32 lanes by 12 rows (ring
+// rows and lanes included, so that no warp branches on the ring), each
+// thread owning kResCellRows y-consecutive cells of its lane, and streams
+// a segment of interior x planes. Each plane of the words, with a halo of
+// one row and lane, arrives by 4-byte cp.async in a ring of three slots:
+// plane x + 2 is copied while plane x is computed, after the one barrier
+// of the plane, which also frees the slot plane x - 1 held. The plane
+// loop is unrolled over a turn of the ring, so that every slot offset is
+// a constant. A thread keeps its cells' x - 1 and x values in registers,
+// takes x + 1's and the z neighbours from the staged planes, and the y
+// neighbours too, except between its own cells, which are its registers;
+// its y and z weight quads are loaded once a block, the plane's x quads
+// by two uniform 16-byte loads, and the rhs pair of plane x + 1 into
+// registers while plane x is computed; the copies, the rhs and r walk the
+// planes by pointer. Every thread computes every cell of its tile and a
+// select writes 0 (W = 1) or skips the cell (W = 2) off the interior,
+// where the max takes nothing. The max |r| is reduced as K1's check value
+// (float bits as unsigned, a block max, one atomicMax into the word the
+// entry point zeroes). The segment length fills the card's resident
+// blocks in the fewest waves (launch_comp_residual).
+//
+// Of the forms measured at 511x307x307 (threads x cells a thread in y,
+// W = 1; PERF.md): 8 x 1 0.511 ms, 8 x 2 0.608, 4 x 2 0.454, 4 x 3 0.447,
+// 8 x 3 0.440, 4 x 4 0.465; 4 x 3 is the fastest at 255 for both W
+// (0.062 and 0.068 ms). The loop then issues ~228 instructions a cell for
+// W = 1, 188 of them float adds and multiplies, 127 registers a thread.
+
+constexpr int kResLanes = 32;        // z lanes a tile: a warp's width
+constexpr int kResThreadRows = 4;    // y rows of a block's threads
+constexpr int kResCellRows = 3;      // y-consecutive cells a thread owns
+constexpr int kResThreads = kResLanes * kResThreadRows;
+constexpr int kResRows = kResThreadRows * kResCellRows;  // y rows a tile
+constexpr int kResStride = kResLanes + 2;                 // a staged row
+constexpr int kResPlane = (kResRows + 2) * kResStride;    // a staged plane
+constexpr int kResCopies = (kResPlane + kResThreads - 1) / kResThreads;
+constexpr int kResRing = 3;                               // staged planes
+
+// The right-hand side pair at the interior cells: element (i, j, k) of
+// the (nx-2, ny-2, nz-2) interior at hi[i*hsx + j*hsy + k] (lo alike).
+struct RhsPair {
+  const float* hi;
+  const float* lo;
+  int hsx, hsy, lsx, lsy;
+};
+
+// The weight quads (w_hi, w_lo, w1, w2) of ops/ds.py weight_quad, a row
+// per interior index of each axis: the minus neighbour's quad, then the
+// plus neighbour's (kernels/poisson.py `quad_rows`).
+struct QuadRows {
+  const float4* x;
+  const float4* y;
+  const float4* z;
+};
+
+// ops/ds.py two_sum: s = fl(a + b), e with a + b = s + e exactly.
+__device__ inline void two_sum(float a, float b, float& s, float& e) {
+  s = a + b;
+  const float bp = s - a;
+  e = (a - (s - bp)) + (b - bp);
+}
+
+// ops/ds.py weighted_term: (dh + dl) * w64 as (p, e), Dekker's product of
+// dh against the quad with dh*w_lo and dl*w_hi folded into e.
+__device__ inline void weighted_term(float dh, float dl, float4 q, float& p,
+                                     float& e) {
+  const float t = dh * 4097.0f;
+  const float a1 = t - (t - dh);
+  const float a2 = dh - a1;
+  p = dh * q.x;
+  const float err = ((a1 * q.z - p) + a1 * q.w + a2 * q.z) + a2 * q.w;
+  e = err + (dh * q.y + dl * q.x);
+}
+
+// The residual of one cell from its W words' centre values pc and six
+// neighbours nb (x-, x+, y-, y+, z-, z+), their weight quads and the rhs
+// pair, in the plain version's order (the header's K13 paragraph).
+template <int W>
+__device__ inline float comp_residual_cell(const float (&nb)[W][6],
+                                           const float (&pc)[W],
+                                           const float4 (&quad)[6],
+                                           float rh, float rl) {
+  // x+, x-, y+, y-, z+, z- for one word (compensated_residual); x-, x+,
+  // y-, y+, z-, z+ with the lo words' differences folded in for two (the
+  // solver's _comp_residual)
+  float p[6], e[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const int j = W == 1 ? (k ^ 1) : k;
+    float dh, dl;
+    two_sum(nb[0][j], -pc[0], dh, dl);
+    if constexpr (W == 2) dl = dl + (nb[1][j] - pc[1]);
+    weighted_term(dh, dl, quad[j], p[k], e[k]);
+  }
+  // ops/ds.py accumulate over the six terms, then (-rhs_hi, -rhs_lo)
+  float s = p[0], c = e[0];
+#pragma unroll
+  for (int k = 1; k < 6; ++k) {
+    float t;
+    two_sum(s, p[k], s, t);
+    c = c + (t + e[k]);
+  }
+  float t;
+  two_sum(s, -rh, s, t);
+  c = c + (t + -rl);
+  return s + c;
+}
+
+template <int W>
+__global__ void __launch_bounds__(kResThreads) comp_residual_kernel(
+    const float* __restrict__ hi, const float* __restrict__ lo, RhsPair rhs,
+    float* __restrict__ r, QuadRows q, int nx, int ny, int nz, int seg,
+    unsigned int* __restrict__ err_bits) {
+  constexpr int R = kResCellRows;
+  __shared__ float stage[kResRing][W][kResPlane];
+  const int lane = threadIdx.x;
+  const int t = lane + kResLanes * threadIdx.y;
+  const int z0 = blockIdx.x * kResLanes, y0 = blockIdx.y * kResRows;
+  const int z = z0 + lane;
+  const int xa = 1 + blockIdx.z * seg;
+  const int xb = min(xa + seg, nx - 1);
+  const long sx = static_cast<long>(ny) * nz;
+
+  // the copy map: cells t + k x kResThreads of a staged plane, their rows
+  // and lanes clamped into the grid (a clamped cell feeds only cells off
+  // the interior); src walks the planes from xa
+  const float* src[W][kResCopies];
+#pragma unroll
+  for (int k = 0; k < kResCopies; ++k) {
+    const int c = t + k * kResThreads;
+    const long o = xa * sx + clamp_int(y0 - 1 + c / kResStride, 0, ny - 1) *
+                                 nz +
+                   clamp_int(z0 - 1 + c % kResStride, 0, nz - 1);
+    src[0][k] = hi + o;
+    if constexpr (W == 2) src[1][k] = lo + o;
+  }
+  // copy the plane src points at into `slot` (none past the grid: an
+  // empty group), then step src to the next plane
+  auto copy_plane = [&](int x, int slot) {
+    if (x < nx) {
+#pragma unroll
+      for (int w = 0; w < W; ++w)
+#pragma unroll
+        for (int k = 0; k < kResCopies; ++k)
+          if (k < kResCopies - 1 || t + k * kResThreads < kResPlane)
+            ns3d::cp_async4(&stage[slot][w][t + k * kResThreads], src[w][k]);
+    }
+    ns3d::cp_async_commit();
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+#pragma unroll
+      for (int k = 0; k < kResCopies; ++k) src[w][k] += sx;
+  };
+
+  // this thread's R cells: rows y0 + R*threadIdx.y + i of lane z, where
+  // they are, their staged offset, their y and z weight quads, their rhs
+  // pointers and r offsets walking the planes (interior indices clamped)
+  const int iz = clamp_int(z, 1, nz - 2) - 1;
+  const float4 qzm = q.z[2 * iz], qzp = q.z[2 * iz + 1];
+  bool on[R], in[R];
+  int own[R];
+  const float *rhp[R], *rlp[R];
+  long ro[R];
+  float4 qym[R], qyp[R];
+  float pm[R][W], pc[R][W], pp[R][W], rh[R], rl[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int y = y0 + R * threadIdx.y + i;
+    const int iy = clamp_int(y, 1, ny - 2) - 1;
+    const long yz = static_cast<long>(min(y, ny - 1)) * nz + min(z, nz - 1);
+    on[i] = y < ny && z < nz;
+    in[i] = y >= 1 && y <= ny - 2 && z >= 1 && z <= nz - 2;
+    own[i] = (R * threadIdx.y + i + 1) * kResStride + lane + 1;
+    qym[i] = q.y[2 * iy];
+    qyp[i] = q.y[2 * iy + 1];
+    rhp[i] = rhs.hi + (xa - 1) * static_cast<long>(rhs.hsx) +
+             static_cast<long>(iy) * rhs.hsy + iz;
+    rlp[i] = rhs.lo + (xa - 1) * static_cast<long>(rhs.lsx) +
+             static_cast<long>(iy) * rhs.lsy + iz;
+    ro[i] = W == 1 ? xa * sx + yz
+                   : (static_cast<long>(xa - 1) * (ny - 2) + iy) * (nz - 2) +
+                         iz;
+    pm[i][0] = hi[(xa - 1) * sx + yz];
+    if constexpr (W == 2) pm[i][1] = lo[(xa - 1) * sx + yz];
+    rh[i] = *rhp[i];
+    rl[i] = *rlp[i];
+    // W = 1: r is 0 on the x ring planes too
+    if constexpr (W == 1) {
+      if (on[i] && blockIdx.z == 0) r[yz] = 0.0f;
+      if (on[i] && blockIdx.z == gridDim.z - 1) r[(nx - 1) * sx + yz] = 0.0f;
+    }
+  }
+  const float4* qx = q.x + 2 * (xa - 1);
+  const long rsx = W == 1 ? sx : static_cast<long>(ny - 2) * (nz - 2);
+
+  copy_plane(xa, 0);
+  copy_plane(xa + 1, 1);
+  ns3d::cp_async_wait<1>();
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int w = 0; w < W; ++w) pc[i][w] = stage[0][w][own[i]];
+  unsigned int bits = 0u;
+
+  // one plane: plane x staged in slot CUR, x + 1 in NXT, and plane x + 2
+  // copied into FREE (the slot plane x - 1 held)
+  auto step = [&](auto cur_c, auto nxt_c, auto free_c, int x) {
+    constexpr int CUR = decltype(cur_c)::value;
+    constexpr int NXT = decltype(nxt_c)::value;
+    constexpr int FREE = decltype(free_c)::value;
+    // plane x + 1 has landed for every thread, and every read of plane
+    // x - 1 is done
+    ns3d::cp_async_wait<0>();
+    __syncthreads();
+    copy_plane(x + 2, FREE);
+    // the rhs of plane x + 1, into registers while plane x is computed
+    float rh_next[R], rl_next[R];
+    const bool more = x + 1 <= nx - 2;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      rhp[i] += rhs.hsx;
+      rlp[i] += rhs.lsx;
+      rh_next[i] = more ? *rhp[i] : 0.0f;
+      rl_next[i] = more ? *rlp[i] : 0.0f;
+    }
+    const float4 qxm = qx[0], qxp = qx[1];
+    qx += 2;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      float nb[W][6];
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const float* sc = stage[CUR][w];
+        pp[i][w] = stage[NXT][w][own[i]];
+        nb[w][0] = pm[i][w];
+        nb[w][1] = pp[i][w];
+        // a y neighbour in this thread's own rows is its centre value
+        nb[w][2] = i > 0 ? pc[i > 0 ? i - 1 : 0][w]
+                         : sc[own[i] - kResStride];
+        nb[w][3] = i < R - 1 ? pc[i < R - 1 ? i + 1 : i][w]
+                             : sc[own[i] + kResStride];
+        nb[w][4] = sc[own[i] - 1];
+        nb[w][5] = sc[own[i] + 1];
+      }
+      const float4 quad[6] = {qxm, qxp, qym[i], qyp[i], qzm, qzp};
+      const float res = comp_residual_cell<W>(nb, pc[i], quad, rh[i], rl[i]);
+      if constexpr (W == 1) {
+        if (on[i]) r[ro[i]] = in[i] ? res : 0.0f;
+      } else {
+        if (r != nullptr && in[i]) r[ro[i]] = res;
+      }
+      ro[i] += rsx;
+      const unsigned int b = in[i] ? __float_as_uint(fabsf(res)) : 0u;
+      bits = b > bits ? b : bits;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        pm[i][w] = pc[i][w];
+        pc[i][w] = pp[i][w];
+      }
+      rh[i] = rh_next[i];
+      rl[i] = rl_next[i];
+    }
+  };
+  using S0 = std::integral_constant<int, 0>;
+  using S1 = std::integral_constant<int, 1>;
+  using S2 = std::integral_constant<int, 2>;
+  // three planes a turn of the ring, so that every slot is a constant
+  int x = xa;
+  for (; x + 3 <= xb; x += 3) {
+    step(S0{}, S1{}, S2{}, x);
+    step(S1{}, S2{}, S0{}, x + 1);
+    step(S2{}, S0{}, S1{}, x + 2);
+  }
+  if (x < xb) step(S0{}, S1{}, S2{}, x);
+  if (x + 1 < xb) step(S1{}, S2{}, S0{}, x + 1);
+  ns3d::cp_async_wait<0>();
+  bits = ns3d::block_max<kResThreads>(bits);
+  if (t == 0 && bits != 0u) atomicMax(err_bits, bits);
+}
+
+// One K13 launch: tiles of the whole (y, z) plane times segments of the
+// nx - 2 interior planes, as many segments as fill the card's resident
+// blocks in the fewest waves of the least cost (waves x (planes a segment
+// + the two it stages besides)); err_bits zeroed here.
+template <int W>
+cudaError_t launch_comp_residual(const float* hi, const float* lo,
+                                 const RhsPair& rhs, float* r,
+                                 const QuadRows& q, int nx, int ny, int nz,
+                                 unsigned int* err_bits,
+                                 cudaStream_t stream) {
+  if (nx < 3 || ny < 3 || nz < 3 ||
+      static_cast<long>(nx) * ny * nz >= (1L << 31) || err_bits == nullptr ||
+      (W == 1 && r == nullptr))
+    return cudaErrorInvalidValue;
+  // blocks an SM, asked once a process (the kernel's registers decide it)
+  static int per_sm = 0;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && per_sm == 0)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, comp_residual_kernel<W>, kResThreads, 0);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return e;
+  }
+  const long cap = static_cast<long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const int tiles_z = (nz + kResLanes - 1) / kResLanes;
+  const int tiles_y = (ny + kResRows - 1) / kResRows;
+  const long tiles = static_cast<long>(tiles_y) * tiles_z;
+  const long planes = nx - 2;
+  long best_seg = planes, best_cost = -1;
+  for (long waves = 1;; ++waves) {
+    long segs = waves * cap / tiles;
+    segs = segs < 1 ? 1 : (segs > planes ? planes : segs);
+    const long seg = (planes + segs - 1) / segs;
+    const long blocks = tiles * ((planes + seg - 1) / seg);
+    const long cost = (blocks + cap - 1) / cap * (seg + 2);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best_seg = seg;
+    }
+    if (segs == planes) break;
+  }
+  const int seg = static_cast<int>(best_seg);
+  e = cudaMemsetAsync(err_bits, 0, sizeof(unsigned int), stream);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(tiles_z, tiles_y, static_cast<int>((planes + seg - 1) / seg));
+  comp_residual_kernel<W><<<grid, dim3(kResLanes, kResThreadRows), 0, stream>>>(hi, lo, rhs, r, q, nx, ny, nz, seg, err_bits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ns3d_poisson_iter(const float* pr, float* pr_out, float* dpr,
@@ -1501,4 +1872,34 @@ extern "C" int ns3d_poisson_iter_resident_ext(
       reinterpret_cast<const void*>(poisson_resident_ext_kernel),
       kResidentExtThreads, args, nx, ny, nz, nit, blocks, cut_y, cut_z,
       smem, stream));
+}
+
+// K13: the compensated residual of `words` pressure words (1: hi alone,
+// compensated_residual; 2: the (hi, lo) pair, the solver's _comp_residual)
+// against the right-hand side pair at the interior cells (RhsPair's
+// strides), each weight quad row of qx, qy, qz two float4 (minus, plus).
+// r: words 1, the whole (nx, ny, nz) grid with 0 off the interior
+// (required); words 2, the (nx-2, ny-2, nz-2) interior, or null where the
+// caller reads only the max. The max |r| over the interior lands in
+// err_bits as float bits.
+extern "C" int ns3d_comp_residual(int words, const float* hi,
+                                  const float* lo, const float* rhs_hi,
+                                  const float* rhs_lo, int hsx, int hsy,
+                                  int lsx, int lsy, float* r,
+                                  const float* qx, const float* qy,
+                                  const float* qz, int nx, int ny, int nz,
+                                  unsigned int* err_bits,
+                                  cudaStream_t stream) {
+  const RhsPair rhs{rhs_hi, rhs_lo, hsx, hsy, lsx, lsy};
+  const QuadRows q{reinterpret_cast<const float4*>(qx),
+                   reinterpret_cast<const float4*>(qy),
+                   reinterpret_cast<const float4*>(qz)};
+  cudaError_t e = cudaErrorInvalidValue;
+  if (words == 1)
+    e = launch_comp_residual<1>(hi, nullptr, rhs, r, q, nx, ny, nz,
+                                err_bits, stream);
+  else if (words == 2 && lo != nullptr)
+    e = launch_comp_residual<2>(hi, lo, rhs, r, q, nx, ny, nz, err_bits,
+                                stream);
+  return static_cast<int>(e);
 }

@@ -72,6 +72,16 @@ KERNELS = (
            "local_rows)",
            poisson.poisson_iter_ext_bc_dist,
            poisson.poisson_iter_ext_bc_dist_plain),
+    # K13's two forms: the single word and the (hi, lo) pair, one template
+    Kernel("K13 compensated_residual",
+           "navierstokes3d_tpu_torch/csrc/poisson.cu",
+           "none (XLA computes it: navierstokes3d_tpu/kernels/poisson.py:"
+           "1362)",
+           poisson.compensated_residual, poisson.compensated_residual_plain),
+    Kernel("K13-pair pair_residual",
+           "navierstokes3d_tpu_torch/csrc/poisson.cu",
+           "none (XLA computes it: navierstokes3d_tpu/models/chorin.py:909)",
+           poisson.pair_residual, poisson.pair_residual_plain),
 )
 
 

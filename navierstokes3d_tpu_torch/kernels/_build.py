@@ -89,6 +89,11 @@ SIGNATURES = {
     # (nullable), stream
     "ns3d_poisson_iter_ext_bc_dist": (*(_P,) * 13, *(_F,) * 9, *(_I,) * 8,
                                       _P, _P),
+    # words (1 or 2), hi, lo (null for 1), rhs_hi, rhs_lo, their interior
+    # strides (hi's x and y, lo's x and y), r (nullable for 2), the quad
+    # rows qx, qy, qz, nx, ny, nz, err_bits, stream
+    "ns3d_comp_residual": (_I, *(_P,) * 4, *(_I,) * 4, *(_P,) * 4,
+                           *(_I,) * 3, _P, _P),
     # vx, vy, vz, mask_vx, mask_vy, mask_vz, vx_out, vy_out, vz_out,
     # divv, dx, dy, dz, mu, two_mu, three, dt_rho, rho_g, nx, ny, nz,
     # then the plan: tiles_y, tiles_z, seg; stream

@@ -88,9 +88,19 @@ planes as operands and the check value of the shard's interior cells.
 K7, K7-dist and K2-dist launch one kernel template (K7: K7-dist's on the
 whole grid without halo planes) under `dist_plan`'s tiling.
 
-`compensated_residual` (kernels/poisson.py:1311-1395) and `residual_max`
-(`residual_flat`, :1287-1309) stay torch ops, as XLA computes them in the
-JAX package; both run once per restart or check, not per iteration.
+K13 replaces no TPU kernel (XLA computes it in the JAX package): the
+compensated folded residual of the accuracy phases, ~190 float32
+operations a cell that eager torch ran as as many full-grid passes, in
+one launch at 16 B a cell. `compensated_residual` (the Pallas path's
+`compensated_residual`, :1362, single word: the defect phase's restart)
+and `pair_residual` / `pair_residual_max` (the JAX solver's
+`_comp_residual_fn`, models/chorin.py:909, on the stored (hi, lo) pair:
+the stored-state guarantee, stored_residual_err, the fdm refinement and
+the dma-mode pair solve) launch it for CUDA tensors and run
+`compensated_residual_plain` and `pair_residual_plain` for CPU tensors;
+r and the max are bitwise the plain versions'. `residual_max`
+(`residual_flat`, :1287-1309) and `folded_lap` stay torch ops, as XLA
+computes them in the JAX package.
 """
 
 from __future__ import annotations
@@ -118,9 +128,11 @@ class PoissonOperator:
     over the full y (ny,) and z (nz,) index ranges; masks are the six
     interior coefficient masks of folded_lap, broadcast-shaped (order xm,
     xp, ym, yp, zm, zp); quads their (w_hi, w_lo, w1, w2) weight quads
-    (mask/h^2 split from float64) for the compensated residuals;
-    zero_grad_x drops the x-1 neighbor of the first interior plane (x-lo
-    zero-gradient, the multi variant)."""
+    (mask/h^2 split from float64) for the compensated residuals, and
+    quad_rows the same quads as K13 reads them: per axis ("x", "y", "z")
+    a float32 (n-2, 8) row per interior index, the minus neighbour's quad
+    then the plus neighbour's; zero_grad_x drops the x-1 neighbor of the
+    first interior plane (x-lo zero-gradient, the multi variant)."""
     dx: float
     dy: float
     dz: float
@@ -134,6 +146,7 @@ class PoissonOperator:
     masks: Tuple[torch.Tensor, ...]
     quads: Dict[str, tuple]
     zero_grad_x: bool
+    quad_rows: Dict[str, torch.Tensor]
 
 
 def make_operator(masks1d: Dict[str, np.ndarray], grid, dtype: torch.dtype,
@@ -157,13 +170,17 @@ def make_operator(masks1d: Dict[str, np.ndarray], grid, dtype: torch.dtype,
                   .reshape(shapes[k[0]]) for k in keys)
     quads = {k: tuple(q.reshape(shapes[k[0]]) for q in ds.weight_quad(
         masks1d[k] / hs[k[0]] / hs[k[0]], device=device)) for k in keys}
+    quad_rows = {a: torch.cat([torch.stack([q.reshape(-1) for q in quads[k]],
+                                           dim=1) for k in (a + "m", a + "p")],
+                              dim=1).contiguous() for a in "xyz"}
     return PoissonOperator(
         dx=grid.dx, dy=grid.dy, dz=grid.dz,
         inv_dx2=rnd(1.0 / grid.dx / grid.dx), dtau=rnd(grid.dtau),
         decay=rnd(1.0 - grid.damp),
         wyp=row(masks1d["yp"], grid.dy), wym=row(masks1d["ym"], grid.dy),
         wzp=row(masks1d["zp"], grid.dz), wzm=row(masks1d["zm"], grid.dz),
-        masks=masks, quads=quads, zero_grad_x=bool(masks1d["xm"][0] == 0))
+        masks=masks, quads=quads, zero_grad_x=bool(masks1d["xm"][0] == 0),
+        quad_rows=quad_rows)
 
 
 INNER = (slice(1, -1),) * 3
@@ -1383,13 +1400,12 @@ def residual_max(p, rhs, op: PoissonOperator) -> torch.Tensor:
     return torch.max(torch.abs(folded_lap(p, op) - rhs[1:-1, 1:-1, 1:-1]))
 
 
-def compensated_residual(p, rhs_hi, rhs_lo, op: PoissonOperator):
-    """Compensated folded residual of a single field p against an (hi, lo)
-    RHS pair, in the Pallas path's term order (x+, x-, y+, y-, z+, z-,
-    then -rhs): two_sum neighbor differences, Dekker products against
-    f64-split weights, compensated accumulation — error ~eps*|resid|
-    instead of eps*|rhs|. Returns (r, max|r|) with r full-shape and zero
-    on the boundary ring (the defect-correction RHS is -r)."""
+# ---- K13: the compensated residual ----
+
+def compensated_residual_plain(p, rhs_hi, rhs_lo, op: PoissonOperator):
+    """Plain PyTorch version of compensated_residual (same arguments and
+    results)."""
+    compensated_residual_plain.calls += 1
     q = op.quads
     pc = p[1:-1, 1:-1, 1:-1]
     nbs = ((p[2:, 1:-1, 1:-1], q["xp"]), (p[:-2, 1:-1, 1:-1], q["xm"]),
@@ -1402,3 +1418,136 @@ def compensated_residual(p, rhs_hi, rhs_lo, op: PoissonOperator):
     r = torch.zeros_like(p)
     r[1:-1, 1:-1, 1:-1] = s + c
     return r, torch.max(torch.abs(r))
+
+
+compensated_residual_plain.calls = 0
+
+
+def pair_residual_plain(hi, lo, rhs_hi, rhs_lo, op: PoissonOperator):
+    """Plain PyTorch version of pair_residual (same arguments and
+    results)."""
+    pair_residual_plain.calls += 1
+    q = op.quads
+    hic, loc = hi[INNER], lo[INNER]
+    nbs = ((hi[:-2, 1:-1, 1:-1], lo[:-2, 1:-1, 1:-1], q["xm"]),
+           (hi[2:, 1:-1, 1:-1], lo[2:, 1:-1, 1:-1], q["xp"]),
+           (hi[1:-1, :-2, 1:-1], lo[1:-1, :-2, 1:-1], q["ym"]),
+           (hi[1:-1, 2:, 1:-1], lo[1:-1, 2:, 1:-1], q["yp"]),
+           (hi[1:-1, 1:-1, :-2], lo[1:-1, 1:-1, :-2], q["zm"]),
+           (hi[1:-1, 1:-1, 2:], lo[1:-1, 1:-1, 2:], q["zp"]))
+    pairs = []
+    for nb_hi, nb_lo, quad in nbs:
+        dh, dl = ds.two_sum(nb_hi, -hic)
+        dl = dl + (nb_lo - loc)
+        pairs.append(ds.weighted_term(dh, dl, quad))
+    pairs.append((-rhs_hi, -rhs_lo))
+    s, c = ds.accumulate(pairs)
+    r = s + c
+    return r, torch.max(torch.abs(r))
+
+
+pair_residual_plain.calls = 0
+
+
+def _check_k13(name: str, words, rhs_hi, rhs_lo, r,
+               op: PoissonOperator) -> None:
+    """K13's operand checks: the pressure words of one contiguous float32
+    (nx, ny, nz) shape, the rhs pair interior-shaped with contiguous z
+    rows (any x and y strides: a view of a whole-grid field's interior
+    will do), r contiguous (None for no r), the quad rows on the device,
+    a grid of at least 3 cells an axis and fewer than 2^31 cells."""
+    shape, dev = tuple(words[0].shape), words[0].device
+    if len(shape) != 3 or min(shape) < 3 or int(np.prod(shape)) >= 2 ** 31:
+        raise ValueError(f"{name}: grid {shape}, expected 3 to 2^31 cells")
+    for i, w in enumerate(words):
+        _build.require(("hi", "lo")[i], w, shape, torch.float32, dev)
+    inner = tuple(n - 2 for n in shape)
+    for fname, t in (("rhs_hi", rhs_hi), ("rhs_lo", rhs_lo)):
+        if (t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != inner or t.stride(2) != 1):
+            raise ValueError(f"{name}: {fname} must be float32 {inner} on "
+                             f"{dev} with contiguous z rows, got "
+                             f"{t.dtype} {tuple(t.shape)} stride "
+                             f"{t.stride()} on {t.device}")
+    if r is not None:
+        _build.require("r", r, shape if len(words) == 1 else inner,
+                       torch.float32, dev)
+    for a, n in zip("xyz", shape):
+        _build.require(f"quad_rows[{a!r}]", op.quad_rows[a], (n - 2, 8),
+                       torch.float32, dev)
+
+
+def _launch_k13(name: str, words, rhs_hi, rhs_lo, r,
+                op: PoissonOperator) -> torch.Tensor:
+    """One K13 launch over len(words) pressure words; returns max |r| (a
+    0-dim tensor on the device)."""
+    _check_k13(name, words, rhs_hi, rhs_lo, r, op)
+    hi = words[0]
+    # the max word: zeroed by a stream-ordered memset in the C entry
+    err = torch.empty((1,), dtype=torch.int32, device=hi.device)
+    nx, ny, nz = hi.shape
+    qr = op.quad_rows
+    rc = _build.load().ns3d_comp_residual(
+        len(words), hi.data_ptr(), _build.ptr(words[1] if len(words) == 2
+                                               else None),
+        rhs_hi.data_ptr(), rhs_lo.data_ptr(), rhs_hi.stride(0),
+        rhs_hi.stride(1), rhs_lo.stride(0), rhs_lo.stride(1), _build.ptr(r),
+        qr["x"].data_ptr(), qr["y"].data_ptr(), qr["z"].data_ptr(), nx, ny,
+        nz, err.data_ptr(), _build.stream_of(hi))
+    _build.check(rc, name)
+    return err.view(torch.float32)[0]
+
+
+def compensated_residual(p, rhs_hi, rhs_lo, op: PoissonOperator):
+    """Compensated folded residual of a single field p against an (hi, lo)
+    RHS pair (whole-grid fields), in the Pallas path's term order (x+, x-,
+    y+, y-, z+, z-, then -rhs): two_sum neighbor differences, Dekker
+    products against f64-split weights, compensated accumulation — error
+    ~eps*|resid| instead of eps*|rhs|. Returns (r, max|r|) with r
+    full-shape and zero on the boundary ring (the defect-correction RHS is
+    -r), max|r| a 0-dim tensor on p's device. CUDA tensors launch K13 (or
+    raise); CPU tensors run the plain version."""
+    if not _build.on_cuda(p, "compensated_residual"):
+        return compensated_residual_plain(p, rhs_hi, rhs_lo, op)
+    for fname, t in (("rhs_hi", rhs_hi), ("rhs_lo", rhs_lo)):
+        _build.require(fname, t, p.shape, torch.float32, p.device)
+    r = torch.empty_like(p)
+    emax = _launch_k13("compensated_residual", (p,), rhs_hi[INNER],
+                       rhs_lo[INNER], r, op)
+    compensated_residual.launches += 1
+    return r, emax
+
+
+compensated_residual.launches = 0
+
+
+def pair_residual(hi, lo, rhs_hi, rhs_lo, op: PoissonOperator):
+    """Compensated folded residual of a (hi, lo) pressure pair (whole-grid
+    fields) against a (hi, lo) RHS pair (interior-shaped; views of a
+    whole-grid field's interior do), the JAX package's _comp_residual_fn
+    (models/chorin.py:909, term order x-, x+, y-, y+, z-, z+, the lo
+    words' differences folded into each term). Returns (r, max|r|) with r
+    interior-shaped and max|r| a 0-dim tensor on hi's device. CUDA tensors
+    launch K13 (or raise); CPU tensors run the plain version."""
+    if not _build.on_cuda(hi, "pair_residual"):
+        return pair_residual_plain(hi, lo, rhs_hi, rhs_lo, op)
+    r = torch.empty(tuple(n - 2 for n in hi.shape), dtype=hi.dtype,
+                    device=hi.device)
+    emax = _launch_k13("pair_residual", (hi, lo), rhs_hi, rhs_lo, r, op)
+    pair_residual.launches += 1
+    return r, emax
+
+
+pair_residual.launches = 0
+
+
+def pair_residual_max(hi, lo, rhs_hi, rhs_lo, op: PoissonOperator):
+    """pair_residual's max|r| alone (a 0-dim tensor), for callers that
+    read no r: the launch writes no r (counted in pair_residual.launches;
+    CPU tensors run pair_residual_plain)."""
+    if not _build.on_cuda(hi, "pair_residual_max"):
+        return pair_residual_plain(hi, lo, rhs_hi, rhs_lo, op)[1]
+    emax = _launch_k13("pair_residual_max", (hi, lo), rhs_hi, rhs_lo, None,
+                       op)
+    pair_residual.launches += 1
+    return emax

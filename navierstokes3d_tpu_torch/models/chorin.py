@@ -12,12 +12,13 @@ and NavierStokes3D_multi_gpu.jl:383-444):
      iteration + set_bc_pr, phase 1 on the folded kernel (K1), then the
      float32 accuracy phase the config selects (`_init_split`):
        'defect'   (gpu, under the hydrostatic split): hand-off at
-                  1000*eps_it, one compensated-residual restart, restarted
-                  defect correction with K1;
+                  1000*eps_it, one compensated-residual restart (K13),
+                  restarted defect correction with K1;
        'extended' (multi, no split): phase 1 to eps_it or its stall, then
                   the double-single (hi, lo) iteration (K2) from lo = 0;
        'none':    K1 alone over the whole budget;
-     the first two end with the stored-state guarantee and the stored
+     the first two end with the stored-state guarantee (the stored
+     pair's compensated residual on K13's pair form) and the stored
      (hi, lo) pressure pair. On wide grids (where the JAX package's TPU
      build lane-tiles the iteration: 511x307x307) the folded loops run
      bodies of two K8 launches of s = 3 (or 2) iterations each instead
@@ -261,6 +262,15 @@ class ChorinSolver:
             if self.plain else
             (kp.poisson_iter, kp.poisson_iter_sweeps, kp.poisson_iter_ext,
              kp.poisson_iter_resident_ext, kp.poisson_iter_bc))
+        # K13, the compensated residuals: the defect restart's single word,
+        # the stored pair's r and max, and its max alone
+        (self._compensated_residual, self._pair_residual,
+         self._pair_residual_max) = (
+            (kp.compensated_residual_plain, kp.pair_residual_plain,
+             lambda *a: kp.pair_residual_plain(*a)[1])
+            if self.plain else
+            (kp.compensated_residual, kp.pair_residual,
+             kp.pair_residual_max))
         # the sweep depths the folded loops may run K8 at; () keeps them on
         # 1-iteration K1 bodies (the JAX default, see sweep_depths)
         self._sweep_depths = sweep_depths(grid.ny, grid.nz)
@@ -850,7 +860,7 @@ class ChorinSolver:
         # already converged.
         with span("ns3d.poisson.phase2"):
             with span("ns3d.poisson.defect"):
-                r0, emax = k_poisson.compensated_residual(
+                r0, emax = self._compensated_residual(
                     p1, rhs3d, rhs_lo3d, self._op)
                 errh = host_scalar(emax * err_scale, ft)
                 rhs2 = -r0
@@ -1006,7 +1016,8 @@ class ChorinSolver:
         rhs_hi, rhs_lo = rhs_pair[0][INNER], rhs_pair[1][INNER]
 
         def true_err(c):
-            emax = self._comp_residual(*pair_of(c), rhs_hi, rhs_lo)[1]
+            emax = self._pair_residual_max(*pair_of(c), rhs_hi, rhs_lo,
+                                           self._op)
             return host_scalar(emax * err_scale, ft)
 
         with span("ns3d.poisson.guarantee"):
@@ -1020,25 +1031,9 @@ class ChorinSolver:
     def _comp_residual(self, hi, lo, rhs_hi, rhs_lo):
         """Compensated folded residual of a (hi, lo) pressure pair against
         a (hi, lo) RHS pair (the JAX package's _comp_residual_fn,
-        chorin.py:909, term order x-, x+, y-, y+, z-, z+). Returns (r, max|r|)
-        on the interior."""
-        q = self._op.quads
-        hic, loc = hi[INNER], lo[INNER]
-        nbs = ((hi[:-2, 1:-1, 1:-1], lo[:-2, 1:-1, 1:-1], q["xm"]),
-               (hi[2:, 1:-1, 1:-1], lo[2:, 1:-1, 1:-1], q["xp"]),
-               (hi[1:-1, :-2, 1:-1], lo[1:-1, :-2, 1:-1], q["ym"]),
-               (hi[1:-1, 2:, 1:-1], lo[1:-1, 2:, 1:-1], q["yp"]),
-               (hi[1:-1, 1:-1, :-2], lo[1:-1, 1:-1, :-2], q["zm"]),
-               (hi[1:-1, 1:-1, 2:], lo[1:-1, 1:-1, 2:], q["zp"]))
-        pairs = []
-        for nb_hi, nb_lo, quad in nbs:
-            dh, dl = ds.two_sum(nb_hi, -hic)
-            dl = dl + (nb_lo - loc)
-            pairs.append(ds.weighted_term(dh, dl, quad))
-        pairs.append((-rhs_hi, -rhs_lo))
-        s, c = ds.accumulate(pairs)
-        r = s + c
-        return r, torch.max(torch.abs(r))
+        chorin.py:909, term order x-, x+, y-, y+, z-, z+; kernels/poisson.py
+        `pair_residual`, K13). Returns (r, max|r|) on the interior."""
+        return self._pair_residual(hi, lo, rhs_hi, rhs_lo, self._op)
 
     # ---- full step ----
 
@@ -1065,7 +1060,8 @@ class ChorinSolver:
         rhs_hi, rhs_lo = ds.rhs_pair(divv[INNER], phys.rho / grid.dt, zh)
         lo = (state_after.pr_lo if state_after.pr_lo is not None
               else torch.zeros_like(state_after.pr))
-        _, emax = self._comp_residual(state_after.pr, lo, rhs_hi, rhs_lo)
+        emax = self._pair_residual_max(state_after.pr, lo, rhs_hi, rhs_lo,
+                                       self._op)
         ft = np_float(self.dtype)
         # (emax * ly^2) / psc, in the JAX expression's order
         return ft(host_scalar(emax, ft) * ft(grid.ly * grid.ly)) \

@@ -170,6 +170,10 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
     assert stats.iters > 0
     p = state.pr.clone()
     kp.make_resident(3)(p, state.dprdtau.clone(), p.clone(), s._op)
+    # the stored-state criterion runs K13's pair form (the gpu steps above
+    # ran its single-word form in their defect phase)
+    assert np.isfinite(s.stored_residual_err(state,
+                                             state_before=s.init_state()))
     for k in kernels.KERNELS:
         assert k.wrapper.launches == 0, k.name
         assert k.plain.calls > 0, k.name
@@ -201,4 +205,4 @@ def test_build_sources_and_key():
         "ns3d_poisson_iter_sweeps", "ns3d_predict", "ns3d_correct",
         "ns3d_advect", "ns3d_poisson_iter_bc_dist",
         "ns3d_poisson_iter_ext_bc_dist", "ns3d_poisson_iter_resident",
-        "ns3d_poisson_iter_resident_ext"}
+        "ns3d_poisson_iter_resident_ext", "ns3d_comp_residual"}

@@ -13,6 +13,7 @@ every operation in float32 in the same order (the kernels are built with
 
 import dataclasses
 import functools
+import math
 import types
 
 import numpy as np
@@ -26,6 +27,7 @@ from navierstokes3d_tpu_torch.kernels import _build
 from navierstokes3d_tpu_torch.kernels import advect as ka
 from navierstokes3d_tpu_torch.kernels import fused_step as kf
 from navierstokes3d_tpu_torch.kernels import poisson as kp
+from navierstokes3d_tpu_torch.ops import ds
 
 pytestmark = pytest.mark.cuda
 
@@ -439,8 +441,16 @@ def test_step_on_card_matches_cpu(preset):
     # extended phase one K12 launch (no K1 or K2 runs: no solve exhausts
     # its budget or exits marginally); K7 (compat) and the dist kernels
     # (sharded solves) are off this path
+    # the gpu preset's defect phase runs K13's single word once a step;
+    # its pair form launches where the CPU run took the stored-state
+    # guarantee (its plain version's calls)
     on_path = {"K10", "K3", "K4", "K5"} | ({"K12"} if preset == "multi"
-                                           else set())
+                                           else {"K13"})
+    if kp.pair_residual_plain.calls:
+        on_path.add("K13-pair")
+    assert kp.compensated_residual.launches == \
+        kp.compensated_residual_plain.calls
+    assert kp.pair_residual.launches == kp.pair_residual_plain.calls
     for k in kernels.KERNELS:
         assert ((k.wrapper.launches > 0)
                 == (k.name.split()[0] in on_path)), k.name
@@ -1197,11 +1207,14 @@ def test_unchained_and_dma_steps_on_card_match_cpu(preset, kw):
             assert (x is None) == (y is None), name
             assert x is None or torch.equal(x.cpu(), y), name
     # at nx=15 the multi solves converge in phase 1 (no K2); the folded
-    # loops run on K10 (one launch a loop)
+    # loops run on K10 (one launch a loop), and the gpu preset's defect
+    # phase K13; the dma pair solve (multi) takes K13's pair form for its
+    # compensated residual
     if "fused_step" in kw:
-        on_path = {"K10", "K6"}
+        on_path = {"K10", "K6"} | ({"K13"} if preset == "gpu" else set())
     else:
-        on_path = {"K3", "K4", "K5"} | ({"K7"} if preset == "gpu" else set())
+        on_path = {"K3", "K4", "K5"} | ({"K7"} if preset == "gpu"
+                                        else {"K13-pair"})
     launched = {k.name.split()[0] for k in kernels.KERNELS
                 if k.wrapper.launches > 0}
     assert launched == on_path
@@ -1263,7 +1276,8 @@ def test_fdm_step_on_card_matches_cpu(preset):
     within 1e-5 of max|pr| (cuBLAS and the CPU's BLAS sum the transforms
     in other orders; the refinement holds both to the same residual) and
     the velocities within 1e-5 of their max away from vy's symmetry
-    plane (tests/test_torch_fdm.py); K3, K4 and K5 launched, no Poisson
+    plane (tests/test_torch_fdm.py); K3, K4 and K5 launched, and K13's
+    pair form for the refinement's residuals, no Poisson iteration
     kernel."""
     s = _fdm_solver(20, preset)
     cpu = _fdm_solver(20, preset, device="cpu")
@@ -1281,7 +1295,7 @@ def test_fdm_step_on_card_matches_cpu(preset):
             if name == "vy":
                 far[:, s.grid.ny // 2] = False
             assert not far.any(), name
-    on_path = {"K3", "K4", "K5"}
+    on_path = {"K3", "K4", "K5", "K13-pair"}
     for k in kernels.KERNELS:
         assert ((k.wrapper.launches > 0)
                 == (k.name.split()[0] in on_path)), k.name
@@ -1472,6 +1486,141 @@ def test_k10_device_loop_is_host_driven_loop(preset, nx, exit_by, it0):
     assert launches == reads == (checks > 0)
 
 
+# ---- K13: the compensated residual ----
+
+INNER = (slice(1, -1),) * 3
+
+
+def _k13_case(preset, nx, when):
+    """The solver and K13's inputs: the pressure (hi, lo) and the defect
+    phase's whole-grid rhs pair of the seeded start state ("start": pr
+    from init_state plus noise, lo at its rounding level) or of the state
+    a step's solve stored ("solved": its pr and pr_lo against the rhs
+    pair of that step's predictor divergence, where r is small and every
+    rounding shows)."""
+    s = _solver(nx, preset)
+    st = s.init_state()
+    divv = s.predictor_divv(st)
+    rho_dt = s.cfg.physics.rho / s.grid.dt
+    rh, rl = ds.rhs_pair(divv, rho_dt, s._z_hoist)
+    g = torch.Generator(device="cuda").manual_seed(nx)
+    if when == "start":
+        hi = st.pr + 1e-3 * torch.randn(st.pr.shape, device="cuda",
+                                        generator=g)
+        lo = hi * 2.0 ** -24 * torch.randn(hi.shape, device="cuda",
+                                           generator=g)
+    else:
+        after, _ = s.step(st)
+        hi, lo = after.pr, after.pr_lo
+    return s, hi.contiguous(), lo.contiguous(), rh, rl
+
+
+def _same(a, b):
+    """Bitwise equal, NaN where NaN."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("when", ["start", "solved"])
+@pytest.mark.parametrize("nx", [63, 255])
+@pytest.mark.parametrize("preset", ["gpu", "multi"])
+def test_k13_matches_plain(preset, nx, when):
+    """K13's single-word form (the defect restart: r on the whole grid,
+    0 on the ring) and its pair form (r on the interior, and max|r| alone)
+    bitwise their plain versions on the card (torch ops, the parent
+    route) and on the CPU; the pair form against interior views of the
+    whole-grid rhs (the guarantee's) and against contiguous copies
+    (stored_residual_err's); each call one launch."""
+    s, hi, lo, rh, rl = _k13_case(preset, nx, when)
+    op = s._op
+    kernels.reset_counts()
+    r1, e1 = kp.compensated_residual(hi, rh, rl, op)
+    assert kp.compensated_residual.launches == 1
+    assert kp.compensated_residual_plain.calls == 0
+    r0, e0 = kp.compensated_residual_plain(hi, rh, rl, op)
+    assert _same(r1, r0) and _same(e1, e0)
+    assert bool((r1[0] == 0).all() and (r1[-1] == 0).all()
+                and (r1[:, 0] == 0).all() and (r1[:, :, -1] == 0).all())
+    rc, ec = kp.compensated_residual_plain(*(t.cpu() for t in (hi, rh, rl)),
+                                           _cpu_op(s))
+    assert _same(r1.cpu(), rc) and _same(e1.cpu(), ec)
+    for rhs in ((rh[INNER], rl[INNER]),
+                (rh[INNER].contiguous(), rl[INNER].contiguous())):
+        kernels.reset_counts()
+        r2, e2 = kp.pair_residual(hi, lo, *rhs, op)
+        m2 = kp.pair_residual_max(hi, lo, *rhs, op)
+        assert kp.pair_residual.launches == 2
+        assert kp.pair_residual_plain.calls == 0
+        q0, f0 = kp.pair_residual_plain(hi, lo, *rhs, op)
+        assert _same(r2, q0) and _same(e2, f0) and _same(m2, f0)
+    assert float(e2) > 0.0 and float(e1) > 0.0
+
+
+def _cpu_op(s):
+    """The CPU solver's operator of the card solver s's configuration."""
+    return nt.ChorinSolver(s.cfg, device="cpu")._op
+
+
+@pytest.mark.parametrize("what", ["nan_p", "inf_p", "inf_rhs_lo"])
+def test_k13_non_finite_max(what):
+    """A NaN in p gives a NaN max|r| in both forms, as torch.max does (the
+    kernel's max over float bits: fabsf of a NaN sorts above +inf); an
+    inf in p gives NaN too, in the plain versions as in the kernel (the
+    error-free transformations take inf - inf); an inf in the rhs's lo
+    word reaches r as an inf, and max|r| is +inf."""
+    s, hi, lo, rh, rl = _k13_case("gpu", 63, "solved")
+    op = s._op
+    cell = (31, 17, 20)
+    if what == "nan_p":
+        hi[cell] = float("nan")
+    elif what == "inf_p":
+        hi[cell] = float("inf")
+    else:
+        rl[cell] = float("inf")
+    e1 = kp.compensated_residual(hi, rh, rl, op)[1]
+    e0 = kp.compensated_residual_plain(hi, rh, rl, op)[1]
+    m2 = kp.pair_residual_max(hi, lo, rh[INNER], rl[INNER], op)
+    f0 = kp.pair_residual_plain(hi, lo, rh[INNER], rl[INNER], op)[1]
+    want = math.inf if what == "inf_rhs_lo" else math.nan
+    for got in (e1, e0, m2, f0):
+        got = float(got)
+        assert (math.isnan(got) if math.isnan(want) else got == want), what
+
+
+def _parent_route(s):
+    """The solver's compensated residuals as torch ops on the card, the
+    route before K13."""
+    s._compensated_residual = kp.compensated_residual_plain
+    s._pair_residual = kp.pair_residual_plain
+    s._pair_residual_max = lambda *a: kp.pair_residual_plain(*a)[1]
+    return s
+
+
+@pytest.mark.parametrize("guarantee", [False, True])
+def test_k13_defect_and_guarantee_steps_are_the_parent_route(guarantee):
+    """Two gpu steps at 63 on K13 against the same steps on the torch-op
+    route: the stored pressure pair, dprdtau and every StepStats field
+    bitwise. guarantee=True takes the stored-state guarantee on every
+    step (its marginal-exit test forced), so the pair form runs there."""
+    a, b = _solver(63), _parent_route(_solver(63))
+    if guarantee:
+        for s in (a, b):
+            s._marginal = lambda err: True
+    kernels.reset_counts()
+    sa, sb = a.init_state(), b.init_state()
+    for _ in range(2):
+        sa, ta = a.step(sa)
+        sb, tb = b.step(sb)
+        for name in ("pr", "pr_lo", "dprdtau", "vx", "c"):
+            assert torch.equal(getattr(sa, name), getattr(sb, name)), name
+        assert (ta.iters, ta.iters_ext, ta.err) == (tb.iters, tb.iters_ext,
+                                                    tb.err)
+        assert np.array_equal(ta.err_hist, tb.err_hist, equal_nan=True)
+    assert kp.compensated_residual.launches == 2
+    assert kp.compensated_residual_plain.calls == 2
+    assert (kp.pair_residual.launches > 0) == guarantee
+    assert kp.pair_residual.launches == kp.pair_residual_plain.calls
+
+
 # the C entry point each wrapper of kernels.KERNELS launches
 ENTRY_POINTS = {
     "K1 poisson_iter": "ns3d_poisson_iter",
@@ -1484,6 +1633,8 @@ ENTRY_POINTS = {
     "K12 poisson_iter_resident_ext": "ns3d_poisson_iter_resident_ext",
     "K7-dist poisson_iter_bc_dist": "ns3d_poisson_iter_bc_dist",
     "K2-dist poisson_iter_ext_bc_dist": "ns3d_poisson_iter_ext_bc_dist",
+    "K13 compensated_residual": "ns3d_comp_residual",
+    "K13-pair pair_residual": "ns3d_comp_residual",
 }
 FIRST_STEP_SCRIPT = """
 import json
